@@ -5,18 +5,44 @@ Run from the repo root with no arguments: python3 chip_smoke.py
 Phases, each printing one JSON line; any mismatch raises, so the script
 exits nonzero and prints no "ok" line:
 
-1. device  - the card, its power limit, torch's CUDA version, nvcc/ninja
-2. build   - native/libstagea.so (make) and the sm_90a deblock kernel
-             (nvcc), started together
-3. kernel  - the deblock kernel against its plain torch version on the
-             card (torch.equal), bd 8/10/12, luma/chroma, small shapes
-             plus the 1080p and 4K planes; per-pass kernel and plain ms
-4. slice   - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31_enc
-             .ivf through Decoder(Settings(decode_frame_type=3)) on
-             cuda: one picture, the expected md5, per-stage wall ms, and
-             the kernel launch counts of this main-path run
-5. 10-bit  - the same for the 4K 10-bit keyframe
-6. kernels - the per-kernel summary line
+1. device     - the card, its power limit, torch's CUDA version,
+                nvcc/ninja
+2. build      - native/libstagea.so (make) and the four sm_90a kernels
+                (deblock, mc_put, mc_comp, itx_add; one nvcc each), all
+                started together
+3. kernel     - the deblock kernel against its plain torch version on
+                the card (torch.equal), bd 8/10/12, luma/chroma, small
+                shapes plus the 1080p and 4K planes; per-pass kernel and
+                plain ms
+4. kernel_mc  - the put and compound kernels against their plain
+                versions (torch.equal): bd 8/10/12, every put size
+                2..128 with every filter type (8-tap and bilinear) and
+                windows across every frame edge; compounds with all four
+                combine modes, wedge masks of classes 16 and 32 for every
+                layout, and the seg mask from luma to chroma
+5. kernel_itx - the residual kernel against its plain version: all 19
+                transform sizes with every valid (row, column) kind pair,
+                plus WHT, bd 8/10/12
+6. kernel_real- the first 2 temporal units of the s7 stream decoded on
+                cuda with every put / compound / residual launch of the
+                inter frame checked against the plain version on the
+                same inputs; then, on those inputs, each kernel's device
+                time (torch.profiler), the plain version's ms and the
+                bound
+7. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
+                _enc.ivf through Decoder(Settings(decode_frame_type=3))
+                on cuda: one picture, the expected md5, per-stage wall
+                ms, and the kernel launch counts of this path's run
+8. hbd        - the same for the 4K 10-bit keyframe
+9. inter      - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
+                through Decoder(Settings()) on cuda: per-picture and
+                stream md5s, the launch counts of this main-path run
+                (each kernel > 0), stage ms, wall ms (median of 3) and
+                the device idle share and per-kernel device ms of one
+                profiled decode
+10. inter_hbd - the same for the first 2 temporal units of
+                bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
+11. kernels   - the per-kernel summary line
 
 then the card's name and power limit, and the final {"ok": true, ...}
 line.
@@ -41,6 +67,31 @@ MD5_1080P = "25ead3c156609f2b398c7f4f14141b23"
 MD5_4K10 = "2ed9103fb6b4e5d644968bac73475bed"
 STREAM_1080P = "bench_streams/1920x1080_8b_flt_s31_enc.ivf"
 STREAM_4K10 = "bench_streams/3840x2160_10b_flt_s33_enc.ivf"
+# every picture of bench_streams/1920x1080_8b_flt_s7.ivf (8 temporal
+# units, inter frames) and the md5 of one muxer over all 8, from
+# dav1d_tpu's golden numpy path (DAV1D_TPU_BACKEND=numpy,
+# Settings(n_threads=1), dav1d_tpu.utils.muxers.Md5Muxer)
+STREAM_S7 = "bench_streams/1920x1080_8b_flt_s7.ivf"
+MD5S_S7 = ["f17212bafb21900b1d1682880fb6f167",
+           "c5e7cfa0696414def0c51602b95ac49b",
+           "c1e35f23c5864fc12bfdaa85d28fbfa5",
+           "448e91e7d149d92fcceff90e33655305",
+           "1cdd9d19b811b695889d8da7798d46c3",
+           "f2bb710b4217bbb3c4ac849a422295dc",
+           "6ccc53c6ed3f566c51bc42f6aabc9981",
+           "812386a128296b52fd17ee0d812a3a4e"]
+MD5_S7 = "3c030b2d9bdfdd923d5eb6314e4e1c10"
+# the same recipe on the first 2 temporal units (keyframe + one inter
+# frame) of the 4K 10-bit stream
+STREAM_S11 = "bench_streams/3840x2160_10b_flt_s11.ivf"
+MD5S_S11 = ["dfe5383e5aaa40b4d9741cb2a798e26d",
+            "b5c3325247c7fcc06af5ae5e7b8b84fa"]
+MD5_S11 = "8c08bc5b1fce7625d9bd0ab7abf1a9dc"
+KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add")
+# the CUDA kernels' names in a profiler trace, per wrapper
+KERNEL_NAMES = {"deblock": ("deblock_",), "mc_put": ("mc_put_kernel",),
+                "mc_comp": ("mc_comp_kernel",),
+                "itx_add": ("itx_add_kernel", "itx_wht_kernel")}
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
@@ -48,7 +99,8 @@ INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
 # (tap differences, compares, LUT math); the data-dependent filter
 # arithmetic comes on top, so this bounds the op time from below
 DEBLOCK_OPS_PER_EDGE_LINE = 60
-REPEATS = 11                    # untimed decodes per stream (median)
+REPEATS = 5                     # untimed keyframe decodes (median)
+INTER_REPEATS = 3               # untimed inter-stream decodes (median)
 
 
 def emit(obj):
@@ -80,14 +132,15 @@ def phase_build():
     make = subprocess.Popen(["make", "-C", os.path.join(ROOT, "native")],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    built = cuda_build.build(["deblock"])
+    built = cuda_build.build(list(KERNELS))
     t_cuda = time.perf_counter() - t0
     out, err = make.communicate()
     t_make = time.perf_counter() - t0
     if make.returncode != 0:
         raise RuntimeError(f"make -C native failed:\n{out}{err}")
     ptxas = [ln.strip() for n in built for ln in
-             built[n]["ptxas"].splitlines() if "registers" in ln]
+             built[n]["ptxas"].splitlines()
+             if "registers" in ln or "entry function" in ln]
     emit({"phase": "build", "native_make_s": t_make,
           "cuda_s": {n: built[n]["seconds"] for n in built},
           "cuda_wall_s": t_cuda, "ptxas": ptxas})
@@ -247,11 +300,363 @@ def phase_kernel(torch, card):
             else "operations"}
 
 
-def _decode(path, timed):
-    """Decode the keyframe of `path` on cuda through the public API;
-    returns (pictures, md5, wall ms, stage ms)."""
+def _counts_reset():
+    from dav1d_tpu_torch.ops import itx, lf, mc
+    for d in (lf.LAUNCHES, mc.LAUNCHES, itx.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def _counts():
+    from dav1d_tpu_torch.ops import itx, lf, mc
+    return {**lf.LAUNCHES, **mc.LAUNCHES, **itx.LAUNCHES}
+
+
+def _t(torch, a, dev):
+    import numpy as np
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _check_equal(torch, got, want, what):
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:4].tolist()
+        raise AssertionError(f"{what}: kernel != plain at {bad}")
+    return err
+
+
+def phase_kernel_mc(torch, card):
+    """Synthetic put and compound cases: kernel vs plain, torch.equal."""
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    dev = torch.device("cuda")
+    tb = device_tables(dev)
+    errs = {"mc_put": 0, "mc_comp": 0}
+    n_put = n_comp = 0
+    for bd in (8, 10, 12):
+        for seed in (bd, bd + 100):
+            case = kc.put_case(bd, seed)
+            refs = [_t(torch, r, dev) for r in case["refs"]]
+            jobs = _t(torch, case["jobs"], dev)
+            got = torch.zeros(case["dst_shape"], dtype=torch.int32,
+                              device=dev)
+            want = got.clone()
+            mc.put_cuda(refs, jobs, got, case["rh"], case["rw"], bd)
+            mc.put_plain(refs, jobs, want, case["rh"], case["rw"], bd,
+                         tb["mc_filter_banks"])
+            torch.cuda.synchronize()
+            errs["mc_put"] = max(errs["mc_put"], _check_equal(
+                torch, got, want, f"mc_put bd={bd} seed={seed}"))
+            n_put += len(case["jobs"])
+        for ss in ((1, 1), (1, 0), (0, 0)):
+            case = kc.comp_case(bd, bd + 3 * ss[0] + ss[1], *ss)
+            outs = {}
+            for name in ("kernel", "plain"):
+                seg = torch.zeros(case["seg_shape"], dtype=torch.int32,
+                                  device=dev)
+                planes = []
+                for sfx, luma in (("y", True), ("c", False)):
+                    refs = [_t(torch, r, dev) for r in case[f"refs_{sfx}"]]
+                    jobs = _t(torch, case[f"jobs_{sfx}"], dev)
+                    plane = torch.zeros(case[f"dst_{sfx}"],
+                                        dtype=torch.int32, device=dev)
+                    rh, rw = case[f"bounds_{sfx}"]
+                    if name == "kernel":
+                        mc.comp_cuda(refs, jobs, plane, seg, rh, rw, bd,
+                                     tb["mc_wedge_lut16"],
+                                     tb["mc_wedge_lut32"], luma, *ss)
+                    else:
+                        mc.comp_plain(refs, jobs, plane, seg, rh, rw, bd,
+                                      tb["mc_filter_banks"],
+                                      tb["mc_wedge_lut16"],
+                                      tb["mc_wedge_lut32"], luma, *ss)
+                    planes.append(plane)
+                outs[name] = planes + [seg]
+            torch.cuda.synchronize()
+            for what, a, b in zip(("luma", "chroma", "seg"), outs["kernel"],
+                                  outs["plain"]):
+                errs["mc_comp"] = max(errs["mc_comp"], _check_equal(
+                    torch, a, b, f"mc_comp bd={bd} ss={ss} {what}"))
+            n_comp += len(case["jobs_y"]) + len(case["jobs_c"])
+    emit({"phase": "kernel_mc", "card": card, "put_jobs": n_put,
+          "comp_jobs": n_comp, "max_abs_err": errs, "equal": True})
+    return errs
+
+
+def phase_kernel_itx(torch, card):
+    """Synthetic residual cases: kernel vs plain, torch.equal."""
+    from dav1d_tpu_torch.ops import itx
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    dev = torch.device("cuda")
+    err = n = 0
+    for bd in (8, 10, 12):
+        for seed in (bd, bd + 100):
+            case = kc.itx_case(bd, seed)
+            pool = _t(torch, case["pool"], dev)
+            for wht in (False, True):
+                jobs = _t(torch, case["wht" if wht else "jobs"], dev)
+                got = _t(torch, case["plane"], dev)
+                want = got.clone()
+                itx.itx_add_cuda(pool, jobs, got, bd, wht=wht)
+                itx.itx_add_plain(pool, jobs, want, bd, wht=wht)
+                torch.cuda.synchronize()
+                err = max(err, _check_equal(
+                    torch, got, want, f"itx_add bd={bd} seed={seed} "
+                    f"wht={wht}"))
+                n += len(jobs)
+    emit({"phase": "kernel_itx", "card": card, "jobs": n,
+          "max_abs_err": err, "equal": True})
+    return err
+
+
+def _put_work(jobs, n_refs, ref_shape, rh, rw):
+    """(bytes, ops) a put call must move / do: the distinct reference
+    pixels its windows read (each once), each output pixel written once
+    and the job table; 2 ops per multiply-add of the two 8-tap passes
+    (bilinear: 2 taps) plus the two roundings and the clip."""
+    import numpy as np
+    seen = np.zeros((n_refs, *ref_shape), bool)
+    ops = 0
+    for j in np.asarray(jobs).tolist():
+        h, w, slot, dy, dx, ft = j[1], j[2], j[5], j[6], j[7], j[10]
+        taps, off = (2, 0) if ft < 0 else (8, 3)
+        y0, x0 = dy - off, dx - off
+        y1, x1 = y0 + h + taps - 1, x0 + w + taps - 1
+        seen[slot, min(max(y0, 0), rh - 1):min(max(y1, 0), rh - 1) + 1,
+             min(max(x0, 0), rw - 1):min(max(x1, 0), rw - 1) + 1] = True
+        ops += 2 * taps * ((h + taps - 1) * w + h * w) + 4 * h * w
+    out = int(sum(j[1] * j[2] for j in np.asarray(jobs).tolist()))
+    return 4 * (int(seen.sum()) + out + np.asarray(jobs).size), ops
+
+
+def _comp_work(jobs, n_refs, ref_shape, rh, rw, luma, ss_hor, ss_ver):
+    """(bytes, ops) of a compound call, counted as _put_work for both
+    predictions, plus the seg plane's writes (luma seg jobs, at chroma
+    size) or reads (chroma jobs with mkind 2) and 12 ops per pixel for
+    the combine."""
+    import numpy as np
+    j = np.asarray(jobs)
+    b0, o0 = _put_work(np.concatenate([j[:, :5], j[:, 18:19], j[:, 13:17],
+                                       j[:, 17:18]], 1), n_refs,
+                       ref_shape, rh, rw)
+    b1, o1 = _put_work(np.concatenate([j[:, :5], j[:, 24:25], j[:, 19:23],
+                                       j[:, 23:24]], 1), n_refs,
+                       ref_shape, rh, rw)
+    out = int((j[:, 1] * j[:, 2]).sum())
+    # each prediction's count holds the output and an 11-column table
+    # once: keep one output and the real 25-column table
+    bytes_ = b0 + b1 - 4 * (out + 2 * len(j) * 11) + 4 * j.size
+    if luma:
+        seg = j[j[:, 5] == 3]
+        seg_px = int(((seg[:, 1] >> ss_ver) * (seg[:, 2] >> ss_hor)).sum())
+    else:
+        seg = j[j[:, 8] == 2]
+        seg_px = int((seg[:, 1] * seg[:, 2]).sum())
+    return bytes_ + 4 * seg_px, o0 + o1 + 12 * out
+
+
+def _itx_work(jobs, wht):
+    """(bytes, ops) of a residual call: each coefficient read once, each
+    pixel read and written once, the job table; ops: N log2 N adds per
+    1-D transform of N points (the butterflies' additions alone, a lower
+    bound) plus the add and clip."""
+    import math
+    import numpy as np
+    from dav1d_tpu_torch.entropy import levels as lv
+    from dav1d_tpu_torch.ops.itx import CF_LEN
+    j = np.asarray(jobs)
+    if wht:
+        n = len(j)
+        return 4 * (n * 16 * 3 + j.size), n * (16 * 2 * 8 + 16 * 2)
+    bytes_ = ops = 0
+    for tx in j[:, 0].tolist():
+        t = lv.TXFM_INFO[tx]
+        w, h = 4 * t.w, 4 * t.h
+        bytes_ += 4 * (int(CF_LEN[tx]) + 2 * w * h)
+        ops += min(h, 32) * w * int(math.log2(w)) + \
+            w * h * int(math.log2(h)) + 2 * w * h
+    return bytes_ + 4 * j.size, ops
+
+
+def _bound(bytes_, ops):
+    tb, to = bytes_ / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def phase_kernel_real(torch, card):
+    """Decode the first 2 temporal units of the s7 stream on cuda with
+    every put / compound / residual launch of its inter frame checked
+    against the plain version on the same inputs; then time each kernel
+    and its plain version on those inputs."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from dav1d_tpu_torch.ops import itx, mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    dev = torch.device("cuda")
+    tb = device_tables(dev)
+    calls = {"mc_put": [], "mc_comp": [], "itx_add": []}
+    errs = {k: 0 for k in calls}
+    orig = {"put": mc.put, "comp": mc.comp, "itx_add": itx.itx_add}
+
+    def put(refs, jobs, plane, rh, rw, bd):
+        before = plane.clone()
+        orig["put"](refs, jobs, plane, rh, rw, bd)
+        want = before.clone()
+        mc.put_plain(refs, jobs, want, rh, rw, bd, tb["mc_filter_banks"])
+        errs["mc_put"] = max(errs["mc_put"], _check_equal(
+            torch, plane, want, "mc_put on s7 tables"))
+        calls["mc_put"].append((refs, jobs, before, rh, rw, bd))
+        return plane
+
+    def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver):
+        before, seg_before = plane.clone(), seg.clone()
+        orig["comp"](refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor,
+                     ss_ver)
+        want, want_seg = before.clone(), seg_before.clone()
+        mc.comp_plain(refs, jobs, want, want_seg, rh, rw, bd,
+                      tb["mc_filter_banks"], tb["mc_wedge_lut16"],
+                      tb["mc_wedge_lut32"], luma, ss_hor, ss_ver)
+        for a, b in ((plane, want), (seg, want_seg)):
+            errs["mc_comp"] = max(errs["mc_comp"], _check_equal(
+                torch, a, b, "mc_comp on s7 tables"))
+        calls["mc_comp"].append((refs, jobs, before, seg_before, rh, rw,
+                                 bd, luma, ss_hor, ss_ver))
+        return plane
+
+    def itx_add(pool, jobs, plane, bd, wht=False):
+        before = plane.clone()
+        orig["itx_add"](pool, jobs, plane, bd, wht)
+        want = before.clone()
+        itx.itx_add_plain(pool, jobs, want, bd, wht)
+        errs["itx_add"] = max(errs["itx_add"], _check_equal(
+            torch, plane, want, "itx_add on s7 tables"))
+        calls["itx_add"].append((pool, jobs, before, bd, wht))
+        return plane
+
+    mc.put, mc.comp, itx.itx_add = put, comp, itx_add
+    try:
+        _, digest, _, _, md5s = _decode(STREAM_S7, timed=False, n_tu=2)
+    finally:
+        mc.put, mc.comp, itx.itx_add = orig["put"], orig["comp"], \
+            orig["itx_add"]
+    if md5s != MD5S_S7[:2]:
+        raise AssertionError(f"kernel_real: md5s {md5s}")
+    if not all(calls.values()):
+        raise AssertionError(f"kernel_real: a kernel had no launch: "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
+
+    # each launch, given fresh copies of its inputs
+    def runners(name, plain):
+        out = []
+        for c in calls[name]:
+            if name == "mc_put":
+                refs, jobs, before, rh, rw, bd = c
+                out.append((before, None, (lambda p, s, c=c: mc.put_plain(
+                    c[0], c[1], p, c[3], c[4], c[5], tb["mc_filter_banks"]))
+                    if plain else (lambda p, s, c=c: mc.put_cuda(
+                        c[0], c[1], p, c[3], c[4], c[5]))))
+            elif name == "mc_comp":
+                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv = c
+                if plain:
+                    fn = (lambda p, s, c=c: mc.comp_plain(
+                        c[0], c[1], p, s, c[4], c[5], c[6],
+                        tb["mc_filter_banks"], tb["mc_wedge_lut16"],
+                        tb["mc_wedge_lut32"], c[7], c[8], c[9]))
+                else:
+                    fn = (lambda p, s, c=c: mc.comp_cuda(
+                        c[0], c[1], p, s, c[4], c[5], c[6],
+                        tb["mc_wedge_lut16"], tb["mc_wedge_lut32"], c[7],
+                        c[8], c[9]))
+                out.append((before, segb, fn))
+            else:
+                pool, jobs, before, bd, wht = c
+                out.append((before, None, (lambda p, s, c=c:
+                            itx.itx_add_plain(c[0], c[1], p, c[3], c[4]))
+                            if plain else (lambda p, s, c=c:
+                            itx.itx_add_cuda(c[0], c[1], p, c[3], c[4]))))
+        return out
+
+    def frame_ms(name, plain, reps):
+        """Sum over the frame's launches of the CUDA-event time of one
+        call on fresh copies; median of `reps` rounds."""
+        rounds = []
+        for _ in range(reps):
+            total = 0.0
+            for before, segb, fn in runners(name, plain):
+                p = before.clone()
+                s = segb.clone() if segb is not None else None
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                fn(p, s)
+                b.record()
+                torch.cuda.synchronize()
+                total += a.elapsed_time(b)
+            rounds.append(total)
+        return sorted(rounds)[reps // 2]
+
+    names = KERNEL_NAMES
+    reps = 5
+    res = {}
+    for name in calls:
+        frame_ms(name, False, 1)                          # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for before, segb, fn in runners(name, False):
+                    fn(before.clone(),
+                       segb.clone() if segb is not None else None)
+            torch.cuda.synchronize()
+        dev_us = 0.0
+        for ev in prof.key_averages():
+            if any(k in ev.key for k in names[name]):
+                t = getattr(ev, "device_time_total", None)
+                dev_us += t if t is not None else \
+                    getattr(ev, "cuda_time_total", 0)
+        if not dev_us:
+            raise RuntimeError(f"torch.profiler reported no device time "
+                               f"for {name}")
+        bytes_ = ops = 0
+        for c in calls[name]:
+            if name == "mc_put":
+                refs, jobs, before, rh, rw, bd = c
+                b, o = _put_work(jobs.cpu().numpy(), len(refs),
+                                 tuple(refs[0].shape), rh, rw)
+            elif name == "mc_comp":
+                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv = c
+                b, o = _comp_work(jobs.cpu().numpy(), len(refs),
+                                  tuple(refs[0].shape), rh, rw, luma, sh,
+                                  sv)
+            else:
+                b, o = _itx_work(c[1].cpu().numpy(), c[4])
+            bytes_ += b
+            ops += o
+        bound_ms, bound_by = _bound(bytes_, ops)
+        res[name] = {
+            "launches_per_frame": len(calls[name]),
+            "jobs_per_frame": int(sum(len(c[1]) for c in calls[name])),
+            "max_abs_err": errs[name],
+            "ms": dev_us / reps / 1e3,
+            "wrapper_ms": frame_ms(name, False, reps),
+            "plain_ms": frame_ms(name, True, 3),
+            "bytes": bytes_, "ops": ops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    emit({"phase": "kernel_real", "card": card, "stream": STREAM_S7,
+          "frame": 2, "md5s": md5s, "equal": True, "kernels": res,
+          "library_ms": "null: no single PyTorch call computes a "
+          "clamped-window 8-tap put, a masked compound or an integer AV1 "
+          "inverse transform"})
+    return res
+
+
+def _decode(path, timed, frame_type=None, n_tu=None):
+    """Decode `path` (its first n_tu temporal units; keyframes only
+    with frame_type=3) on cuda through the public API; returns
+    (pictures, stream md5, wall ms, stage ms, per-picture md5s)."""
     import torch
-    from dav1d_tpu_torch.api import DECODEFRAMETYPE_KEY, Decoder, Settings
+    from dav1d_tpu_torch.api import Decoder, Settings
     from dav1d_tpu_torch.bitstream.ivf import IvfReader
     from dav1d_tpu_torch.utils import timing
     from dav1d_tpu_torch.utils.muxers import Md5Muxer
@@ -260,66 +665,93 @@ def _decode(path, timed):
     timing.ENABLED = timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dec = Decoder(Settings(decode_frame_type=DECODEFRAMETYPE_KEY))
+    settings = Settings() if frame_type is None else \
+        Settings(decode_frame_type=frame_type)
+    dec = Decoder(settings)
     mux = Md5Muxer()
-    pics = []
-    for fr in IvfReader(data):
+    pics, md5s = [], []
+    for i, fr in enumerate(IvfReader(data)):
+        if n_tu is not None and i >= n_tu:
+            break
         dec.send_data(fr.data)
         for pic in dec.pictures():
             mux.write_picture(pic)
+            one = Md5Muxer()
+            one.write_picture(pic)
+            md5s.append(one.digest())
             pics.append(pic)
     dec.close()
     wall = (time.perf_counter() - t0) * 1e3
     stages = {k: v * 1e3 for k, v in timing._T.items()}
     timing.ENABLED = False
-    return pics, mux.digest(), wall, stages
+    return pics, mux.digest(), wall, stages, md5s
 
 
-def _device_busy_ms(torch, path):
+def _profiled(torch, path, **kw):
     """One profiled (untimed) decode: the summed duration of the device
-    activities (kernels, copies, memsets) and the decode's wall ms."""
+    activities (kernels, copies, memsets), each kernel's device ms, and
+    the decode's wall ms and md5."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, digest, wall, _ = _decode(path, timed=False)
+        _, digest, wall, _, _ = _decode(path, timed=False, **kw)
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return digest, busy_us / 1e3, wall
+    per = {}
+    for ev in prof.key_averages():
+        for name, keys in KERNEL_NAMES.items():
+            if any(k in ev.key for k in keys):
+                t = getattr(ev, "device_time_total", None)
+                per[name] = per.get(name, 0.0) + (
+                    t if t is not None else getattr(ev, "cuda_time_total",
+                                                    0)) / 1e3
+    return digest, busy_us / 1e3, wall, per
 
 
-def phase_stream(torch, name, path, md5, shape, dtype, lf_mod):
-    import numpy as np
+def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
+                 need=("deblock",), repeats=REPEATS, **kw):
+    """Decode a stream on cuda through the public API: md5s, launch
+    counts of the counted run (each kernel in `need` > 0), stage ms,
+    untimed walls and the device idle share of one profiled decode."""
     # first decode warms the device (allocator, library handles)
-    _, _, wall_first, _ = _decode(path, timed=False)
-    lf_mod.LAUNCHES["deblock"] = 0
-    pics, digest, wall_timed, stages = _decode(path, timed=True)
-    launches = dict(lf_mod.LAUNCHES)
-    if len(pics) != 1:
-        raise AssertionError(f"{name}: {len(pics)} pictures, expected 1")
+    _, _, wall_first, _, _ = _decode(path, timed=False, **kw)
+    _counts_reset()
+    pics, digest, wall_timed, stages, md5s = _decode(path, timed=True, **kw)
+    launches = _counts()
+    n_pics = len(pic_md5s) if pic_md5s else 1
+    if len(pics) != n_pics:
+        raise AssertionError(f"{name}: {len(pics)} pictures, expected "
+                             f"{n_pics}")
     y = pics[0].planes[0]
+    import numpy as np
     if y.shape != shape or y.dtype != np.dtype(dtype):
         raise AssertionError(f"{name}: luma {y.shape} {y.dtype}")
+    if pic_md5s and md5s != pic_md5s:
+        raise AssertionError(f"{name}: picture md5s {md5s} != {pic_md5s}")
     if digest != md5:
         raise AssertionError(f"{name}: md5 {digest} != {md5}")
-    if launches["deblock"] == 0:
-        raise AssertionError(f"{name}: the deblock kernel never launched")
+    for k in need:
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: the {k} kernel never launched")
     walls = []
-    for _ in range(REPEATS):
-        _, d2, wall, _ = _decode(path, timed=False)
+    for _ in range(repeats):
+        _, d2, wall, _, _ = _decode(path, timed=False, **kw)
         if d2 != md5:
             raise AssertionError(f"{name}: md5 {d2} on a repeat decode")
         walls.append(wall)
-    d3, busy_ms, prof_wall = _device_busy_ms(torch, path)
+    d3, busy_ms, prof_wall, kernel_ms = _profiled(torch, path, **kw)
     if d3 != md5:
         raise AssertionError(f"{name}: md5 {d3} in the profiled decode")
-    emit({"phase": name, "stream": path, "md5": digest, "pictures": 1,
+    emit({"phase": name, "stream": path, "md5": digest, "pictures": n_pics,
           "luma_shape": list(y.shape), "launches": launches,
           "first_wall_ms": wall_first, "synced_wall_ms": wall_timed,
           "stage_ms": stages,
-          "wall_ms": walls, "wall_ms_median": sorted(walls)[REPEATS // 2],
+          "wall_ms": walls, "wall_ms_median": sorted(walls)[repeats // 2],
           "wall_ms_min": min(walls), "wall_ms_max": max(walls),
+          "fps_median": 1e3 * n_pics / sorted(walls)[repeats // 2],
           "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / prof_wall})
+          "device_idle_share": 1 - busy_ms / prof_wall,
+          "kernel_device_ms": kernel_ms})
     return launches
 
 
@@ -333,20 +765,44 @@ def main():
     card = smi()
     phase_device(torch)
     phase_build()
-    kern = phase_kernel(torch, card)
-    from dav1d_tpu_torch.ops import lf as lf_mod
-    launches = phase_stream(torch, "slice", STREAM_1080P, MD5_1080P,
-                            (1152, 1920), "uint8", lf_mod)
+    lines = {k: {} for k in KERNELS}
+    lines["deblock"].update(phase_kernel(torch, card))
+    for k, e in phase_kernel_mc(torch, card).items():
+        lines[k]["max_abs_err"] = e
+    lines["itx_add"]["max_abs_err"] = phase_kernel_itx(torch, card)
+    for k, r in phase_kernel_real(torch, card).items():
+        lines[k].update({f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")})
+        lines[k]["max_abs_err"] = max(lines[k]["max_abs_err"],
+                                      r["max_abs_err"])
+    phase_stream(torch, "slice", STREAM_1080P, MD5_1080P, (1152, 1920),
+                 "uint8", frame_type=3)
     phase_stream(torch, "hbd", STREAM_4K10, MD5_4K10, (2176, 3840),
-                 "uint16", lf_mod)
+                 "uint16", frame_type=3)
+    launches = phase_stream(torch, "inter", STREAM_S7, MD5_S7, (1152, 1920),
+                            "uint8", pic_md5s=MD5S_S7, need=KERNELS,
+                            repeats=INTER_REPEATS)
+    for k in KERNELS:                  # this slice's main path
+        lines[k]["launches"] = launches[k]
+    phase_stream(torch, "inter_hbd", STREAM_S11, MD5_S11, (2176, 3840),
+                 "uint16", pic_md5s=MD5S_S11, need=KERNELS,
+                 repeats=INTER_REPEATS, n_tu=2)
+    sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
+                           "dav1d_tpu/ops/lf_pallas.py:74"),
+               "mc_put": ("dav1d_tpu_torch/csrc/mc_put.cu",
+                          "dav1d_tpu/ops/mc_pallas.py:41"),
+               "mc_comp": ("dav1d_tpu_torch/csrc/mc_comp.cu",
+                           "dav1d_tpu/ops/mc_fused.py:626"),
+               "itx_add": ("dav1d_tpu_torch/csrc/itx_add.cu",
+                           "dav1d_tpu/ops/mc_fused.py:733")}
+    # library_ms is null for every kernel: no single PyTorch call
+    # computes a deblock pass, a clamped-window 8-tap put, a masked
+    # compound or an integer AV1 inverse transform
     emit({"kernels": [{
-        "name": "deblock", "route": "cuda",
-        "source": "dav1d_tpu_torch/csrc/deblock.cu",
-        "replaces": "dav1d_tpu/ops/lf_pallas.py:74",
-        "launches": launches["deblock"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": None}]})
+        "name": k, "route": "cuda", "source": sources[k][0],
+        "replaces": sources[k][1], **{f: lines[k][f] for f in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}, "library_ms": None} for k in KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

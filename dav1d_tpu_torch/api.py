@@ -163,6 +163,7 @@ class Decoder:
                 from .utils import timing
                 with timing.phase("fetch"):
                     fetch_pic_host(pic)
+                self._dec.release_device_planes(pic)
                 pic.props = props or DataProps()
                 self.stats["pictures_out"] += 1
                 return pic

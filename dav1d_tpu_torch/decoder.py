@@ -6,9 +6,10 @@ flow (reference obu.c:1169-1695, decode.c:3327-3712): ref-slot pictures
 refresh_frame_flags, refmvs frame init, and show_existing_frame.
 
 PyTorch port of dav1d_tpu's decoder.py: key and intra frames
-reconstruct on the host (native engine) and run the in-loop filter
-chain on the settings' device. Inter and intrabc frames, film grain and
-the sharding mesh raise NotImplementedError naming their ROADMAP item.
+reconstruct on the host (native engine), inter frames run Stage B on
+the settings' device (recon/inter_device.py), and every frame runs the
+in-loop filter chain there. Intrabc frames, film grain and the sharding
+mesh raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -501,6 +502,14 @@ class ObuStreamDecoder:
             in_cdf = self.refs[pri].cdf
 
         plan = FramePlan(f)
+        if not key_or_intra and self.do_recon and coder_factory is None:
+            # lazy-block fast path: native Stage A -> native inter-job
+            # emitter -> device Stage B, with Python Block objects
+            # built only on demand (leftover replay)
+            from .ops import lf_native
+            from .recon import inter_jobs_native
+            plan.want_lazy = (inter_jobs_native.available() and
+                              lf_native.available())
         out_cdf = None
         n_cols = fh.tiling.cols
         n_tiles_f = fh.tiling.rows * n_cols
@@ -581,13 +590,17 @@ class ObuStreamDecoder:
         if fh.segmentation.enabled:
             cur_segmap = plan.b4_seg.copy()
         final_cdf = out_cdf if fh.refresh_context else in_cdf
+        replaced = []
         for i in range(8):
             if fh.refresh_frame_flags & (1 << i):
+                replaced.append(self.refs[i].pic)
                 self.refs[i] = RefSlot(
                     pic=pic, frame_hdr=fh, poc=fh.frame_offset,
                     refpoc=list(f.refpoc), cdf=final_cdf, rp=rp,
                     segmap=cur_segmap)
                 self.state.refs[i].frame_hdr = fh
+        for old in replaced:
+            self.release_device_planes(old)
 
         st.frame_hdr = None
         self.tile_groups = []
@@ -642,20 +655,38 @@ class ObuStreamDecoder:
 
         return pic, finish
 
+    def release_device_planes(self, pic):
+        """Drop the device planes of a picture that no ref slot holds
+        once its host planes are current (it was output). A frame still
+        waiting for Stage B that references it uploads it again."""
+        from .parallel.executor import peek
+        pic = peek(pic)
+        if pic is None or pic.dev is None or pic.host_stale:
+            return
+        if any(peek(s.pic) is pic for s in self.refs):
+            return
+        pic.dev = None
+
     def _recon_and_finish_inner(self, plan, refp, fh, seq, key_or_intra):
+        from .parallel.executor import resolve
+        if refp is not None:
+            for slot in refp:
+                if slot is not None and hasattr(slot.pic, "result"):
+                    slot.pic = resolve(slot.pic)
         if self.settings.sharding_mesh is not None:
             raise NotImplementedError(
                 "sharded decode not ported yet: ROADMAP item 10")
-        if not key_or_intra:
-            raise NotImplementedError(
-                "inter frames not ported yet: ROADMAP item 2")
-        if fh.allow_intrabc:
+        from .recon.filters import run_filter_chain_device
+        if key_or_intra and not fh.allow_intrabc:
+            from .recon.intra import reconstruct_intra_frame
+            with timing.phase("intra.frame_recon"):
+                pic = reconstruct_intra_frame(plan)
+        elif not key_or_intra:
+            from .recon.inter_device import reconstruct_inter_frame_device
+            pic = reconstruct_inter_frame_device(plan, refp, self.device)
+        else:
             raise NotImplementedError(
                 "intrabc frames not ported yet: ROADMAP item 5")
-        from .recon.intra import reconstruct_intra_frame
-        from .recon.filters import run_filter_chain_device
-        with timing.phase("intra.frame_recon"):
-            pic = reconstruct_intra_frame(plan)
         pic = run_filter_chain_device(pic, plan,
                                       self.settings.inloop_filters,
                                       self.device)

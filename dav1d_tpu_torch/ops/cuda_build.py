@@ -80,6 +80,21 @@ def build(names) -> dict:
     return built
 
 
+def check_tensor(t, name, dtype, device, shape=None, ndim=2):
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` of
+    `shape` (or, with shape None, of `ndim` dimensions): what a kernel
+    given t.data_ptr() assumes."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} dtype {t.dtype}, expected {dtype}")
+    want = f"{ndim}-d" if shape is None else str(tuple(shape))
+    if t.dim() != ndim if shape is None else tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {want}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load_library(name: str) -> ct.CDLL:
     """The ctypes handle of lib<name>.so, built first if needed."""
     with _LOCK:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from ..utils import timing
 
 
 def resolve_device(name) -> torch.device:
@@ -53,9 +54,14 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
     cdef_proj            (64, 90) float64 CDEF direction projection
     sgr_x_by_x           (256,) int64
     sgr_params           (16, 2) int32
+    mc_filter_banks      (2, 4, 16, 8) int32 MC subpel taps
+    mc_wedge_lut16       (1056, 16, 16) int8 wedge masks, class 16
+    mc_wedge_lut32       (1056, 32, 32) int8 wedge masks, class 32
     """
     from .lf_ref import calc_eih
     from .cdef import proj_matrix
+    from .mc import filter_banks_from
+    from .mc_fused import _wedge_lut
     dev = torch.device(device)
     e = np.stack([calc_eih(s)[0] for s in range(8)]).astype(np.int32)
     i = np.stack([calc_eih(s)[1] for s in range(8)]).astype(np.int32)
@@ -68,12 +74,17 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
             d["dav1d_sgr_x_by_x"], np.int64)).to(dev),
         "sgr_params": torch.from_numpy(np.asarray(
             d["dav1d_sgr_params"], np.int32)).to(dev),
+        "mc_filter_banks": torch.from_numpy(filter_banks_from(
+            d["dav1d_mc_subpel_filters"])).to(dev),
+        "mc_wedge_lut16": torch.from_numpy(_wedge_lut(16)).to(dev),
+        "mc_wedge_lut32": torch.from_numpy(_wedge_lut(32)).to(dev),
     }
 
 
 @lru_cache(maxsize=None)
 def _tables_on(device: str) -> dict:
-    names = ("dav1d_sgr_x_by_x", "dav1d_sgr_params")
+    names = ("dav1d_sgr_x_by_x", "dav1d_sgr_params",
+             "dav1d_mc_subpel_filters")
     return tables_from_numpy({k: tables.get(k) for k in names}, device)
 
 
@@ -81,6 +92,13 @@ def device_tables(device) -> dict:
     """The LUTs of tables_from_numpy for this package's own tables,
     built once per device."""
     return _tables_on(str(torch.device(device)))
+
+
+def sync_if_timed(device):
+    """With utils.timing enabled, wait for `device` so that the timed
+    section holds its device work."""
+    if timing.ENABLED and device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _fetch_dtype(bpc):
@@ -107,6 +125,26 @@ def queue_plane_fetch(planes_dev, bpc):
         event = torch.cuda.Event()
         event.record()
     return outs, event
+
+
+def fetch_rows(planes_dev, host_planes, spans, bpc):
+    """Copy rows [a, b) of each device int32 plane into the matching
+    host plane (cast down on the device); returns once the host rows
+    are current."""
+    hosts, event = queue_plane_fetch(
+        [pl[a:b] for pl, (a, b) in zip(planes_dev, spans)], bpc)
+    if event is not None:
+        event.synchronize()
+    for hp, (a, b), t in zip(host_planes, spans, hosts):
+        arr = t.numpy()
+        hp[a:b] = arr.view(np.uint16) if arr.dtype == np.int16 else arr
+
+
+def upload_rows(planes_dev, host_planes, spans):
+    """Write host rows [a, b) back into the device int32 planes, in
+    place (native dtype over the bus, widened on the device)."""
+    for pl, hp, (a, b) in zip(planes_dev, host_planes, spans):
+        pl[a:b] = upload_planes([hp[a:b]], pl.device)[0]
 
 
 def _materialize(pic, pending):

@@ -1,0 +1,203 @@
+"""Seeded inputs for the inter Stage-B kernels (put, compound, residual)
+that cover every case the kernels branch on, shared by the CPU parity
+tests and chip_smoke.py.
+
+Each case is a dict of numpy arrays in the layouts the wrappers take
+(ops/mc.py, ops/itx.py). Destinations are packed so that no two jobs of
+one call write the same pixel, as AV1's block partition guarantees on
+the decode path. Reference windows are placed on and across every frame
+edge, and the frame (rh, rw) is smaller than the allocated reference
+plane, as a 1080-row frame sits in 1152 allocated rows.
+"""
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+
+from ..entropy import levels as lv
+from .mc_ref import BS_32X32, FILTER2D_TO_TYPE
+
+# the emitter's filter types: 0..10 are 8-tap (h = ft & 3,
+# v = (ft >> 2) & 3), -1 is bilinear
+FT_VALUES = sorted(set(FILTER2D_TO_TYPE))
+
+# (h, w) of puts: luma blocks 4..128 and chroma blocks down to 2x2
+PUT_SIZES = [(2, 2), (2, 4), (4, 2), (4, 4), (4, 8), (8, 4), (4, 16),
+             (16, 4), (8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8),
+             (16, 32), (32, 16), (32, 32), (16, 64), (64, 16), (32, 64),
+             (64, 32), (64, 64), (64, 128), (128, 64), (128, 128)]
+# (h, w) of luma compound blocks (8x8 and up)
+COMP_SIZES = [(8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8),
+              (16, 32), (32, 16), (32, 32), (16, 64), (64, 16), (32, 64),
+              (64, 32), (64, 64), (64, 128), (128, 64), (128, 128)]
+# luma sizes with wedge masks (reference wedge.h:39)
+WEDGE_SIZES = [(8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8),
+               (16, 32), (32, 16), (32, 32)]
+# (ss_hor, ss_ver) -> the wedge LUT's layout index
+LAYOUT_CLIDX = {(0, 0): 0, (1, 0): 1, (1, 1): 2}
+MODE_WAVG, MODE_AVG, MODE_SEG, MODE_MASK = 1, 2, 3, 4
+REF_SHAPE = (160, 224)           # allocated reference plane
+FRAME = (150, 208)               # the frame's valid rows and columns
+
+
+def pack(sizes, width, align=8):
+    """Non-overlapping (py, px) for (h, w) sizes on shelves of a plane
+    `width` wide; returns (py, px, height)."""
+    py = np.zeros(len(sizes), np.int32)
+    px = np.zeros(len(sizes), np.int32)
+    x = y = shelf = 0
+    for i, (h, w) in enumerate(sizes):
+        wa, ha = -(-w // align) * align, -(-h // align) * align
+        if x + wa > width:
+            y, x, shelf = y + shelf, 0, 0
+        py[i], px[i] = y, x
+        x += wa
+        shelf = max(shelf, ha)
+    return py, px, y + shelf
+
+
+def _edge_pos(rng, size, bound):
+    """A window origin above / across / inside / across / below one
+    frame edge pair."""
+    return int(rng.choice([-size - 9, -size // 2 - 3,
+                           int(rng.integers(0, max(1, bound - size))),
+                           bound - size // 2, bound + 4]))
+
+
+def _refs(rng, bd, n_refs, shape=REF_SHAPE):
+    return rng.integers(0, 1 << bd, (n_refs, *shape)).astype(np.int32)
+
+
+def _mv(rng, h, w, n_refs, rh, rw, ft):
+    """One prediction: [dy, dx, amx, amy, ft, slot]."""
+    return [_edge_pos(rng, h, rh), _edge_pos(rng, w, rw),
+            int(rng.integers(0, 16)), int(rng.integers(0, 16)), ft,
+            int(rng.integers(0, n_refs))]
+
+
+def put_case(bd, seed, n_refs=3, width=512):
+    """Every put size with every filter type (8-tap and bilinear).
+    Returns {refs (R, H, W), jobs (n, 11), dst_shape, rh, rw}."""
+    rng = np.random.default_rng(seed)
+    rh, rw = FRAME
+    sizes = [s for s in PUT_SIZES for _ in range(2)]
+    py, px, height = pack(sizes, width)
+    jobs = []
+    for i, (h, w) in enumerate(sizes):
+        ft = FT_VALUES[(i + seed) % len(FT_VALUES)]
+        dy, dx, amx, amy, _, slot = _mv(rng, h, w, n_refs, rh, rw, ft)
+        jobs.append([0, h, w, py[i], px[i], slot, dy, dx, amx, amy, ft])
+    return {"refs": _refs(rng, bd, n_refs), "jobs": np.asarray(jobs,
+            np.int32), "dst_shape": (height, width), "rh": rh, "rw": rw}
+
+
+def _wedge_bs(h, w):
+    for bs, d in enumerate(lv.block_dimensions):
+        if (4 * int(d[0]), 4 * int(d[1])) == (w, h):
+            return bs
+    raise ValueError((h, w))
+
+
+def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512):
+    """Luma and chroma compound jobs with every combine mode: avg,
+    distance-weighted avg, seg mask (luma computes it, chroma reads the
+    seg plane) and wedge (classes 16 and 32, the layout's masks).
+    Returns {refs_y, refs_c, jobs_y (n, 25), jobs_c (n, 25), dst_y,
+    dst_c, seg_shape, bounds_y, bounds_c}."""
+    rng = np.random.default_rng(seed)
+    clidx = LAYOUT_CLIDX[(ss_hor, ss_ver)]
+    kinds = [(s, m) for s in COMP_SIZES
+             for m in (MODE_AVG, MODE_WAVG, MODE_SEG)]
+    kinds += [(s, MODE_MASK) for s in WEDGE_SIZES for _ in range(2)]
+    py, px, height = pack([s for s, _ in kinds], width)
+    rh, rw = FRAME
+    rhc, rwc = (rh + ss_ver) >> ss_ver, (rw + ss_hor) >> ss_hor
+    shape_c = (REF_SHAPE[0] >> ss_ver, REF_SHAPE[1] >> ss_hor)
+    jobs_y, jobs_c = [], []
+    for i, ((h, w), mode) in enumerate(kinds):
+        jw = int(rng.integers(0, 17))
+        sign = int(rng.integers(0, 2))
+        bs = _wedge_bs(h, w) if mode == MODE_MASK else 0
+        widx = int(rng.integers(0, 16))
+        ft0, ft1 = (FT_VALUES[1 + int(k)] for k in rng.integers(0, 9, 2))
+        hc, wc = h >> ss_ver, w >> ss_hor
+        mk_y = [0, bs, 0, widx] if mode == MODE_MASK else [0, 0, 0, 0]
+        jobs_y.append([0, h, w, py[i], px[i], mode, jw, sign,
+                       1 if mode == MODE_MASK else 0, *mk_y,
+                       *_mv(rng, h, w, n_refs, rh, rw, ft0),
+                       *_mv(rng, h, w, n_refs, rh, rw, ft1)])
+        if mode == MODE_SEG:
+            mode_c, mkind_c, mk_c = MODE_MASK, 2, [0, 0, 0, 0]
+        elif mode == MODE_MASK:
+            mode_c, mkind_c, mk_c = MODE_MASK, 1, [clidx, bs, sign, widx]
+        else:
+            mode_c, mkind_c, mk_c = mode, 0, [0, 0, 0, 0]
+        jobs_c.append([1, hc, wc, py[i] >> ss_ver, px[i] >> ss_hor,
+                       mode_c, jw, sign, mkind_c, *mk_c,
+                       *_mv(rng, hc, wc, n_refs, rhc, rwc, ft0),
+                       *_mv(rng, hc, wc, n_refs, rhc, rwc, ft1)])
+    dst_c = (height >> ss_ver, width >> ss_hor)
+    return {"refs_y": _refs(rng, bd, n_refs),
+            "refs_c": _refs(rng, bd, n_refs, shape_c),
+            "jobs_y": np.asarray(jobs_y, np.int32),
+            "jobs_c": np.asarray(jobs_c, np.int32),
+            "dst_y": (height, width), "dst_c": dst_c, "seg_shape": dst_c,
+            "bounds_y": (rh, rw), "bounds_c": (rhc, rwc)}
+
+
+def _coefs(rng, n, bd, style):
+    """n dequantized coefficients in the decoder's range: dense small,
+    sparse at full range, or DC only."""
+    cf_max = (1 << (7 + bd)) - 1 if bd > 8 else (1 << 15) - 1
+    if style == 0:
+        return rng.integers(-64, 65, n)
+    if style == 1:
+        v = rng.integers(-cf_max - 1, cf_max + 1, n)
+        return np.where(rng.random(n) < 4.0 / n, v, 0)
+    out = np.zeros(n, np.int64)
+    out[0] = rng.integers(-cf_max // 8, cf_max // 8)
+    return out
+
+
+def itx_case(bd, seed, width=512):
+    """One residual job per (tx, row kind, column kind) of all 19
+    transform sizes, plus a table of WHT jobs. Returns {pool, jobs
+    (n, 6) [tx, ridx, cidx, py, px, cfoff], wht (m, 6), plane}."""
+    from .itx import CF_LEN, res_tx_kinds
+    rng = np.random.default_rng(seed)
+    combos = []
+    for tx in range(len(lv.TXFM_INFO)):
+        rk, ck = res_tx_kinds(tx)
+        combos += [(tx, r, c) for r, c in itertools.product(
+            range(len(rk)), range(len(ck)))]
+    n_wht = 24
+    sizes = [(4 * lv.TXFM_INFO[tx].h, 4 * lv.TXFM_INFO[tx].w)
+             for tx, _, _ in combos] + [(4, 4)] * n_wht
+    py, px, height = pack(sizes, width, align=4)
+    parts, pos, rows = [], 0, []
+    for i, (tx, r, c) in enumerate(combos):
+        n = int(CF_LEN[tx])
+        parts.append(_coefs(rng, n, bd, i % 3))
+        rows.append([tx, r, c, py[i], px[i], pos])
+        pos += n
+    wht = []
+    for k in range(n_wht):
+        i = len(combos) + k
+        parts.append(rng.integers(-1024, 1025, 16))
+        wht.append([0, 0, 0, py[i], px[i], pos])
+        pos += 16
+    plane = rng.integers(0, 1 << bd, (height, width)).astype(np.int32)
+    return {"pool": np.concatenate(parts).astype(np.int32),
+            "jobs": np.asarray(rows, np.int32),
+            "wht": np.asarray(wht, np.int32), "plane": plane}
+
+
+def overlaps(py, px, h, w, shape):
+    """Pixels of a (H, W) plane that the (py, px, h, w) rectangles of
+    one table of jobs write more than once."""
+    cnt = np.zeros(shape, np.int32)
+    for y, x, hh, ww in zip(py.tolist(), px.tolist(), h.tolist(),
+                            w.tolist()):
+        cnt[y:y + hh, x:x + ww] += 1
+    return int((cnt > 1).sum())

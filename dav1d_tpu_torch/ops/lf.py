@@ -217,18 +217,6 @@ def _lib():
     return _LIB
 
 
-def _check(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def deblock_pass_cuda(plane, cls, L, lut_e, lut_i, bd, luma, vertical):
     """One directional pass with the CUDA kernel (csrc/deblock.cu):
     same contract as deblock_pass_plain, CUDA tensors only. Launches
@@ -242,11 +230,12 @@ def deblock_pass_cuda(plane, cls, L, lut_e, lut_i, bd, luma, vertical):
     dev = plane.device
     if dev.type != "cuda":
         raise ValueError("deblock_pass_cuda needs CUDA tensors")
-    _check(plane, "plane", torch.int32, (H, W), dev)
-    _check(cls, "cls", torch.int8, (h4, w4), dev)
-    _check(L, "L", torch.uint8, (h4, w4), dev)
-    _check(lut_e, "lut_e", torch.int32, (64,), dev)
-    _check(lut_i, "lut_i", torch.int32, (64,), dev)
+    from .cuda_build import check_tensor as check
+    check(plane, "plane", torch.int32, dev, (H, W))
+    check(cls, "cls", torch.int8, dev, (h4, w4))
+    check(L, "L", torch.uint8, dev, (h4, w4))
+    check(lut_e, "lut_e", torch.int32, dev, (64,))
+    check(lut_i, "lut_i", torch.int32, dev, (64,))
     lib = _lib()
     dst = plane.clone()
     rc = lib.deblock_pass(

@@ -1,0 +1,362 @@
+"""Motion compensation on the device: the single-reference put (8-tap
+and bilinear) and the two-reference compound, over the native emitter's
+job tables.
+
+Port of the put / bilin / comp segments of dav1d_tpu's
+ops/mc_fused.py `_mc_program`, whose math is ops/mc_jobs.py
+`put8_jobs_fn`, `bilin_jobs_fn` and `comp_jobs_fn` (reference
+src/mc_tmpl.c). Two implementations of each:
+
+- `put_plain` / `comp_plain`: batched torch gathers per size class (the
+  mc_jobs formulation), used for CPU tensors only;
+- the hand-written CUDA kernels csrc/mc_put.cu (which replaces the TPU
+  kernel ops/mc_pallas.py `_put8_pallas_fn`) and csrc/mc_comp.cu, used
+  for every CUDA tensor.
+
+Job rows (int32), as native/interjobs.cpp writes them:
+
+  PUT  [plane, h, w, py, px, slot, dy, dx, amx, amy, ft]          (11)
+  COMP [plane, h, w, py, px, mode, jw, sign, mkind, clidx, mbs,
+        msign, widx, dy0, dx0, amx0, amy0, ft0, slot0,
+        dy1, dx1, amx1, amy1, ft1, slot1]                         (25)
+
+`slot` indexes the list of reference planes handed to the call; the
+caller has mapped the emitter's ref index to it. Reference windows are
+read with the per-element emu-edge clamp to the frame's (rh, rw), not
+to the plane's allocated size. Jobs of one call never write the same
+pixel (AV1 blocks are disjoint), so the writes need no ordering; the
+plane is updated in place.
+"""
+from __future__ import annotations
+
+import ctypes as ct
+
+import numpy as np
+import torch
+
+from .cuda_build import check_tensor
+from .mc_ref import _subpel_filters, intermediate_bits, prep_bias
+
+IDENTITY_TAP = np.array([0, 0, 0, 64, 0, 0, 0, 0], np.int32)
+COMP_AVG, COMP_WAVG, COMP_SEG, COMP_MASK = 2, 1, 3, 4
+MAX_REFS = 8
+
+# kernel launches per name (counted where the CUDA kernel is launched)
+LAUNCHES = {"mc_put": 0, "mc_comp": 0}
+
+def filter_banks_from(sub):
+    """(2, 4, 16, 8) int32 from the (5, 15, 8) dav1d_mc_subpel_filters
+    table: [small][filter_type][phase] -> 8 taps, with the identity row
+    at phase 0 (dav1d_tpu ops/mc.py filter_banks). filter_type resolves
+    per axis: h ft & 3, v (ft >> 2) & 3."""
+    sub = np.asarray(sub, np.int32)
+    out = np.zeros((2, 4, 16, 8), np.int32)
+    for small in range(2):
+        for t in range(4):
+            row = (3 + (t & 1)) if small else t
+            out[small, t, 0] = IDENTITY_TAP
+            out[small, t, 1:] = sub[row][:15]
+    return out
+
+
+def filter_banks():
+    """filter_banks_from this package's subpel table."""
+    return filter_banks_from(_subpel_filters())
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _rnd(v, sh):
+    return (v + ((1 << sh) >> 1)) >> sh
+
+
+def _size_class(h, w):
+    m = torch.maximum(h, w)
+    return torch.where(m <= 16, 16, torch.where(
+        m <= 32, 32, torch.where(m > 64, 128, 64)))
+
+
+def _window(REF, slot, dy, dx, size, off, rh, rw):
+    """(n, size, size) reference windows at (dy - off, dx - off),
+    each index clamped into the frame (the emu-edge rule)."""
+    ar = torch.arange(size, device=REF.device)
+    rows = torch.clamp(dy[:, None] - off + ar, 0, rh - 1)
+    cols = torch.clamp(dx[:, None] - off + ar, 0, rw - 1)
+    return REF[slot[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
+def _scatter(plane, py, px, h, w, vals):
+    """plane[py + i, px + j] = vals[:, i, j] for i < h, j < w (and inside
+    the plane)."""
+    H, W = plane.shape
+    ah = torch.arange(vals.shape[1], device=plane.device)
+    aw = torch.arange(vals.shape[2], device=plane.device)
+    rows = py[:, None] + ah
+    cols = px[:, None] + aw
+    ok = ((ah[None] < h[:, None]) & (rows < H))[:, :, None] & \
+        ((aw[None] < w[:, None]) & (cols < W))[:, None, :]
+    idx = rows[:, :, None] * W + cols[:, None, :]
+    plane.view(-1)[idx[ok]] = vals[ok].to(plane.dtype)
+
+
+def _prep8(REF, fb, slot, dy, dx, amx, amy, ft, h, w, c, rh, rw, ib):
+    """Separable 8-tap filter of (n, c, c) blocks, rounded by 6 - ib
+    after the horizontal pass; returns the unrounded vertical sums."""
+    fh = fb[(w <= 4).long(), ft & 3, amx]
+    fv = fb[(h <= 4).long(), (ft >> 2) & 3, amy]
+    patch = _window(REF, slot, dy, dx, c + 7, 3, rh, rw)
+    mid = sum(fh[:, i, None, None] * patch[:, :, i:i + c] for i in range(8))
+    mid = _rnd(mid, 6 - ib)
+    return sum(fv[:, i, None, None] * mid[:, i:i + c] for i in range(8))
+
+
+def put_plain(refs, jobs, plane, rh, rw, bd, fb):
+    """Put jobs (n, 11) into `plane` in place, plain torch. refs: list
+    of (H, W) int32 reference planes; fb: the filter bank tensor."""
+    if not len(jobs):
+        return plane
+    REF = torch.stack(list(refs))
+    ib = intermediate_bits(bd)
+    px_max = (1 << bd) - 1
+    j = jobs.long()
+    h, w = j[:, 1], j[:, 2]
+    cls = _size_class(h, w)
+    bil = j[:, 10] < 0
+    for c in (16, 32, 64, 128):
+        for isb in (False, True):
+            s = j[(cls == c) & (bil == isb)]
+            if not len(s):
+                continue
+            slot, dy, dx, amx, amy = s[:, 5], s[:, 6], s[:, 7], s[:, 8], \
+                s[:, 9]
+            if isb:
+                p = _window(REF, slot, dy, dx, c + 1, 0, rh, rw)
+                mid = _rnd(16 * p[:, :, :c] + amx[:, None, None] *
+                           (p[:, :, 1:] - p[:, :, :c]), 4 - ib)
+                v = 16 * mid[:, :c] + amy[:, None, None] * \
+                    (mid[:, 1:] - mid[:, :c])
+                out = torch.clamp(_rnd(v, 4 + ib), 0, px_max)
+            else:
+                v = _prep8(REF, fb, slot, dy, dx, amx, amy, s[:, 10],
+                           s[:, 1], s[:, 2], c, rh, rw, ib)
+                out = torch.clamp(_rnd(v, 6 + ib), 0, px_max)
+            _scatter(plane, s[:, 3], s[:, 4], s[:, 1], s[:, 2], out)
+    return plane
+
+
+def comp_plain(refs, jobs, plane, seg, rh, rw, bd, fb, wl16, wl32, luma,
+               ss_hor, ss_ver):
+    """Compound jobs (n, 25) into `plane` in place, plain torch. seg:
+    the (Hc, Wc) int32 seg plane or None (monochrome): luma SEG jobs
+    write their subsampled w_mask weights into it, chroma jobs with
+    mkind 2 read it. wl16 / wl32: the int8 wedge LUTs."""
+    if not len(jobs):
+        return plane
+    from .mc_ref import BS_32X32
+    REF = torch.stack(list(refs))
+    ib = intermediate_bits(bd)
+    pb = prep_bias(bd)
+    px_max = (1 << bd) - 1
+    mask_sh = bd + ib - 4
+    mask_rnd = 1 << (mask_sh - 5)
+    j = jobs.long()
+    cls = _size_class(j[:, 1], j[:, 2])
+    for c in (16, 32, 64, 128):
+        s = j[cls == c]
+        if not len(s):
+            continue
+        n = len(s)
+        h, w, py, px = s[:, 1], s[:, 2], s[:, 3], s[:, 4]
+        mode, jw, sign, mkind = (s[:, k, None, None] for k in (5, 6, 7, 8))
+
+        def prep(b):
+            v = _prep8(REF, fb, s[:, b + 5], s[:, b], s[:, b + 1],
+                       s[:, b + 2], s[:, b + 3], s[:, b + 4], h, w, c, rh,
+                       rw, ib)
+            return _rnd(v, 6) - pb
+
+        t0, t1 = prep(13), prep(19)
+        ts0 = torch.where(sign == 1, t1, t0)
+        ts1 = torch.where(sign == 1, t0, t1)
+        avg = (t0 + t1 + ((1 << ib) + pb * 2)) >> (ib + 1)
+        wavg = (t0 * jw + t1 * (16 - jw) + ((8 << ib) + pb * 16)) >> (ib + 4)
+        tdiff = ts0 - ts1
+        m_seg = torch.clamp(38 + ((tdiff.abs() + mask_rnd) >> mask_sh),
+                            max=64)
+        if c <= 32:
+            wlut = wl16 if c == 16 else wl32
+            wkey = (torch.clamp(s[:, 9], 0, 2) * 11 +
+                    torch.clamp(s[:, 10] - BS_32X32, 0, 10)) * 32 + \
+                torch.clamp(s[:, 11] * 16 + s[:, 12], 0, 31)
+            m_wedge = wlut[torch.clamp(wkey, 0, wlut.shape[0] - 1)].long()
+            m_ext = torch.where(mkind == 1, m_wedge, 0)
+        else:
+            m_ext = torch.zeros((n, c, c), dtype=torch.long,
+                                device=plane.device)
+        if not luma:
+            ar = torch.arange(c, device=plane.device)
+            rows = torch.clamp(py[:, None] + ar, 0, seg.shape[0] - 1)
+            cols = torch.clamp(px[:, None] + ar, 0, seg.shape[1] - 1)
+            sp = seg[rows[:, :, None], cols[:, None, :]].long()
+            m_ext = torch.where(mkind == 2, sp, m_ext)
+        m_used = torch.where(mode == COMP_SEG, m_seg, m_ext)
+        masked = (tdiff * m_used + ts1 * 64 + ((32 << ib) + pb * 64)) >> \
+            (ib + 6)
+        out = torch.where(mode == COMP_AVG, avg,
+                          torch.where(mode == COMP_WAVG, wavg, masked))
+        _scatter(plane, py, px, h, w, torch.clamp(out, 0, px_max))
+        if not luma or seg is None:
+            continue
+        # luma SEG jobs: the w_mask weights subsampled to chroma
+        # coordinates, for the chroma combines
+        if ss_hor:
+            mpair = m_seg[:, :, 0::2] + m_seg[:, :, 1::2]
+            if ss_ver:
+                seg_sub = (mpair[:, 0::2] + mpair[:, 1::2] + 2 - sign) >> 2
+            else:
+                seg_sub = (mpair + 1 - sign) >> 1
+        else:
+            seg_sub = m_seg
+        is_seg = s[:, 5] == COMP_SEG
+        _scatter(seg, (py >> ss_ver)[is_seg], (px >> ss_hor)[is_seg],
+                 (h >> ss_ver)[is_seg], (w >> ss_hor)[is_seg],
+                 seg_sub[is_seg])
+    return plane
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_LIBS = {}
+
+
+def _lib(name):
+    lib = _LIBS.get(name)
+    if lib is None:
+        from .cuda_build import load_library
+        lib = load_library(name)
+        setter = getattr(lib, f"{name}_set_filters")
+        setter.restype = ct.c_int
+        setter.argtypes = [ct.c_void_p]
+        fb = np.ascontiguousarray(filter_banks())
+        rc = setter(fb.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"{name}: filter bank upload failed: CUDA "
+                               f"error {rc}")
+        fn = getattr(lib, name)
+        fn.restype = ct.c_int
+        if name == "mc_put":
+            fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
+                           ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
+                           ct.c_int, ct.c_int, ct.c_int, ct.c_void_p]
+        else:
+            fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
+                           ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
+                           ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
+                           ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
+                           ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                           ct.c_void_p]
+        _LIBS[name] = lib
+    return lib
+
+
+def _check_refs(refs, device, rh, rw):
+    if not 1 <= len(refs) <= MAX_REFS:
+        raise ValueError(f"{len(refs)} reference planes, expected 1..8")
+    shape = tuple(refs[0].shape)
+    for i, r in enumerate(refs):
+        check_tensor(r, f"refs[{i}]", torch.int32, device, shape)
+    if not (0 < rh <= shape[0] and 0 < rw <= shape[1]):
+        raise ValueError(f"reference bounds {(rh, rw)} outside the "
+                         f"planes {shape}")
+    ptrs = (ct.c_void_p * MAX_REFS)(*[r.data_ptr() for r in refs])
+    return ptrs, shape[1]
+
+
+def _check_common(jobs, K, plane, bd, device):
+    if device.type != "cuda":
+        raise ValueError("the MC kernels need CUDA tensors")
+    if bd not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bd}")
+    check_tensor(jobs, "jobs", torch.int32, device, (len(jobs), K))
+    check_tensor(plane, "plane", torch.int32, device)
+
+
+def put_cuda(refs, jobs, plane, rh, rw, bd):
+    """The put with csrc/mc_put.cu: same contract as put_plain, CUDA
+    tensors only. Launches on the current stream, does not synchronise."""
+    dev = plane.device
+    _check_common(jobs, 11, plane, bd, dev)
+    ptrs, ref_w = _check_refs(refs, dev, rh, rw)
+    rc = _lib("mc_put").mc_put(
+        ptrs, len(refs), ref_w, jobs.data_ptr(), len(jobs),
+        plane.data_ptr(), plane.shape[0], plane.shape[1], rh, rw, bd,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mc_put kernel launch failed: CUDA error {rc}")
+    LAUNCHES["mc_put"] += 1
+    return plane
+
+
+def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
+              ss_hor, ss_ver):
+    """The compound with csrc/mc_comp.cu: same contract as comp_plain,
+    CUDA tensors only. Launches on the current stream, does not
+    synchronise; launch luma before chroma on one stream."""
+    from .mc_ref import BS_32X32
+    dev = plane.device
+    _check_common(jobs, 25, plane, bd, dev)
+    ptrs, ref_w = _check_refs(refs, dev, rh, rw)
+    if seg is None:
+        if not luma:
+            raise ValueError("chroma compounds need the seg plane")
+        seg_ptr, seg_h, seg_w, seg_mode = None, 0, 0, 0
+    else:
+        check_tensor(seg, "seg", torch.int32, dev)
+        seg_ptr, (seg_h, seg_w) = seg.data_ptr(), seg.shape
+        seg_mode = 1 if luma else 2
+    check_tensor(wl16, "wl16", torch.int8, dev, (3 * 11 * 32, 16, 16))
+    check_tensor(wl32, "wl32", torch.int8, dev, (3 * 11 * 32, 32, 32))
+    rc = _lib("mc_comp").mc_comp(
+        ptrs, len(refs), ref_w, jobs.data_ptr(), len(jobs),
+        plane.data_ptr(), plane.shape[0], plane.shape[1], seg_ptr, seg_h,
+        seg_w, wl16.data_ptr(), wl32.data_ptr(), rh, rw, bd, seg_mode,
+        ss_hor, ss_ver, BS_32X32, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mc_comp kernel launch failed: CUDA error {rc}")
+    LAUNCHES["mc_comp"] += 1
+    return plane
+
+
+def _cpu_only(t):
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def put(refs, jobs, plane, rh, rw, bd):
+    """Put jobs into `plane`: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if plane.is_cuda:
+        return put_cuda(refs, jobs, plane, rh, rw, bd)
+    _cpu_only(plane)
+    from .device import device_tables
+    return put_plain(refs, jobs, plane, rh, rw, bd,
+                     device_tables(plane.device)["mc_filter_banks"])
+
+
+def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver):
+    """Compound jobs into `plane`: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    from .device import device_tables
+    tb = device_tables(plane.device)
+    if plane.is_cuda:
+        return comp_cuda(refs, jobs, plane, seg, rh, rw, bd,
+                         tb["mc_wedge_lut16"], tb["mc_wedge_lut32"], luma,
+                         ss_hor, ss_ver)
+    _cpu_only(plane)
+    return comp_plain(refs, jobs, plane, seg, rh, rw, bd,
+                      tb["mc_filter_banks"], tb["mc_wedge_lut16"],
+                      tb["mc_wedge_lut32"], luma, ss_hor, ss_ver)

@@ -1,0 +1,149 @@
+"""Inter Stage B on the device: the frame's MC and residual passes over
+the native emitter's job tables.
+
+Port of dav1d_tpu's ops/mc_fused.py `execute` (the single-program inter
+Stage B), keeping its job-table layouts (recon/inter_device.py) and its
+pass order (`segments`):
+
+  puts      single-reference 8-tap / bilinear, every plane
+  compounds luma before chroma: luma seg-mask jobs write the seg plane
+            that chroma jobs with mkind 2 read (two launches in order on
+            one stream)
+  residuals inverse transform + add from the frame's coefficient pool,
+            then the lossless WHT jobs
+
+What existed only for the TPU is gone: segments as while_loops over
+fixed chunks, pow2 buffer ladders, the PAD apron and the
+block-gather-and-roll windows, used-prefix and int16 / lo-hi pool
+uploads. Here each pass is one kernel launch per plane, the job tables
+and the int32 coefficient pool cross to the device in one copy, and
+the kernels read the reference planes in place. Warp and OBMC jobs are
+not ported yet.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..utils import timing
+from . import itx, mc
+from .device import sync_if_timed
+
+
+# dense per-class wedge mask LUTs: every (layout, bs, sign, idx) combo
+# expanded to the class square, so a job reads its mask at [y][x] of one
+# (c, c) block. Wedge masks exist only for blocks up to 32x32
+# (reference wedge.h:39), so only classes 16 and 32 carry a LUT.
+@lru_cache(maxsize=None)
+def _wedge_lut(c):
+    from .mc_ref import BS_32X32, wedge_mask
+    from ..entropy import levels as _lv
+    out = np.zeros((3 * 11 * 32, c, c), np.int8)
+    for clidx in range(3):
+        ss_hor = 1 if clidx else 0
+        ss_ver = 1 if clidx == 2 else 0
+        for bsrel in range(11):
+            dims = _lv.block_dimensions[BS_32X32 + bsrel]
+            w = (int(dims[0]) * 4) >> ss_hor
+            h = (int(dims[1]) * 4) >> ss_ver
+            if w > c or h > c:
+                continue
+            for sidx in range(32):
+                try:
+                    m = wedge_mask(clidx, BS_32X32 + bsrel, sidx >> 4,
+                                   sidx & 15, w, h)
+                except Exception:
+                    continue
+                key = (clidx * 11 + bsrel) * 32 + sidx
+                out[key, :h, :w] = m
+    return out
+
+
+def _plane_tables(jobs, lut, bases, n_planes):
+    """Split the emitter's tables per plane with reference slots and
+    pool offsets resolved: {(kind, plane): (n, K) int32}, kind in put,
+    comp, res, wht."""
+    out = {}
+    puts = jobs["puts"].copy()
+    puts[:, 5] = lut[puts[:, 5]]
+    comp = jobs["comp"].copy()
+    comp[:, 18] = lut[comp[:, 18]]
+    comp[:, 24] = lut[comp[:, 24]]
+    res = jobs["res"]
+    cfoff = bases[res[:, 6]] + res[:, 5]
+    rows, is_wht = itx.job_rows(res, cfoff)
+    for pi in range(n_planes):
+        out["put", pi] = puts[puts[:, 0] == pi]
+        out["comp", pi] = comp[comp[:, 0] == pi]
+        on = res[:, 0] == pi
+        out["res", pi] = rows[on & ~is_wht]
+        out["wht", pi] = rows[on & is_wht]
+    return {k: np.ascontiguousarray(v, np.int32) for k, v in out.items()
+            if len(v)}
+
+
+def _upload(tables, pool, device):
+    """One host->device copy of every job table and the pool; returns
+    ({key: (n, K) view}, pool view)."""
+    parts = [t.reshape(-1) for t in tables.values()] + [pool]
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    views, pos = {}, 0
+    for k, t in tables.items():
+        views[k] = buf[pos:pos + t.size].view(t.shape)
+        pos += t.size
+    return views, buf[pos:]
+
+
+def execute(recon, jobs):
+    """Run the frame's MC and residual passes on recon.device; the
+    planes go to recon._finish_device_planes."""
+    if len(jobs["warps"]) or len(jobs["obmc"]):
+        raise NotImplementedError("warp / OBMC not ported yet: ROADMAP "
+                                  "item 2b")
+    f = recon.f
+    pic = recon.pic
+    dev = recon.device
+    bd = recon.bitdepth
+    n_planes = len(pic.planes)
+    with timing.phase("inter.upload"):
+        refs, lut = recon._ref_planes()
+        pool, bases = recon._build_cf_pool()
+        tables = _plane_tables(jobs, lut, bases, n_planes)
+        for (kind, pi), t in tables.items():
+            if kind in ("res", "wht") and \
+                    int((t[:, 5] + itx.CF_LEN[t[:, 0]]).max()) > len(pool):
+                raise ValueError("residual job reads past the "
+                                 "coefficient pool")
+        T, pool_d = _upload(tables, pool, dev)
+        planes = [torch.zeros(p.shape, dtype=torch.int32, device=dev)
+                  for p in pic.planes]
+        sync_if_timed(dev)
+    bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
+
+    with timing.phase("inter.puts"):
+        for pi in range(n_planes):
+            if ("put", pi) in T:
+                mc.put(refs[pi], T["put", pi], planes[pi], *bounds[pi], bd)
+        sync_if_timed(dev)
+
+    with timing.phase("inter.comps"):
+        seg = None
+        if n_planes > 1 and len(jobs["comp"]):
+            seg = torch.zeros(planes[-1].shape, dtype=torch.int32,
+                              device=dev)
+        for pi in range(n_planes):        # luma (seg producer) first
+            if ("comp", pi) in T:
+                mc.comp(refs[pi], T["comp", pi], planes[pi], seg,
+                        *bounds[pi], bd, pi == 0, f.ss_hor, f.ss_ver)
+        sync_if_timed(dev)
+
+    with timing.phase("inter.residuals"):
+        for pi in range(n_planes):
+            if ("res", pi) in T:
+                itx.itx_add(pool_d, T["res", pi], planes[pi], bd)
+            if ("wht", pi) in T:
+                itx.itx_add(pool_d, T["wht", pi], planes[pi], bd, wht=True)
+        sync_if_timed(dev)
+    recon._finish_device_planes(planes)

@@ -94,6 +94,19 @@ def resolve(pic):
     return pic.result() if hasattr(pic, "result") else pic
 
 
+def peek(pic):
+    """Picture-or-promise -> Picture without waiting: None while a
+    promise is pending or when it failed."""
+    if isinstance(pic, FramePromise):
+        with pic._lock:
+            return pic._value if pic._resolved and pic._exc is None \
+                else None
+    if isinstance(pic, _View):
+        base = peek(pic._promise)
+        return None if base is None else base[pic._idx]
+    return pic
+
+
 class ReconPipeline:
     """In-order Stage-B worker pool with bounded depth.
 

@@ -2,25 +2,21 @@
 
 Runs deblock -> CDEF -> loop restoration as one device-resident
 sequence (port of dav1d_tpu's recon/filters.py
-run_filter_chain_device): planes upload once, every filter consumes the
-previous filter's tensors (the pre-CDEF snapshot for LR is the deblock
-output kept alive), and pixels download once at the end, queued on the
-current stream and materialized by ops.device.fetch_pic_host.
+run_filter_chain_device): the chain starts from the picture's device
+planes (`pic.dev`, an inter frame's Stage B output) or uploads the host
+planes once, every filter consumes the previous filter's tensors (the
+pre-CDEF snapshot for LR is the deblock output kept alive), the final
+planes stay on the device as `pic.dev` for later frames' references,
+and pixels download once at the end, queued on the current stream and
+materialized by ops.device.fetch_pic_host.
 
 With utils.timing enabled, each stage synchronizes the device before
 its timer stops, so the timed sections hold their device work.
 """
 from __future__ import annotations
 
-import torch
-
-from ..ops.device import queue_plane_fetch, upload_planes
+from ..ops.device import queue_plane_fetch, sync_if_timed, upload_planes
 from ..utils import timing
-
-
-def _sync(device):
-    if timing.ENABLED and device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run_filter_chain_device(pic, plan, inloop_filters, device):
@@ -42,17 +38,22 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
     do_lr = bool(inloop_filters & 4) and \
         any(t != 0 for t in fh.restoration.type)
     if not (do_deblock or do_cdef or do_lr):
-        return pic              # host planes from recon are final
+        if pic.dev is not None:     # an inter frame: fetch its planes
+            _keep_and_fetch(pic, pic.dev)
+        return pic              # else the host planes from recon are final
 
-    with timing.phase("filters.upload"):
-        planes = upload_planes(pic.planes, device)
-        _sync(device)
+    if pic.dev is not None:
+        planes = pic.dev
+    else:
+        with timing.phase("filters.upload"):
+            planes = upload_planes(pic.planes, device)
+            sync_if_timed(device)
 
     if do_deblock:
         from ..ops.lf import deblock_planes_device
         with timing.phase("filters.deblock"):
             planes = deblock_planes_device(planes, plan, pic.bpc)
-            _sync(device)
+            sync_if_timed(device)
 
     pre_cdef = planes if do_lr else None   # post-deblock lpf snapshot
 
@@ -60,17 +61,24 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
         from ..ops.cdef import cdef_planes_device
         with timing.phase("filters.cdef"):
             planes = cdef_planes_device(planes, plan, pic.bpc)
-            _sync(device)
+            sync_if_timed(device)
 
     if do_lr:
         from ..ops.lr import lr_planes_device
         with timing.phase("filters.lr"):
             planes = lr_planes_device(planes, pre_cdef, plan, pic.bpc)
-            _sync(device)
+            sync_if_timed(device)
 
-    # cast down on the device and queue the device->host copy; the
-    # first host consumer (output boundary, muxer) waits for it
+    _keep_and_fetch(pic, planes)
+    return pic
+
+
+def _keep_and_fetch(pic, planes):
+    """Keep the final planes on the device for later frames'
+    references, cast them down and queue the device->host copy; the
+    first host consumer (output boundary, muxer) waits for it."""
+    pic.dev = planes
+    pic.dev_c = None
     with timing.phase("filters.fetch_queue"):
         pic.pending_fetch = queue_plane_fetch(planes, pic.bpc)
     pic.host_stale = True
-    return pic

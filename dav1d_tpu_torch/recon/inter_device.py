@@ -1,0 +1,199 @@
+"""Inter-frame reconstruction on the device, on the native-emitter route.
+
+Port of dav1d_tpu's recon/inter_device.py restricted to `run_native`:
+the native job emitter (native/interjobs.cpp, bound in
+inter_jobs_native) writes the frame's job tables straight from the
+Stage-A pools, ops/mc_fused.execute runs them on the device (puts,
+compounds luma before chroma, residuals), and the pure-intra leftover
+blocks replay on the host in decode order:
+
+  the leftover rows are fetched from the device after the residual
+  pass, native/intrarec.cpp reconstructs the leftovers into the host
+  planes, and the replayed rows go back up before the filter chain.
+
+Correctness of the split (as in dav1d_tpu): inter prediction never
+reads the current picture, and intra edges only read raster-earlier
+pixels, so batching the device passes before the leftovers reproduces
+the reference's sequential walk. Reference planes are each reference
+picture's device planes (`Picture.dev`), uploaded once for a reference
+that has none.
+
+Not on this route, each raising NotImplementedError with its ROADMAP
+item: warp / OBMC jobs (2b), leftovers that are not pure intra or that
+the native engine cannot serve (5), frames the native emitter cannot
+serve (9).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..entropy import levels as lv
+from ..ops.device import fetch_pic_host, fetch_rows, sync_if_timed, \
+    upload_planes, upload_rows
+from ..utils import timing
+from .inter_ref import compute_jnt_weights
+from .picture import Picture
+
+
+class DeviceInterReconstructor:
+    # job layouts (native/interjobs.cpp):
+    #  puts  (n, 11): plane, h, w, py, px, ref, dy, dx, amx, amy, ft
+    #  warps (n, 12): plane, py, px, ref, dy, dx, mx, my, al, be, ga, de
+    #  obmc  (n, 13): top, plane, ww, hh, lap_h, py, px, ref, dy, dx,
+    #                 amx, amy, ft
+    #  comp  (n, 25): plane, h, w, py, px, mode, jw, sign, mkind,
+    #                 mk0..mk3, dy0, dx0, amx0, amy0, ft0, ref0,
+    #                 dy1, dx1, amx1, amy1, ft1, ref1
+    #  res   (n, 7):  plane, tx, txtp, py, px, cf_local_off, tile_idx
+    def __init__(self, plan, refp, device):
+        self.plan = plan
+        self.f = f = plan.f
+        self.bitdepth = 8 + 2 * f.seq_hdr.hbd if f.seq_hdr.hbd < 2 else 12
+        self.pic = Picture(f.frame_hdr.width[0], f.frame_hdr.height,
+                           int(f.layout), self.bitdepth)
+        self.refp = refp                      # 7 RefSlot objects
+        self.rf = f.rf
+        self.jnt_weights = compute_jnt_weights(f, refp)
+        self.device = device
+        self.leftovers = []
+        self._lo_region = None   # (r0, r1) luma rows the host replay needs
+        self._region_spans = None
+
+    def _leftover_region(self, lo):
+        """Luma row span the host leftover replay touches: block rects
+        plus the intra edge reach (1 row above; the left edge extends
+        up to 2*h below the block top, ipred_prepare_tmpl.c:75-203)."""
+        from ..entropy import native_tile as nt
+        tiles_rec = self.plan.native_tiles
+        ymin, ymax = 1 << 30, 0
+        for tidx in np.unique(lo[:, 2]):
+            tr = tiles_rec[tidx]
+            li = lo[lo[:, 2] == tidx, 0] - tr["block_base"]
+            blocks = tr["blocks"]
+            by = blocks[li, nt.BF_BY].astype(np.int64)
+            bs = blocks[li, nt.BF_BS]
+            bh4 = np.asarray(lv.block_dimensions)[bs, 1].astype(np.int64)
+            ymin = min(ymin, int((by * 4).min()))
+            ymax = max(ymax, int((by * 4 + bh4 * 12).max()))
+        Hp = self.pic.planes[0].shape[0]
+        r0 = max(0, ymin - 8) & ~7
+        r1 = min(Hp, (ymax + 15) & ~7)
+        return r0, r1
+
+    def _check_leftovers(self, lo):
+        from ..entropy import native_tile as nt
+        tiles_rec = self.plan.native_tiles
+        for gi, _tlf, tidx in lo.tolist():
+            tr = tiles_rec[tidx]
+            b = tr["blocks"][gi - tr["block_base"]]
+            if not b[nt.BF_INTRA] or b[nt.BF_INTERINTRA_TYPE]:
+                raise NotImplementedError(
+                    "inter leftovers that are not pure intra (interintra, "
+                    "scaled references, bilinear or warped compounds) not "
+                    "ported yet: ROADMAP item 5")
+
+    def run_native(self, jobs):
+        """Execute the emitter's job tables on the device, then replay
+        the leftover blocks on the host."""
+        lo = jobs["leftovers"]
+        self.leftovers = lo.tolist()
+        if len(lo):
+            self._check_leftovers(lo)
+            self._lo_region = self._leftover_region(lo)
+        from ..ops import mc_fused
+        mc_fused.execute(self, jobs)
+        if not len(lo):
+            return self.pic
+        from . import intra_native
+        with timing.phase("inter.leftovers"):
+            idxs = [gi for gi, _tlf, _tidx in self.leftovers]
+            if not intra_native.recon_blocks_native(self.plan, self.pic,
+                                                    idxs):
+                raise NotImplementedError(
+                    "intra leftovers the native engine cannot serve not "
+                    "ported yet: ROADMAP item 5")
+        with timing.phase("inter.region_upload"):
+            upload_rows(self.pic.dev, self.pic.planes, self._region_spans)
+            sync_if_timed(self.device)
+        return self.pic
+
+    def _ref_bounds(self, pl_type):
+        """Valid reference rows and columns: the frame size, not the
+        allocated plane size."""
+        f = self.f
+        ss_hor = f.ss_hor if pl_type else 0
+        ss_ver = f.ss_ver if pl_type else 0
+        return ((f.frame_hdr.height + ss_ver) >> ss_ver,
+                (f.frame_hdr.width[0] + ss_hor) >> ss_hor)
+
+    def _ref_planes(self):
+        """Per plane index, the distinct reference pictures' int32 device
+        planes, plus the (7,) refidx -> list slot lut. A reference
+        without device planes uploads once and keeps them."""
+        n_planes = len(self.pic.planes)
+        per_plane = [[] for _ in range(n_planes)]
+        ids = {}
+        lut = np.zeros(7, np.int32)
+        for i in range(7):
+            s = self.refp[i]
+            if s is None or s.pic is None:
+                continue
+            pic = s.pic
+            if id(pic) not in ids:
+                ids[id(pic)] = len(per_plane[0])
+                dev = pic.dev
+                if dev is None:
+                    fetch_pic_host(pic)
+                    dev = pic.dev = upload_planes(pic.planes, self.device)
+                for pi in range(n_planes):
+                    per_plane[pi].append(dev[pi])
+            lut[i] = ids[id(pic)]
+        return per_plane, lut
+
+    def _build_cf_pool(self):
+        """Concatenate the per-tile Stage-A coefficient pools (used
+        span only) into one int32 frame pool; returns (pool, bases)."""
+        tiles = self.plan.native_tiles
+        bases = np.zeros(max(len(tiles), 1), np.int64)
+        parts = []
+        pos = 0
+        for t in tiles:
+            used = int(t.get("cf_used", len(t["cf_pool"])))
+            bases[t["tile_idx"]] = pos
+            parts.append(t["cf_pool"][:used])
+            pos += used
+        if not parts:
+            return np.zeros(0, np.int32), bases
+        return np.concatenate(parts).astype(np.int32, copy=False), bases
+
+    def _finish_device_planes(self, planes):
+        """Keep the planes on the device; with leftovers, bring the rows
+        the host replay touches down first (after the residual pass)."""
+        if self.leftovers:
+            r0, r1 = self._lo_region
+            spans = []
+            for i, hp in enumerate(self.pic.planes):
+                ssv = self.pic.ss_ver if i else 0
+                spans.append((r0 >> ssv, min(hp.shape[0], r1 >> ssv)))
+            with timing.phase("inter.fetch_region"):
+                fetch_rows(planes, self.pic.planes, spans, self.bitdepth)
+            self._region_spans = spans
+        self.pic.dev = planes
+        self.pic.dev_c = None
+        self.pic.host_stale = True
+
+
+def reconstruct_inter_frame_device(plan, refp, device):
+    """Stage B of one inter frame on `device`; returns the Picture with
+    its planes on the device (`pic.dev`)."""
+    from . import inter_jobs_native
+    r = DeviceInterReconstructor(plan, refp, device)
+    jobs = None
+    if plan.native_tiles:
+        with timing.phase("inter.emit_jobs"):
+            jobs = inter_jobs_native.emit(plan, plan.f, r.jnt_weights)
+    if jobs is None:
+        raise NotImplementedError(
+            "inter frames the native job emitter cannot serve (the Python "
+            "collector walk) not ported yet: ROADMAP item 9")
+    return r.run_native(jobs)

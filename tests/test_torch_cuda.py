@@ -1,7 +1,9 @@
-"""The deblock CUDA kernel against its plain torch version on the card,
-bit-exact (torch.equal), on the tests/test_lf_pallas.py input recipe.
-Marked `cuda`: it skips without a card. On the card it runs without
-JAX (this file imports only the port):
+"""The CUDA kernels against their plain torch versions on the card,
+bit-exact (torch.equal): deblock on the tests/test_lf_pallas.py input
+recipe; the put, compound and residual kernels on the seeded cases of
+dav1d_tpu_torch/ops/kernel_cases.py at bd 8/10/12. Marked `cuda`: it
+skips without a card. On the card it runs without JAX (this file
+imports only the port):
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -68,3 +70,96 @@ def test_wrapper_checks(cuda):
         lf.deblock_pass_cuda(P, cls[:4], L, le, li, 8, True, True)
     with pytest.raises(ValueError):
         lf.deblock_pass_cuda(P.t(), cls, L, le, li, 8, True, True)
+
+
+# --- inter Stage B: put, compound and residual kernels -------------------
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_mc_put_kernel_vs_plain(cuda, bd):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    case = kc.put_case(bd, seed=bd)
+    refs = [_t(r, cuda) for r in case["refs"]]
+    jobs = _t(case["jobs"], cuda)
+    got = torch.zeros(case["dst_shape"], dtype=torch.int32, device=cuda)
+    want = got.clone()
+    before = mc.LAUNCHES["mc_put"]
+    mc.put_cuda(refs, jobs, got, case["rh"], case["rw"], bd)
+    assert mc.LAUNCHES["mc_put"] == before + 1
+    mc.put_plain(refs, jobs, want, case["rh"], case["rw"], bd,
+                 device_tables(cuda)["mc_filter_banks"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("ss", [(1, 1), (1, 0), (0, 0)],
+                         ids=["420", "422", "444"])
+def test_mc_comp_kernel_vs_plain(cuda, bd, ss):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    tb = device_tables(cuda)
+    case = kc.comp_case(bd, seed=bd + 3 * ss[0] + ss[1], ss_hor=ss[0],
+                        ss_ver=ss[1])
+    outs = {}
+    for name in ("kernel", "plain"):
+        seg = torch.zeros(case["seg_shape"], dtype=torch.int32, device=cuda)
+        planes = []
+        for sfx, luma in (("y", True), ("c", False)):
+            refs = [_t(r, cuda) for r in case[f"refs_{sfx}"]]
+            jobs = _t(case[f"jobs_{sfx}"], cuda)
+            plane = torch.zeros(case[f"dst_{sfx}"], dtype=torch.int32,
+                                device=cuda)
+            rh, rw = case[f"bounds_{sfx}"]
+            if name == "kernel":
+                mc.comp_cuda(refs, jobs, plane, seg, rh, rw, bd,
+                             tb["mc_wedge_lut16"], tb["mc_wedge_lut32"],
+                             luma, *ss)
+            else:
+                mc.comp_plain(refs, jobs, plane, seg, rh, rw, bd,
+                              tb["mc_filter_banks"], tb["mc_wedge_lut16"],
+                              tb["mc_wedge_lut32"], luma, *ss)
+            planes.append(plane)
+        outs[name] = planes + [seg]
+    torch.cuda.synchronize()
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("wht", [False, True], ids=["itx", "wht"])
+def test_itx_add_kernel_vs_plain(cuda, bd, wht):
+    from dav1d_tpu_torch.ops import itx
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    case = kc.itx_case(bd, seed=bd)
+    pool = _t(case["pool"], cuda)
+    jobs = _t(case["wht" if wht else "jobs"], cuda)
+    got = _t(case["plane"], cuda)
+    want = got.clone()
+    before = itx.LAUNCHES["itx_add"]
+    itx.itx_add_cuda(pool, jobs, got, bd, wht=wht)
+    assert itx.LAUNCHES["itx_add"] == before + 1
+    itx.itx_add_plain(pool, jobs, want, bd, wht=wht)
+    torch.cuda.synchronize()
+    assert not torch.equal(want, _t(case["plane"], cuda))
+    assert torch.equal(got, want)
+
+
+def test_inter_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import itx, mc
+    ref = torch.zeros((16, 16), dtype=torch.int32, device=cuda)
+    jobs = torch.zeros((1, 11), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        mc.put_cuda([ref], jobs.long(), ref.clone(), 16, 16, 8)
+    with pytest.raises(ValueError):
+        mc.put_cuda([ref], jobs, ref.clone(), 17, 16, 8)
+    with pytest.raises(ValueError):
+        mc.put_cuda([ref] * 9, jobs, ref.clone(), 16, 16, 8)
+    with pytest.raises(ValueError):
+        itx.itx_add_cuda(ref.view(-1), jobs[:, :6], ref.t(), 8)

@@ -1,0 +1,185 @@
+"""The inter slice end to end on small synthetic streams: key + inter
+frames with every in-loop filter on decode through the port's public
+API (device="cpu", so the kernels' plain versions run) to the md5s of
+dav1d_tpu's golden numpy path (DAV1D_TPU_BACKEND=numpy), and for one
+stream also of dav1d_tpu's device path (the JAX per-group job kernels,
+DAV1D_TPU_FUSED=0 as tests/conftest.py sets). Covered: 8-bit 4:2:0,
+distance-weighted and masked (wedge, seg) compounds, 10-bit, 4:2:2 and
+4:4:4, two tile columns, lossless (WHT). Frames whose jobs the port has
+no kernel for yet (OBMC, warp), non-intra leftovers (interintra) and a
+missing native job emitter raise DecodeError naming their ROADMAP item.
+Every pass's jobs write disjoint pixels (the kernels rely on it)."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dav1d_tpu.bitstream.ivf import IvfReader
+from dav1d_tpu.decoder import ObuStreamDecoder
+from dav1d_tpu.utils.muxers import Md5Muxer as JaxMd5
+from dav1d_tpu_torch.api import DecodeError, Decoder, Settings
+from dav1d_tpu_torch.entropy import levels as lv
+from dav1d_tpu_torch.ops import kernel_cases as kc
+from dav1d_tpu_torch.ops import mc_fused
+from dav1d_tpu_torch.utils.muxers import Md5Muxer
+from tools.streamgen.gen import generate_stream
+
+from torch_port_cases import FILTERS
+
+torch.set_num_threads(2)
+
+
+def _pyr_refidx(fi):
+    m = {1: (0,) * 7, 2: (0, 0, 0, 0, 1, 1, 1), 3: (0, 0, 0, 0, 2, 2, 1),
+         4: (2, 2, 2, 2, 3, 3, 1), 5: (3, 2, 0, 4, 1, 1, 4)}
+    return m[min(fi, 5)]
+
+
+PYR = dict(order_hints=[0, 8, 4, 2, 6, 5], refidx_fn=_pyr_refidx,
+           refresh_fn=lambda fi: 1 << fi)
+STREAMS = {
+    "8bit-420": dict(w=96, h=64, n_frames=3, seed=3),
+    "jnt-masked": dict(w=96, h=96, n_frames=5, seed=27, jnt_comp=1,
+                       masked_compound=1, **PYR),
+    "10bit": dict(w=96, h=96, n_frames=4, seed=50, hbd=1,
+                  masked_compound=1),
+    "2-tile-cols": dict(w=128, h=128, n_frames=4, seed=46,
+                        tile_log2_cols=1, **PYR),
+    "lossless": dict(w=96, h=64, n_frames=3, seed=61, qidx=0),
+    "8bit-444": dict(w=96, h=64, n_frames=3, seed=62, layout=3,
+                     masked_compound=1),
+    "8bit-422": dict(w=96, h=64, n_frames=3, seed=63, layout=2,
+                     masked_compound=1),
+}
+RAISES = {
+    "obmc": (dict(w=96, h=96, n_frames=4, seed=40,
+                  switchable_motion_mode=1, **PYR), "ROADMAP item 2b"),
+    "warp": (dict(w=96, h=96, n_frames=4, seed=41, warped_motion=1,
+                  switchable_motion_mode=1, **PYR), "ROADMAP item 2b"),
+    "interintra": (dict(w=96, h=96, n_frames=5, seed=25, inter_intra=1,
+                        **PYR), "ROADMAP item 5"),
+}
+
+
+def _stream(cfg):
+    cfg = dict(cfg)
+    w, h = cfg.pop("w"), cfg.pop("h")
+    data, _ = generate_stream(w, h, **cfg, **FILTERS)
+    return data
+
+
+def _port_md5s(data, **settings):
+    dec = Decoder(Settings(device="cpu", **settings))
+    out = []
+    for fr in IvfReader(data):
+        dec.send_data(fr.data)
+        for pic in dec.pictures():
+            m = Md5Muxer()
+            m.write_picture(pic)
+            out.append(m.digest())
+    return out
+
+
+def _jax_md5s(data):
+    dec = ObuStreamDecoder()
+    out = []
+    for fr in IvfReader(data):
+        for _plan, pic in dec.decode_temporal_unit(fr.data):
+            if pic is not None:
+                m = JaxMd5()
+                m.write_picture(pic)
+                out.append(m.digest())
+    return out
+
+
+@pytest.fixture
+def jobs_seen(monkeypatch):
+    """Every job table the port's inter Stage B executes, with its
+    picture's plane shapes."""
+    seen = []
+    run = mc_fused.execute
+
+    def spy(recon, jobs):
+        seen.append((jobs, [p.shape for p in recon.pic.planes]))
+        return run(recon, jobs)
+    monkeypatch.setattr(mc_fused, "execute", spy)
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen):
+    data = _stream(STREAMS[name])
+    got = _port_md5s(data)
+    monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
+    want = _jax_md5s(data)
+    assert len(want) == STREAMS[name]["n_frames"]
+    assert got == want
+    # the synchronous decoder (no Stage-B worker) agrees too
+    assert _port_md5s(data, n_threads=1) == want
+    assert jobs_seen and all(len(j["puts"]) + len(j["comp"])
+                             for j, _ in jobs_seen)
+    if name == "lossless":
+        assert any((j["res"][:, 2] == lv.WHT_WHT).any()
+                   for j, _ in jobs_seen)
+    if name == "jnt-masked":
+        modes = set(np.concatenate([j["comp"][:, 5] for j, _ in jobs_seen]))
+        assert {1, 3, 4} <= modes
+
+
+def test_inter_stream_md5s_match_dav1d_tpu_device_path():
+    data = _stream(STREAMS["8bit-420"])
+    assert _port_md5s(data) == _jax_md5s(data)
+
+
+@pytest.mark.parametrize("name", sorted(RAISES))
+def test_unported_inter_tools_raise(name):
+    cfg, item = RAISES[name]
+    with pytest.raises(DecodeError, match=item):
+        _port_md5s(_stream(cfg))
+
+
+def test_missing_native_emitter_raises(monkeypatch):
+    from dav1d_tpu_torch.recon import inter_jobs_native
+    monkeypatch.setattr(inter_jobs_native, "emit", lambda *a: None)
+    with pytest.raises(DecodeError, match="ROADMAP item 9"):
+        _port_md5s(_stream(STREAMS["8bit-420"]))
+
+
+def _pass_overlaps(jobs, shapes):
+    """{(pass, plane): pixels written twice within one pass}."""
+    out = {}
+    for pi, shape in enumerate(shapes):
+        for kind in ("puts", "comp"):
+            j = jobs[kind][jobs[kind][:, 0] == pi]
+            out[kind, pi] = kc.overlaps(j[:, 3], j[:, 4], j[:, 1], j[:, 2],
+                                        shape)
+        r = jobs["res"][jobs["res"][:, 0] == pi]
+        tw = np.array([4 * t.w for t in lv.TXFM_INFO])
+        th = np.array([4 * t.h for t in lv.TXFM_INFO])
+        out["res", pi] = kc.overlaps(r[:, 3], r[:, 4], th[r[:, 1]],
+                                     tw[r[:, 1]], shape)
+    return out
+
+
+@pytest.mark.parametrize("name", ["8bit-420", "jnt-masked", "2-tile-cols",
+                                  "8bit-444"])
+def test_job_passes_write_disjoint_pixels(name, jobs_seen):
+    _port_md5s(_stream(STREAMS[name]))
+    assert jobs_seen
+    for jobs, shapes in jobs_seen:
+        assert not any(_pass_overlaps(jobs, shapes).values())
+
+
+def test_s7_job_passes_write_disjoint_pixels(jobs_seen):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "bench_streams", "1920x1080_8b_flt_s7.ivf")
+    dec = Decoder(Settings(device="cpu"))
+    for i, fr in enumerate(IvfReader(open(path, "rb").read())):
+        if i >= 2:
+            break
+        dec.send_data(fr.data)
+        list(dec.pictures())
+    (jobs, shapes), = jobs_seen
+    assert len(jobs["puts"]) > 1000 and len(jobs["comp"]) > 1000
+    assert not any(_pass_overlaps(jobs, shapes).values())

@@ -1,0 +1,196 @@
+"""The port's plain motion-compensation versions (ops/mc.py put_plain,
+comp_plain) against dav1d_tpu: the XLA job kernels of ops/mc_jobs.py
+(put8_jobs_fn, bilin_jobs_fn, comp_jobs_fn) and TPU kernel #2 itself,
+ops/mc_pallas.put8_pallas in Pallas interpret mode. Bit-exact
+(tolerance 0) on seeded inputs from ops/kernel_cases.py, at bd 8 and 10:
+every put size 2..128 with every filter type and windows across every
+frame edge; compounds with every combine mode, wedge masks of classes
+16 and 32, and the seg mask from luma to chroma."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dav1d_tpu.ops import mc as jmc
+from dav1d_tpu.ops import mc_jobs
+from dav1d_tpu.ops.mc_fused import _wedge_lut as jax_wedge_lut
+from dav1d_tpu_torch.ops import kernel_cases as kc
+from dav1d_tpu_torch.ops import mc
+from dav1d_tpu_torch.ops.device import device_tables
+from dav1d_tpu_torch.ops.mc_fused import _wedge_lut
+from dav1d_tpu_torch.ops.mc_ref import BS_32X32
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+T = torch.from_numpy
+
+
+def _port_put(case, bd):
+    plane = torch.zeros(case["dst_shape"], dtype=torch.int32)
+    mc.put([T(r) for r in case["refs"]], T(case["jobs"]), plane,
+           case["rh"], case["rw"], bd)
+    return plane.numpy()
+
+
+def test_filter_banks_match_dav1d_tpu():
+    assert np.array_equal(mc.filter_banks(), np.asarray(jmc.filter_banks()))
+    assert np.array_equal(device_tables("cpu")["mc_filter_banks"].numpy(),
+                          np.asarray(jmc.filter_banks()))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_put_plain_vs_mc_jobs(bd):
+    case = kc.put_case(bd, seed=bd)
+    jobs = case["jobs"]
+    assert set(jobs[:, 10]) == set(kc.FT_VALUES)
+    assert {(h, w) for h, w in jobs[:, 1:3]} == set(kc.PUT_SIZES)
+    ref = np.zeros(case["dst_shape"], np.int32)
+    for bil, fn in ((False, mc_jobs.put8_jobs_fn),
+                    (True, mc_jobs.bilin_jobs_fn)):
+        sub = jobs[(jobs[:, 10] < 0) == bil]
+        run = fn(len(sub), 128, 128, bd, case["rh"], case["rw"])
+        ref = np.asarray(run(case["refs"], sub, ref))
+    got = _port_put(case, bd)
+    assert np.count_nonzero(ref) > ref.size // 4
+    assert np.array_equal(got, ref)
+
+
+_PALLAS_SCRIPT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from dav1d_tpu.ops.mc_pallas import put8_pallas
+from dav1d_tpu_torch.ops import kernel_cases as kc
+from dav1d_tpu_torch.ops import mc
+
+fb = mc.filter_banks()
+fails = 0
+for bd, (h, w) in ((8, (8, 8)), (10, (4, 16)), (8, (16, 4))):
+    case = kc.put_case(bd, seed=h + w)
+    jobs = case["jobs"][case["jobs"][:, 10] >= 0][:6].copy()
+    jobs[:, 1], jobs[:, 2] = h, w
+    jobs[:, 3], jobs[:, 4], _ = kc.pack([(h, w)] * len(jobs), 256)
+    rh, rw = case["rh"], case["rw"]
+    dy, dx, amx, amy, ft = (jobs[:, k] for k in (6, 7, 8, 9, 10))
+    rows = np.clip(dy[:, None] - 3 + np.arange(h + 7), 0, rh - 1)
+    cols = np.clip(dx[:, None] - 3 + np.arange(w + 7), 0, rw - 1)
+    fh = fb[int(w <= 4), ft & 3, amx]
+    fv = fb[int(h <= 4), (ft >> 2) & 3, amy]
+    got = np.asarray(put8_pallas(case["refs"], rows.astype(np.int32),
+                                 cols.astype(np.int32), jobs[:, 5], fh, fv,
+                                 bd, interpret=True))
+    plane = torch.zeros((64, 256), dtype=torch.int32)
+    mc.put([torch.from_numpy(r) for r in case["refs"]],
+           torch.from_numpy(jobs), plane, rh, rw, bd)
+    want = np.stack([plane.numpy()[y:y + h, x:x + w]
+                     for y, x in jobs[:, 3:5]])
+    ok = np.array_equal(got, want)
+    print(f"bd={bd} {h}x{w}: {'ok' if ok else 'MISMATCH'}", flush=True)
+    fails += not ok
+sys.exit(1 if fails else 0)
+"""
+
+
+def test_put_plain_vs_put8_pallas_interpret():
+    # Pallas interpret mode traces deeply and meets pytest's assertion
+    # rewriting with a RecursionError (tests/test_mc_pallas.py), so the
+    # comparison runs in a clean subprocess
+    r = subprocess.run([sys.executable, "-c", _PALLAS_SCRIPT, ROOT],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count(": ok") == 3
+
+
+def _wedge_masks(jobs, c):
+    """(n, c, c) int8 wedge weights of the mkind-1 rows, as the fused
+    path's LUT gather picks them; zeros elsewhere."""
+    lut = _wedge_lut(32)
+    msk = np.zeros((len(jobs), c, c), np.int8)
+    for i, j in enumerate(jobs):
+        if j[8] == 1:
+            key = (j[9] * 11 + j[10] - BS_32X32) * 32 + j[11] * 16 + j[12]
+            msk[i, :32, :32] = lut[key]
+    return msk
+
+
+def _jax_comp(case, bd, ss_hor, ss_ver):
+    """dav1d_tpu's comp_jobs_fn: the luma pass writes the seg plane, the
+    chroma pass reads it. Returns (luma, chroma, seg) planes."""
+    seg = np.zeros(case["seg_shape"], np.int32)
+    out = []
+    for jobs, dst, (rh, rw), refs, luma in (
+            (case["jobs_y"], case["dst_y"], case["bounds_y"],
+             case["refs_y"], True),
+            (case["jobs_c"], case["dst_c"], case["bounds_c"],
+             case["refs_c"], False)):
+        j21 = np.concatenate([jobs[:, :9], jobs[:, 13:]], axis=1)
+        fn = mc_jobs.comp_jobs_fn(len(jobs), 128, 128, bd, ss_hor, ss_ver,
+                                  rh, rw, luma)
+        plane, seg = fn(refs, j21, _wedge_masks(jobs, 128),
+                        seg, np.zeros(dst, np.int32))
+        out.append(np.asarray(plane))
+        seg = np.asarray(seg)
+    return out[0], out[1], seg
+
+
+def _port_comp(case, bd, ss_hor, ss_ver):
+    seg = torch.zeros(case["seg_shape"], dtype=torch.int32)
+    out = []
+    for jobs, dst, (rh, rw), refs, luma in (
+            (case["jobs_y"], case["dst_y"], case["bounds_y"],
+             case["refs_y"], True),
+            (case["jobs_c"], case["dst_c"], case["bounds_c"],
+             case["refs_c"], False)):
+        plane = torch.zeros(dst, dtype=torch.int32)
+        mc.comp([T(r) for r in refs], T(jobs), plane, seg, rh, rw, bd,
+                luma, ss_hor, ss_ver)
+        out.append(plane.numpy())
+    return out[0], out[1], seg.numpy()
+
+
+@pytest.mark.parametrize("bd,ss", [(8, (1, 1)), (10, (1, 1)),
+                                   (8, (0, 0)), (10, (1, 0))],
+                         ids=["8bit-420", "10bit-420", "8bit-444",
+                              "10bit-422"])
+def test_comp_plain_vs_mc_jobs(bd, ss):
+    case = kc.comp_case(bd, seed=bd + 3 * ss[0] + ss[1], ss_hor=ss[0],
+                        ss_ver=ss[1])
+    modes = set(case["jobs_y"][:, 5])
+    assert modes == {kc.MODE_AVG, kc.MODE_WAVG, kc.MODE_SEG, kc.MODE_MASK}
+    assert set(case["jobs_c"][:, 8]) == {0, 1, 2}
+    ref = _jax_comp(case, bd, *ss)
+    got = _port_comp(case, bd, *ss)
+    assert np.count_nonzero(ref[2]) > 0          # the seg plane was used
+    for name, a, b in zip(("luma", "chroma", "seg"), got, ref):
+        assert np.array_equal(a, b), name
+
+
+def test_wedge_luts_match_dav1d_tpu():
+    for c in (16, 32):
+        assert np.array_equal(_wedge_lut(c), jax_wedge_lut(c))
+
+
+def test_plain_case_destinations_are_disjoint():
+    case = kc.put_case(8, seed=1)
+    j = case["jobs"]
+    assert kc.overlaps(j[:, 3], j[:, 4], j[:, 1], j[:, 2],
+                       case["dst_shape"]) == 0
+    case = kc.comp_case(8, seed=1, ss_hor=1, ss_ver=1)
+    for key, dst in (("jobs_y", "dst_y"), ("jobs_c", "dst_c")):
+        j = case[key]
+        assert kc.overlaps(j[:, 3], j[:, 4], j[:, 1], j[:, 2],
+                           case[dst]) == 0
+
+
+def test_wrappers_raise_on_cuda_without_a_kernel_path():
+    # CPU tensors take the plain version; anything else must be a CUDA
+    # tensor, which launches the kernel (no silent fallback)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mc.put_cuda([torch.zeros((8, 8), dtype=torch.int32)],
+                    torch.zeros((0, 11), dtype=torch.int32),
+                    torch.zeros((8, 8), dtype=torch.int32), 8, 8, 8)

@@ -47,3 +47,17 @@ def test_device_tables_are_the_port_tables():
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def test_tables_from_numpy_mc_keys_match_dav1d_tpu():
+    from dav1d_tpu.ops.mc import filter_banks
+    from dav1d_tpu.ops.mc_fused import _wedge_lut
+    d = {k: jt.get(k) for k in jt._data().files}
+    lut = tables_from_numpy(d)
+    assert lut["mc_filter_banks"].dtype == torch.int32
+    assert np.array_equal(lut["mc_filter_banks"].numpy(),
+                          np.asarray(filter_banks()))
+    for c in (16, 32):
+        t = lut[f"mc_wedge_lut{c}"]
+        assert t.dtype == torch.int8 and t.shape == (1056, c, c)
+        assert np.array_equal(t.numpy(), _wedge_lut(c))
