@@ -19,16 +19,20 @@ exits nonzero and prints no "ok" line:
                 2..128 with every filter type (8-tap and bilinear) and
                 windows across every frame edge; compounds with all four
                 combine modes, wedge masks of classes 16 and 32 for every
-                layout, and the seg mask from luma to chroma
+                layout, and the seg mask from luma to chroma; compound
+                tables that end every class in a ragged kernel block and
+                split jobs larger than 32x32 into tiles
 5. kernel_itx - the residual kernel against its plain version: all 19
                 transform sizes with every valid (row, column) kind pair,
-                plus WHT, bd 8/10/12
+                plus WHT; coefficients at the full range; tables that
+                end every class in a ragged kernel block; bd 8/10/12
 6. kernel_real- the first 2 temporal units of the s7 stream decoded on
                 cuda with every put / compound / residual launch of the
                 inter frame checked against the plain version on the
                 same inputs; then, on those inputs, each kernel's device
-                time (torch.profiler), the plain version's ms and the
-                bound
+                time (torch.profiler), per launch too, beside its block
+                count and the time of a launch of its largest block
+                alone; the plain version's ms and the bound
 7. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
                 _enc.ivf through Decoder(Settings(decode_frame_type=3))
                 on cuda: one picture, the expected md5, per-stage wall
@@ -49,6 +53,7 @@ line.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -140,7 +145,8 @@ def phase_build():
         raise RuntimeError(f"make -C native failed:\n{out}{err}")
     ptxas = [ln.strip() for n in built for ln in
              built[n]["ptxas"].splitlines()
-             if "registers" in ln or "entry function" in ln]
+             if "registers" in ln or "entry function" in ln or
+             "stack frame" in ln]
     emit({"phase": "build", "native_make_s": t_make,
           "cuda_s": {n: built[n]["seconds"] for n in built},
           "cuda_wall_s": t_cuda, "ptxas": ptxas})
@@ -349,8 +355,10 @@ def phase_kernel_mc(torch, card):
             errs["mc_put"] = max(errs["mc_put"], _check_equal(
                 torch, got, want, f"mc_put bd={bd} seed={seed}"))
             n_put += len(case["jobs"])
-        for ss in ((1, 1), (1, 0), (0, 0)):
-            case = kc.comp_case(bd, bd + 3 * ss[0] + ss[1], *ss)
+        for ss, sizes in itertools.product(
+                ((1, 1), (1, 0), (0, 0)), (None, kc.ragged_comp_sizes())):
+            seed = bd + 3 * ss[0] + ss[1] + (50 if sizes else 0)
+            case = kc.comp_case(bd, seed, *ss, sizes=sizes)
             outs = {}
             for name in ("kernel", "plain"):
                 seg = torch.zeros(case["seg_shape"], dtype=torch.int32,
@@ -377,7 +385,8 @@ def phase_kernel_mc(torch, card):
             for what, a, b in zip(("luma", "chroma", "seg"), outs["kernel"],
                                   outs["plain"]):
                 errs["mc_comp"] = max(errs["mc_comp"], _check_equal(
-                    torch, a, b, f"mc_comp bd={bd} ss={ss} {what}"))
+                    torch, a, b, f"mc_comp bd={bd} ss={ss} seed={seed} "
+                    f"{what}"))
             n_comp += len(case["jobs_y"]) + len(case["jobs_c"])
     emit({"phase": "kernel_mc", "card": card, "put_jobs": n_put,
           "comp_jobs": n_comp, "max_abs_err": errs, "equal": True})
@@ -391,19 +400,22 @@ def phase_kernel_itx(torch, card):
     dev = torch.device("cuda")
     err = n = 0
     for bd in (8, 10, 12):
-        for seed in (bd, bd + 100):
-            case = kc.itx_case(bd, seed)
+        cases = [(kc.itx_case(bd, seed), ("jobs", "wht"))
+                 for seed in (bd, bd + 100)]
+        cases.append((kc.itx_stress_case(bd, 20 + bd),
+                      ("extreme", "ragged")))
+        for case, tables in cases:
             pool = _t(torch, case["pool"], dev)
-            for wht in (False, True):
-                jobs = _t(torch, case["wht" if wht else "jobs"], dev)
+            for table in tables:
+                wht = table == "wht"
+                jobs = _t(torch, case[table], dev)
                 got = _t(torch, case["plane"], dev)
                 want = got.clone()
                 itx.itx_add_cuda(pool, jobs, got, bd, wht=wht)
                 itx.itx_add_plain(pool, jobs, want, bd, wht=wht)
                 torch.cuda.synchronize()
                 err = max(err, _check_equal(
-                    torch, got, want, f"itx_add bd={bd} seed={seed} "
-                    f"wht={wht}"))
+                    torch, got, want, f"itx_add bd={bd} table={table}"))
                 n += len(jobs)
     emit({"phase": "kernel_itx", "card": card, "jobs": n,
           "max_abs_err": err, "equal": True})
@@ -484,6 +496,19 @@ def _bound(bytes_, ops):
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
+def _largest_block(name, blk):
+    """The row of a compound or residual block table whose block covers
+    the most pixels."""
+    import numpy as np
+    if name == "mc_comp":
+        px = (4 << (blk[:, 0] >> 2)) * (4 << (blk[:, 0] & 3)) * blk[:, 2]
+    else:
+        from dav1d_tpu_torch.entropy import levels as lv
+        area = np.array([16 * t.w * t.h for t in lv.TXFM_INFO])
+        px = area[blk[:, 0] >> 4] * blk[:, 2]
+    return int(np.argmax(px))
+
+
 def phase_kernel_real(torch, card):
     """Decode the first 2 temporal units of the s7 stream on cuda with
     every put / compound / residual launch of its inter frame checked
@@ -509,10 +534,11 @@ def phase_kernel_real(torch, card):
         calls["mc_put"].append((refs, jobs, before, rh, rw, bd))
         return plane
 
-    def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver):
+    def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver,
+             blocks=None):
         before, seg_before = plane.clone(), seg.clone()
         orig["comp"](refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor,
-                     ss_ver)
+                     ss_ver, blocks)
         want, want_seg = before.clone(), seg_before.clone()
         mc.comp_plain(refs, jobs, want, want_seg, rh, rw, bd,
                       tb["mc_filter_banks"], tb["mc_wedge_lut16"],
@@ -521,17 +547,17 @@ def phase_kernel_real(torch, card):
             errs["mc_comp"] = max(errs["mc_comp"], _check_equal(
                 torch, a, b, "mc_comp on s7 tables"))
         calls["mc_comp"].append((refs, jobs, before, seg_before, rh, rw,
-                                 bd, luma, ss_hor, ss_ver))
+                                 bd, luma, ss_hor, ss_ver, blocks))
         return plane
 
-    def itx_add(pool, jobs, plane, bd, wht=False):
+    def itx_add(pool, jobs, plane, bd, wht=False, blocks=None):
         before = plane.clone()
-        orig["itx_add"](pool, jobs, plane, bd, wht)
+        orig["itx_add"](pool, jobs, plane, bd, wht, blocks)
         want = before.clone()
         itx.itx_add_plain(pool, jobs, want, bd, wht)
         errs["itx_add"] = max(errs["itx_add"], _check_equal(
             torch, plane, want, "itx_add on s7 tables"))
-        calls["itx_add"].append((pool, jobs, before, bd, wht))
+        calls["itx_add"].append((pool, jobs, before, bd, wht, blocks))
         return plane
 
     mc.put, mc.comp, itx.itx_add = put, comp, itx_add
@@ -546,10 +572,15 @@ def phase_kernel_real(torch, card):
         raise AssertionError(f"kernel_real: a kernel had no launch: "
                              f"{ {k: len(v) for k, v in calls.items()} }")
 
-    # each launch, given fresh copies of its inputs
-    def runners(name, plain):
+    # each launch, given fresh copies of its inputs; with `largest`, each
+    # compound and residual launch keeps only the block of its table
+    # that covers the most pixels
+    def runners(name, plain, largest=False):
         out = []
         for c in calls[name]:
+            if largest and name != "mc_put" and c[-1] is not None:
+                i = _largest_block(name, c[-1].cpu().numpy())
+                c = (*c[:-1], c[-1][i:i + 1])
             if name == "mc_put":
                 refs, jobs, before, rh, rw, bd = c
                 out.append((before, None, (lambda p, s, c=c: mc.put_plain(
@@ -557,7 +588,7 @@ def phase_kernel_real(torch, card):
                     if plain else (lambda p, s, c=c: mc.put_cuda(
                         c[0], c[1], p, c[3], c[4], c[5]))))
             elif name == "mc_comp":
-                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv = c
+                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 if plain:
                     fn = (lambda p, s, c=c: mc.comp_plain(
                         c[0], c[1], p, s, c[4], c[5], c[6],
@@ -567,15 +598,53 @@ def phase_kernel_real(torch, card):
                     fn = (lambda p, s, c=c: mc.comp_cuda(
                         c[0], c[1], p, s, c[4], c[5], c[6],
                         tb["mc_wedge_lut16"], tb["mc_wedge_lut32"], c[7],
-                        c[8], c[9]))
+                        c[8], c[9], c[10]))
                 out.append((before, segb, fn))
             else:
-                pool, jobs, before, bd, wht = c
+                pool, jobs, before, bd, wht, _ = c
                 out.append((before, None, (lambda p, s, c=c:
                             itx.itx_add_plain(c[0], c[1], p, c[3], c[4]))
                             if plain else (lambda p, s, c=c:
-                            itx.itx_add_cuda(c[0], c[1], p, c[3], c[4]))))
+                            itx.itx_add_cuda(c[0], c[1], p, c[3], c[4],
+                                             c[5]))))
         return out
+
+    def device_us(name, largest=False):
+        """(total, per launch) device us of one round of the frame's
+        launches, from torch.profiler: median of the last `reps` of
+        reps + 1 rounds (the trace may miss the first kernels)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 1):
+                for before, segb, fn in runners(name, False, largest):
+                    fn(before.clone(),
+                       segb.clone() if segb is not None else None)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and any(k in e.name for k in names[name])),
+                     key=lambda e: e.time_range.start)
+        n = len(calls[name])
+        if len(evs) < reps * n:
+            raise RuntimeError(f"torch.profiler saw {len(evs)} {name} "
+                               f"kernels, expected {reps * n} or more")
+        evs = evs[len(evs) - reps * n:]
+        per = [sorted(evs[r * n + i].time_range.elapsed_us()
+                      for r in range(reps))[reps // 2] for i in range(n)]
+        return sum(per), per
+
+    def floor_us():
+        """Median device us of a one-element fill: what a launch of
+        next to no work reads in this trace."""
+        x = torch.empty(1, dtype=torch.int32, device=dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(21):
+                x.fill_(i)
+            torch.cuda.synchronize()
+        ts = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        return ts[len(ts) // 2] if ts else None
 
     def frame_ms(name, plain, reps):
         """Sum over the frame's launches of the CUDA-event time of one
@@ -602,22 +671,14 @@ def phase_kernel_real(torch, card):
     res = {}
     for name in calls:
         frame_ms(name, False, 1)                          # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for before, segb, fn in runners(name, False):
-                    fn(before.clone(),
-                       segb.clone() if segb is not None else None)
-            torch.cuda.synchronize()
-        dev_us = 0.0
-        for ev in prof.key_averages():
-            if any(k in ev.key for k in names[name]):
-                t = getattr(ev, "device_time_total", None)
-                dev_us += t if t is not None else \
-                    getattr(ev, "cuda_time_total", 0)
+        dev_us, per_launch = device_us(name)
         if not dev_us:
             raise RuntimeError(f"torch.profiler reported no device time "
                                f"for {name}")
+        extra = {}
+        if name != "mc_put":
+            extra = {"blocks_per_launch": [len(c[-1]) for c in calls[name]],
+                     "largest_block_alone_us": device_us(name, True)[1]}
         bytes_ = ops = 0
         for c in calls[name]:
             if name == "mc_put":
@@ -625,7 +686,7 @@ def phase_kernel_real(torch, card):
                 b, o = _put_work(jobs.cpu().numpy(), len(refs),
                                  tuple(refs[0].shape), rh, rw)
             elif name == "mc_comp":
-                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv = c
+                refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 b, o = _comp_work(jobs.cpu().numpy(), len(refs),
                                   tuple(refs[0].shape), rh, rw, luma, sh,
                                   sv)
@@ -638,13 +699,14 @@ def phase_kernel_real(torch, card):
             "launches_per_frame": len(calls[name]),
             "jobs_per_frame": int(sum(len(c[1]) for c in calls[name])),
             "max_abs_err": errs[name],
-            "ms": dev_us / reps / 1e3,
+            "ms": dev_us / 1e3, "launch_us": per_launch, **extra,
             "wrapper_ms": frame_ms(name, False, reps),
             "plain_ms": frame_ms(name, True, 3),
             "bytes": bytes_, "ops": ops, "bound_ms": bound_ms,
             "bound_by": bound_by}
     emit({"phase": "kernel_real", "card": card, "stream": STREAM_S7,
-          "frame": 2, "md5s": md5s, "equal": True, "kernels": res,
+          "frame": 2, "md5s": md5s, "equal": True,
+          "one_element_fill_us": floor_us(), "kernels": res,
           "library_ms": "null: no single PyTorch call computes a "
           "clamped-window 8-tap put, a masked compound or an integer AV1 "
           "inverse transform"})

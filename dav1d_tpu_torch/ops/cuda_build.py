@@ -4,7 +4,9 @@ Each csrc/<name>.cu has a plain C interface and is compiled by nvcc for
 Hopper (sm_90a) into build/dav1d_tpu_torch/lib<name>.so at the repo
 root, then loaded with ctypes. A library is rebuilt when its source is
 newer than the .so. A missing nvcc or a failed build raises: the port
-never falls back to the plain versions for CUDA tensors.
+never falls back to the plain versions for CUDA tensors. Also the
+helpers the wrappers share: tensor checks and the cutting of a
+class-sorted job table into kernel blocks.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -93,6 +97,24 @@ def check_tensor(t, name, dtype, device, shape=None, ndim=2):
         raise ValueError(f"{name} shape {tuple(t.shape)}, expected {want}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def cut_blocks(cls, cap):
+    """Block rows [cls, first, count] (int32, (nb, 3)) over a sorted
+    class array: each run of one class cut into blocks of at most cap
+    jobs (cap: per element, constant over a run), the last one
+    ragged. The kernels' block tables start from it."""
+    if not len(cls):
+        return np.zeros((0, 3), np.int32)
+    start = np.flatnonzero(np.concatenate([[True], cls[1:] != cls[:-1]]))
+    end = np.append(start[1:], len(cls))
+    cap = cap[start]
+    nb = -(-(end - start) // cap)
+    k = np.arange(nb.sum()) - np.repeat(np.cumsum(nb) - nb, nb)
+    first = np.repeat(start, nb) + k * np.repeat(cap, nb)
+    count = np.minimum(np.repeat(cap, nb), np.repeat(end, nb) - first)
+    return np.stack([np.repeat(cls[start], nb), first, count],
+                    axis=1).astype(np.int32)
 
 
 def load_library(name: str) -> ct.CDLL:

@@ -14,10 +14,15 @@ Port of the res / wht segments of dav1d_tpu's ops/mc_fused.py
 Job rows (int32, one call per plane): [tx, ridx, cidx, py, px, cfoff].
 ridx / cidx index `res_tx_kinds(tx)`; `job_rows` builds them from the
 emitter's RES rows. WHT (lossless 4x4) jobs go in a call of their own
-(`wht=True`), as dav1d_tpu's `wht` segment. Intermediates are int64 in
-both versions: dav1d_tpu's int32 path gives the same pixels up to
-10 bits, and int64 keeps 12-bit products from overflowing (the
-reference's split rotations are exact there too).
+(`wht=True`), as dav1d_tpu's `wht` segment.
+
+The kernel runs class-uniform blocks: `res_blocks` sorts a plane's jobs
+by class (tx, ridx, cidx) and cuts each class into block rows [cls,
+first, count] of at most `jobs_per_block(tx)` jobs. Reordering is exact
+because the jobs of one pass never write the same pixel. The plain
+version keeps int64 intermediates; the kernel runs int32 at bd 8 and
+10, where no product can overflow (dav1d_tpu's `res` segment does the
+same), and int64 at bd 12.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 
 from ..entropy import levels as lv
 from . import itx_core
+from .cuda_build import cut_blocks
 from .itx_ref import TX1D_TYPES, TX_SHIFT
 
 N_TX = len(lv.TXFM_INFO)
@@ -38,6 +44,8 @@ CF_LEN = np.array([min(4 * t.w, 32) * min(4 * t.h, 32)
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"itx_add": 0}
+# threads of a residual block (csrc/itx_add.cu THREADS)
+BLOCK_THREADS = 128
 
 
 @lru_cache(maxsize=None)
@@ -72,6 +80,35 @@ def job_rows(res, cfoff):
     return rows, res[:, 2] == lv.WHT_WHT
 
 
+def jobs_per_block(tx):
+    """Jobs of transform size tx one kernel block runs: the block's
+    threads over the larger of the row pass's rows (min(h, 32)) and the
+    column pass's columns (w), as csrc/itx_add.cu itx_add_kernel."""
+    t = lv.TXFM_INFO[tx]
+    return BLOCK_THREADS // max(min(4 * t.h, 32), 4 * t.w)
+
+
+_JPB = np.array([jobs_per_block(tx) for tx in range(N_TX)], np.int64)
+
+
+def res_blocks(rows, group=None):
+    """(rows sorted stably by class, block table) of (n, 6) residual
+    rows. cls = tx << 4 | ridx << 2 | cidx; each class is cut into block
+    rows [cls, first, count] (int32, (nb, 3)) of at most
+    jobs_per_block(tx) jobs, the last one ragged. `group` (n,): a key
+    sorted before the class (the plane), so that one call bins every
+    plane; no block spans two groups, and each group's block rows are
+    contiguous."""
+    rows = np.asarray(rows, np.int32)
+    cls = (rows[:, 0].astype(np.int64) << 4) | (rows[:, 1] << 2) | rows[:, 2]
+    key = cls if group is None else cls + (np.asarray(group, np.int64) << 9)
+    order = np.argsort(key, kind="stable")
+    rows, key = rows[order], key[order]
+    blk = cut_blocks(key, _JPB[(key >> 4) & 31])
+    blk[:, 0] &= 511
+    return np.ascontiguousarray(rows), blk
+
+
 def _add(plane, py, px, res, px_max):
     """plane[py + i, px + j] = clip(plane + res[:, i, j]) inside the
     plane."""
@@ -96,16 +133,14 @@ def _wht_plain(pool, jobs, plane, px_max):
     _add(plane, jobs[:, 3], jobs[:, 4], torch.stack(cols, 1), px_max)
 
 
-def itx_add_plain(pool, jobs, plane, bd, wht=False):
-    """Residual jobs (n, 6) added into `plane` in place, plain torch.
-    pool: the frame's int32 coefficient pool."""
-    if not len(jobs):
-        return plane
+def residual(cf, tx, ridx, cidx, bd):
+    """(n, h, w) residuals of n blocks of transform size tx and kinds
+    (ridx, cidx) from their (n, sw * sh) x-major coefficients, computed
+    in cf's integer dtype: rect2 scale, row transform clamped to the row
+    range, (x + rnd) >> shift and the column clamp, column transform,
+    (v + 8) >> 4."""
+    n = len(cf)
     px_max = (1 << bd) - 1
-    j = jobs.long()
-    if wht:
-        _wht_plain(pool, j, plane, px_max)
-        return plane
     if bd == 8:
         row_min = col_min = -(1 << 15)
     else:
@@ -114,28 +149,41 @@ def itx_add_plain(pool, jobs, plane, bd, wht=False):
     row_max, col_max = ~row_min, ~col_min
     row_clip = lambda v: torch.clamp(v, row_min, row_max)
     col_clip = lambda v: torch.clamp(v, col_min, col_max)
+    t_dim = lv.TXFM_INFO[tx]
+    w, h = 4 * t_dim.w, 4 * t_dim.h
+    sw, sh = min(w, 32), min(h, 32)
+    shift = TX_SHIFT[tx]
+    rk, ck = res_tx_kinds(tx)
+    row_fn = itx_core.FNS[(t_dim.lw + 2, rk[ridx])]
+    col_fn = itx_core.FNS[(t_dim.lh + 2, ck[cidx])]
+    rows = cf.reshape(n, sw, sh).transpose(1, 2)         # (n, sh, sw)
+    if w * 2 == h or h * 2 == w:
+        rows = (rows * 181 + 128) >> 8
+    tmp = torch.stack(row_fn([rows[:, :, i] for i in range(sw)],
+                             row_clip), dim=2)           # (n, sh, w)
+    tmp = col_clip((tmp + ((1 << shift) >> 1)) >> shift)
+    res = torch.stack(col_fn([tmp[:, i, :] for i in range(sh)],
+                             col_clip), dim=1)           # (n, h, w)
+    return (res + 8) >> 4
+
+
+def itx_add_plain(pool, jobs, plane, bd, wht=False):
+    """Residual jobs (n, 6) added into `plane` in place, plain torch
+    (int64 intermediates). pool: the frame's int32 coefficient pool."""
+    if not len(jobs):
+        return plane
+    px_max = (1 << bd) - 1
+    j = jobs.long()
+    if wht:
+        _wht_plain(pool, j, plane, px_max)
+        return plane
     keys = torch.unique(j[:, :3], dim=0).tolist()
     for tx, ridx, cidx in keys:
         s = j[(j[:, 0] == tx) & (j[:, 1] == ridx) & (j[:, 2] == cidx)]
-        n = len(s)
-        t_dim = lv.TXFM_INFO[tx]
-        w, h = 4 * t_dim.w, 4 * t_dim.h
-        sw, sh = min(w, 32), min(h, 32)
-        shift = TX_SHIFT[tx]
-        rk, ck = res_tx_kinds(tx)
-        row_fn = itx_core.FNS[(t_dim.lw + 2, rk[ridx])]
-        col_fn = itx_core.FNS[(t_dim.lh + 2, ck[cidx])]
         cf = pool[s[:, 5, None] +
-                  torch.arange(sw * sh, device=pool.device)].long()
-        rows = cf.reshape(n, sw, sh).transpose(1, 2)     # (n, sh, sw)
-        if w * 2 == h or h * 2 == w:
-            rows = (rows * 181 + 128) >> 8
-        tmp = torch.stack(row_fn([rows[:, :, i] for i in range(sw)],
-                                 row_clip), dim=2)       # (n, sh, w)
-        tmp = col_clip((tmp + ((1 << shift) >> 1)) >> shift)
-        res = torch.stack(col_fn([tmp[:, i, :] for i in range(sh)],
-                                 col_clip), dim=1)       # (n, h, w)
-        _add(plane, s[:, 3], s[:, 4], (res + 8) >> 4, px_max)
+                  torch.arange(int(CF_LEN[tx]), device=pool.device)].long()
+        _add(plane, s[:, 3], s[:, 4], residual(cf, tx, ridx, cidx, bd),
+             px_max)
     return plane
 
 
@@ -149,16 +197,24 @@ def _lib():
         lib = load_library("itx_add")
         lib.itx_add.restype = ct.c_int
         lib.itx_add.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
-                                ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-                                ct.c_int, ct.c_void_p]
+                                ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_int,
+                                ct.c_int, ct.c_int, ct.c_int, ct.c_void_p]
+        lib.itx_jobs_per_block.restype = ct.c_int
+        lib.itx_jobs_per_block.argtypes = [ct.c_int, ct.c_int]
+        for tx, t in enumerate(lv.TXFM_INFO):
+            if lib.itx_jobs_per_block(4 * t.w, 4 * t.h) != _JPB[tx]:
+                raise RuntimeError("itx_add: jobs per block of the kernel "
+                                   "and of res_blocks differ")
         _LIB = lib
     return _LIB
 
 
-def itx_add_cuda(pool, jobs, plane, bd, wht=False):
+def itx_add_cuda(pool, jobs, plane, bd, wht=False, blocks=None):
     """The residual pass with csrc/itx_add.cu: same contract as
-    itx_add_plain, CUDA tensors only. Launches on the current stream,
-    does not synchronise."""
+    itx_add_plain, CUDA tensors only. `blocks`: the res_blocks table of
+    `jobs`, which must then be class-sorted; without it the jobs are
+    sorted and binned here (a copy through the host). Launches on the
+    current stream, does not synchronise."""
     from .cuda_build import check_tensor
     dev = plane.device
     if dev.type != "cuda":
@@ -168,9 +224,17 @@ def itx_add_cuda(pool, jobs, plane, bd, wht=False):
     check_tensor(pool, "pool", torch.int32, dev, ndim=1)
     check_tensor(jobs, "jobs", torch.int32, dev, (len(jobs), 6))
     check_tensor(plane, "plane", torch.int32, dev)
+    blk_ptr, n_blk = None, 0                # the WHT kernel takes none
+    if not wht:
+        if blocks is None:
+            rows, blk = res_blocks(jobs.cpu().numpy())
+            jobs = torch.from_numpy(rows).to(dev)
+            blocks = torch.from_numpy(blk).to(dev)
+        check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 3))
+        blk_ptr, n_blk = blocks.data_ptr(), len(blocks)
     rc = _lib().itx_add(pool.data_ptr(), jobs.data_ptr(), len(jobs),
-                        plane.data_ptr(), plane.shape[0], plane.shape[1],
-                        bd, int(wht),
+                        blk_ptr, n_blk, plane.data_ptr(), plane.shape[0],
+                        plane.shape[1], bd, int(wht),
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"itx_add kernel launch failed: CUDA error {rc}")
@@ -178,11 +242,11 @@ def itx_add_cuda(pool, jobs, plane, bd, wht=False):
     return plane
 
 
-def itx_add(pool, jobs, plane, bd, wht=False):
+def itx_add(pool, jobs, plane, bd, wht=False, blocks=None):
     """The residual pass: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors (which needs no block table)."""
     if plane.is_cuda:
-        return itx_add_cuda(pool, jobs, plane, bd, wht)
+        return itx_add_cuda(pool, jobs, plane, bd, wht, blocks)
     if plane.device.type != "cpu":
         raise ValueError(f"unsupported device {plane.device}")
     return itx_add_plain(pool, jobs, plane, bd, wht)

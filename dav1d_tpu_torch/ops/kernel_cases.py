@@ -99,21 +99,43 @@ def _wedge_bs(h, w):
     raise ValueError((h, w))
 
 
-def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512):
+def ragged_comp_sizes():
+    """Luma compound sizes that leave a ragged last kernel block in every
+    class the kernel bins them into (ops/mc.py comp_blocks): one job more
+    than a block holds of each luma class up to 32x32, then every size
+    larger than 32x32 (split into 32-wide tiles) three times, so that
+    the chroma classes they make are ragged too where a block holds
+    more than one job."""
+    from .mc import comp_jobs_per_block
+    small = [(h, w) for h in (8, 16, 32) for w in (8, 16, 32)
+             if max(h, w) <= 4 * min(h, w)]
+    sizes = [s for s in small for _ in range(comp_jobs_per_block(*s) + 1)]
+    return sizes + [s for s in COMP_SIZES if max(s) > 32 for _ in range(3)]
+
+
+def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512, sizes=None,
+              ref_shape=REF_SHAPE):
     """Luma and chroma compound jobs with every combine mode: avg,
     distance-weighted avg, seg mask (luma computes it, chroma reads the
-    seg plane) and wedge (classes 16 and 32, the layout's masks).
-    Returns {refs_y, refs_c, jobs_y (n, 25), jobs_c (n, 25), dst_y,
-    dst_c, seg_shape, bounds_y, bounds_c}."""
+    seg plane) and wedge (classes 16 and 32, the layout's masks). With
+    `sizes` (luma (h, w) per job), those jobs, the modes in turn (wedge
+    where the size has masks). ref_shape: the allocated luma reference
+    plane. Returns {refs_y, refs_c, jobs_y (n, 25), jobs_c (n, 25),
+    dst_y, dst_c, seg_shape, bounds_y, bounds_c}."""
     rng = np.random.default_rng(seed)
     clidx = LAYOUT_CLIDX[(ss_hor, ss_ver)]
-    kinds = [(s, m) for s in COMP_SIZES
-             for m in (MODE_AVG, MODE_WAVG, MODE_SEG)]
-    kinds += [(s, MODE_MASK) for s in WEDGE_SIZES for _ in range(2)]
+    if sizes is None:
+        kinds = [(s, m) for s in COMP_SIZES
+                 for m in (MODE_AVG, MODE_WAVG, MODE_SEG)]
+        kinds += [(s, MODE_MASK) for s in WEDGE_SIZES for _ in range(2)]
+    else:
+        modes = (MODE_AVG, MODE_WAVG, MODE_SEG, MODE_MASK)
+        kinds = [(s, modes[i % (4 if s in WEDGE_SIZES else 3)])
+                 for i, s in enumerate(sizes)]
     py, px, height = pack([s for s, _ in kinds], width)
     rh, rw = FRAME
     rhc, rwc = (rh + ss_ver) >> ss_ver, (rw + ss_hor) >> ss_hor
-    shape_c = (REF_SHAPE[0] >> ss_ver, REF_SHAPE[1] >> ss_hor)
+    shape_c = (ref_shape[0] >> ss_ver, ref_shape[1] >> ss_hor)
     jobs_y, jobs_c = [], []
     for i, ((h, w), mode) in enumerate(kinds):
         jw = int(rng.integers(0, 17))
@@ -138,7 +160,7 @@ def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512):
                        *_mv(rng, hc, wc, n_refs, rhc, rwc, ft0),
                        *_mv(rng, hc, wc, n_refs, rhc, rwc, ft1)])
     dst_c = (height >> ss_ver, width >> ss_hor)
-    return {"refs_y": _refs(rng, bd, n_refs),
+    return {"refs_y": _refs(rng, bd, n_refs, ref_shape),
             "refs_c": _refs(rng, bd, n_refs, shape_c),
             "jobs_y": np.asarray(jobs_y, np.int32),
             "jobs_c": np.asarray(jobs_c, np.int32),
@@ -191,6 +213,71 @@ def itx_case(bd, seed, width=512):
     return {"pool": np.concatenate(parts).astype(np.int32),
             "jobs": np.asarray(rows, np.int32),
             "wht": np.asarray(wht, np.int32), "plane": plane}
+
+
+def _extreme_coefs(rng, tx, bd, k):
+    """Pattern k of a block's x-major coefficients at the decoder's full
+    range: all max, all min, signs alternating along x, along y or both,
+    DC max or min, random signs, random values."""
+    t = lv.TXFM_INFO[tx]
+    sw, sh = min(4 * t.w, 32), min(4 * t.h, 32)
+    hi = (1 << (7 + bd)) - 1 if bd > 8 else (1 << 15) - 1
+    lo = ~hi
+    x, y = np.arange(sw)[:, None], np.arange(sh)[None, :]
+    k %= 9
+    if k < 5:
+        sgn = [x * 0 + y * 0, x * 0 + y * 0 + 1, x % 2 + y * 0,
+               y % 2 + x * 0, (x + y) % 2][k]
+        v = np.where(sgn == 1, lo, hi)
+    elif k < 7:
+        v = np.zeros((sw, sh), np.int64)
+        v[0, 0] = hi if k == 5 else lo
+    elif k == 7:
+        v = np.where(rng.random((sw, sh)) < 0.5, hi, lo)
+    else:
+        v = rng.integers(lo, hi + 1, (sw, sh))
+    return v.reshape(-1)
+
+
+def itx_stress_case(bd, seed, width=512):
+    """Two residual tables over one pool and plane. "extreme": one job
+    per (tx, row kind, column kind) with coefficients at the decoder's
+    full range (_extreme_coefs, the pattern cycling). "ragged": for
+    every tx, one job more than a kernel block holds (ops/itx.py
+    jobs_per_block) of one kind pair, with dense, sparse or DC
+    coefficients, so every class ends in a ragged block. Returns {pool,
+    plane, extreme (n, 6), ragged (m, 6)}."""
+    from .itx import CF_LEN, jobs_per_block, res_tx_kinds
+    rng = np.random.default_rng(seed)
+    extreme = []
+    for tx in range(len(lv.TXFM_INFO)):
+        rk, ck = res_tx_kinds(tx)
+        extreme += [(tx, r, c) for r, c in itertools.product(
+            range(len(rk)), range(len(ck)))]
+    ragged = []
+    for tx in range(len(lv.TXFM_INFO)):
+        rk, ck = res_tx_kinds(tx)
+        r, c = tx % len(rk), (tx // 2) % len(ck)
+        ragged += [(tx, r, c)] * (jobs_per_block(tx) + 1)
+    out, parts, pos = {}, [], 0
+    planes_h = 0
+    for name, combos in (("extreme", extreme), ("ragged", ragged)):
+        sizes = [(4 * lv.TXFM_INFO[tx].h, 4 * lv.TXFM_INFO[tx].w)
+                 for tx, _, _ in combos]
+        py, px, height = pack(sizes, width, align=4)
+        planes_h = max(planes_h, height)
+        rows = []
+        for i, (tx, r, c) in enumerate(combos):
+            parts.append(_extreme_coefs(rng, tx, bd, i)
+                         if name == "extreme"
+                         else _coefs(rng, int(CF_LEN[tx]), bd, i % 3))
+            rows.append([tx, r, c, py[i], px[i], pos])
+            pos += int(CF_LEN[tx])
+        out[name] = np.asarray(rows, np.int32)
+    out["pool"] = np.concatenate(parts).astype(np.int32)
+    out["plane"] = rng.integers(0, 1 << bd, (planes_h, width)).astype(
+        np.int32)
+    return out
 
 
 def overlaps(py, px, h, w, shape):

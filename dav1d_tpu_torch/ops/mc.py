@@ -26,6 +26,11 @@ read with the per-element emu-edge clamp to the frame's (rh, rw), not
 to the plane's allocated size. Jobs of one call never write the same
 pixel (AV1 blocks are disjoint), so the writes need no ordering; the
 plane is updated in place.
+
+The compound kernel runs class-uniform blocks: `comp_blocks` sorts a
+plane's jobs by tile shape and cuts them into block rows [cls, first,
+count, ty0, tx0]: up to `comp_jobs_per_block` jobs of one shape, or
+one 32-wide tile of a job larger than 32 in a dimension.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .cuda_build import check_tensor
+from .cuda_build import check_tensor, cut_blocks
 from .mc_ref import _subpel_filters, intermediate_bits, prep_bias
 
 IDENTITY_TAP = np.array([0, 0, 0, 64, 0, 0, 0, 0], np.int32)
@@ -43,6 +48,8 @@ MAX_REFS = 8
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"mc_put": 0, "mc_comp": 0}
+# a compound block's shared words and most output pixels (csrc/mc_comp.cu)
+COMP_SMEM_WORDS, COMP_MAX_PX = 8192, 1024
 
 def filter_banks_from(sub):
     """(2, 4, 16, 8) int32 from the (5, 15, 8) dav1d_mc_subpel_filters
@@ -62,6 +69,67 @@ def filter_banks_from(sub):
 def filter_banks():
     """filter_banks_from this package's subpel table."""
     return filter_banks_from(_subpel_filters())
+
+
+def comp_jobs_per_block(th, tw):
+    """Jobs of one th x tw class a compound block runs: as many as fit
+    the shared budget (a job: two (th+7)-row windows of row stride 44,
+    28 or 20 words at tw 32, 16 or less, two (th+7)-row intermediates
+    of row stride tw + 4 (12 at tw 4), 32 taps), at most COMP_MAX_PX
+    output pixels (csrc/mc_comp.cu jobs_per_block)."""
+    ws = {32: 44, 16: 28}.get(tw, 20)
+    words = 2 * (th + 7) * (ws + (12 if tw == 4 else tw + 4)) + 32
+    return min(COMP_SMEM_WORDS // words, COMP_MAX_PX // (th * tw))
+
+
+# log2(size) - 2 of every compound block dimension (4 .. 128), else -1
+_LOG2M2 = np.full(129, -1, np.int64)
+_LOG2M2[[4, 8, 16, 32, 64, 128]] = np.arange(6)
+_CAP = np.array([comp_jobs_per_block(4 << (c >> 2), 4 << (c & 3))
+                 for c in range(16)], np.int64)
+
+
+def comp_blocks(jobs, group=None):
+    """(jobs sorted stably by class, block table) of (n, 25) compound
+    rows. The class is the tile shape (min(h, 32), min(w, 32)), cls =
+    (log2 th - 2) * 4 + log2 tw - 2. Block rows (int32, (nb, 5)) [cls,
+    first, count, ty0, tx0]: jobs of at most 32x32 in runs of
+    comp_jobs_per_block, the last one ragged; larger jobs one block per
+    32-wide tile, placed first (they are the longest blocks). `group`
+    (n,): a key sorted before the class (the plane), so that one call
+    bins every plane; no block spans two groups, and each group's block
+    rows are contiguous."""
+    jobs = np.asarray(jobs, np.int32)
+    h, w = jobs[:, 1], jobs[:, 2]
+    lh = _LOG2M2[np.clip(h, 0, 128)]
+    lw = _LOG2M2[np.clip(w, 0, 128)]
+    bad = (lh < 0) | (lw < 0) | (h > 128) | (w > 128)
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise ValueError(f"compound job of {h[i]}x{w[i]}: no kernel class")
+    large = (lh > 3) | (lw > 3)
+    key = (np.minimum(lh, 3) * 4 + np.minimum(lw, 3)) * 2 + large
+    if group is not None:
+        key = key + 32 * np.asarray(group, np.int64)
+    order = np.argsort(key, kind="stable")
+    jobs, key = jobs[order], key[order]
+    blk = cut_blocks(key, np.where(key & 1, 1, _CAP[(key >> 1) & 15]))
+    # a large job's block becomes one block per 32-wide tile
+    f = blk[:, 1]
+    big = (blk[:, 0] & 1).astype(bool)
+    nx = np.where(big, np.maximum(jobs[f, 2] >> 5, 1), 1)
+    nt = np.where(big, np.maximum(jobs[f, 1] >> 5, 1) * nx, 1)
+    rep = np.repeat(np.arange(len(blk)), nt)
+    k = np.arange(len(rep)) - np.repeat(np.cumsum(nt) - nt, nt)
+    out = np.empty((len(rep), 5), np.int64)
+    out[:, :3] = blk[rep]
+    out[:, 3] = (k // nx[rep]) * 32
+    out[:, 4] = (k % nx[rep]) * 32
+    # per group, the tiles of large jobs first
+    out = out[np.argsort((out[:, 0] >> 5) * 2 + (~out[:, 0] & 1),
+                         kind="stable")]
+    out[:, 0] = (out[:, 0] >> 1) & 15
+    return np.ascontiguousarray(jobs), out.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +322,19 @@ def _lib(name):
                            ct.c_int, ct.c_int, ct.c_int, ct.c_void_p]
         else:
             fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
+                           ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_int,
                            ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
-                           ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
-                           ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-                           ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                           ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
+                           ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
                            ct.c_void_p]
+            jpb = lib.mc_comp_jobs_per_block
+            jpb.restype = ct.c_int
+            jpb.argtypes = [ct.c_int, ct.c_int]
+            for th in (4, 8, 16, 32):
+                for tw in (4, 8, 16, 32):
+                    if jpb(th, tw) != comp_jobs_per_block(th, tw):
+                        raise RuntimeError("mc_comp: jobs per block of the "
+                                           "kernel and of comp_blocks differ")
         _LIBS[name] = lib
     return lib
 
@@ -302,10 +378,12 @@ def put_cuda(refs, jobs, plane, rh, rw, bd):
 
 
 def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
-              ss_hor, ss_ver):
+              ss_hor, ss_ver, blocks=None):
     """The compound with csrc/mc_comp.cu: same contract as comp_plain,
-    CUDA tensors only. Launches on the current stream, does not
-    synchronise; launch luma before chroma on one stream."""
+    CUDA tensors only. `blocks`: the comp_blocks table of `jobs`, which
+    must then be class-sorted; without it the jobs are sorted and binned
+    here (a copy through the host). Launches on the current stream, does
+    not synchronise; launch luma before chroma on one stream."""
     from .mc_ref import BS_32X32
     dev = plane.device
     _check_common(jobs, 25, plane, bd, dev)
@@ -320,9 +398,14 @@ def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
         seg_mode = 1 if luma else 2
     check_tensor(wl16, "wl16", torch.int8, dev, (3 * 11 * 32, 16, 16))
     check_tensor(wl32, "wl32", torch.int8, dev, (3 * 11 * 32, 32, 32))
+    if blocks is None:
+        rows, blk = comp_blocks(jobs.cpu().numpy())
+        jobs = torch.from_numpy(rows).to(dev)
+        blocks = torch.from_numpy(blk).to(dev)
+    check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 5))
     rc = _lib("mc_comp").mc_comp(
-        ptrs, len(refs), ref_w, jobs.data_ptr(), len(jobs),
-        plane.data_ptr(), plane.shape[0], plane.shape[1], seg_ptr, seg_h,
+        ptrs, len(refs), ref_w, jobs.data_ptr(), blocks.data_ptr(),
+        len(blocks), plane.data_ptr(), plane.shape[0], plane.shape[1], seg_ptr, seg_h,
         seg_w, wl16.data_ptr(), wl32.data_ptr(), rh, rw, bd, seg_mode,
         ss_hor, ss_ver, BS_32X32, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -347,15 +430,16 @@ def put(refs, jobs, plane, rh, rw, bd):
                      device_tables(plane.device)["mc_filter_banks"])
 
 
-def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver):
+def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver,
+         blocks=None):
     """Compound jobs into `plane`: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors (which needs no block table)."""
     from .device import device_tables
     tb = device_tables(plane.device)
     if plane.is_cuda:
         return comp_cuda(refs, jobs, plane, seg, rh, rw, bd,
                          tb["mc_wedge_lut16"], tb["mc_wedge_lut32"], luma,
-                         ss_hor, ss_ver)
+                         ss_hor, ss_ver, blocks)
     _cpu_only(plane)
     return comp_plain(refs, jobs, plane, seg, rh, rw, bd,
                       tb["mc_filter_banks"], tb["mc_wedge_lut16"],

@@ -15,10 +15,13 @@ pass order (`segments`):
 What existed only for the TPU is gone: segments as while_loops over
 fixed chunks, pow2 buffer ladders, the PAD apron and the
 block-gather-and-roll windows, used-prefix and int16 / lo-hi pool
-uploads. Here each pass is one kernel launch per plane, the job tables
-and the int32 coefficient pool cross to the device in one copy, and
-the kernels read the reference planes in place. Warp and OBMC jobs are
-not ported yet.
+uploads. Here each pass is one kernel launch per plane, the job tables,
+their block tables and the int32 coefficient pool cross to the device
+in one copy, and the kernels read the reference planes in place. As
+dav1d_tpu bins residual jobs into one segment per transform size, the
+host sorts each plane's compound and residual jobs by class and cuts
+them into class-uniform kernel blocks (ops/mc.py comp_blocks, ops/itx.py
+res_blocks). Warp and OBMC jobs are not ported yet.
 """
 from __future__ import annotations
 
@@ -64,7 +67,8 @@ def _wedge_lut(c):
 def _plane_tables(jobs, lut, bases, n_planes):
     """Split the emitter's tables per plane with reference slots and
     pool offsets resolved: {(kind, plane): (n, K) int32}, kind in put,
-    comp, res, wht."""
+    comp, res, wht, plus the kernels' block tables comp_blocks and
+    res_blocks (comp and res rows class-sorted to match)."""
     out = {}
     puts = jobs["puts"].copy()
     puts[:, 5] = lut[puts[:, 5]]
@@ -74,12 +78,21 @@ def _plane_tables(jobs, lut, bases, n_planes):
     res = jobs["res"]
     cfoff = bases[res[:, 6]] + res[:, 5]
     rows, is_wht = itx.job_rows(res, cfoff)
+    # one binning call per kind for every plane; the plane is the
+    # leading sort key, so each plane's rows and blocks are contiguous
+    comp, comp_blk = mc.comp_blocks(comp, group=comp[:, 0])
+    res_pl = res[~is_wht, 0]
+    res_rows, res_blk = itx.res_blocks(rows[~is_wht], group=res_pl)
+    res_pl = np.sort(res_pl, kind="stable")
     for pi in range(n_planes):
         out["put", pi] = puts[puts[:, 0] == pi]
-        out["comp", pi] = comp[comp[:, 0] == pi]
-        on = res[:, 0] == pi
-        out["res", pi] = rows[on & ~is_wht]
-        out["wht", pi] = rows[on & is_wht]
+        for kind, t, blk, pl in (("comp", comp, comp_blk, comp[:, 0]),
+                                 ("res", res_rows, res_blk, res_pl)):
+            a, b = np.searchsorted(pl, [pi, pi + 1])
+            mine = blk[(blk[:, 1] >= a) & (blk[:, 1] < b)]
+            mine[:, 1] -= a                 # first job, within the plane
+            out[kind, pi], out[kind + "_blocks", pi] = t[a:b], mine
+        out["wht", pi] = rows[(res[:, 0] == pi) & is_wht]
     return {k: np.ascontiguousarray(v, np.int32) for k, v in out.items()
             if len(v)}
 
@@ -136,13 +149,15 @@ def execute(recon, jobs):
         for pi in range(n_planes):        # luma (seg producer) first
             if ("comp", pi) in T:
                 mc.comp(refs[pi], T["comp", pi], planes[pi], seg,
-                        *bounds[pi], bd, pi == 0, f.ss_hor, f.ss_ver)
+                        *bounds[pi], bd, pi == 0, f.ss_hor, f.ss_ver,
+                        blocks=T["comp_blocks", pi])
         sync_if_timed(dev)
 
     with timing.phase("inter.residuals"):
         for pi in range(n_planes):
             if ("res", pi) in T:
-                itx.itx_add(pool_d, T["res", pi], planes[pi], bd)
+                itx.itx_add(pool_d, T["res", pi], planes[pi], bd,
+                            blocks=T["res_blocks", pi])
             if ("wht", pi) in T:
                 itx.itx_add(pool_d, T["wht", pi], planes[pi], bd, wht=True)
         sync_if_timed(dev)

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain torch versions on the card,
 bit-exact (torch.equal): deblock on the tests/test_lf_pallas.py input
 recipe; the put, compound and residual kernels on the seeded cases of
-dav1d_tpu_torch/ops/kernel_cases.py at bd 8/10/12. Marked `cuda`: it
+dav1d_tpu_torch/ops/kernel_cases.py at bd 8/10/12, including residuals
+at the full coefficient range, and residual and compound tables whose
+classes end in ragged kernel blocks or split into 32-wide tiles. Marked
+`cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
 
@@ -97,16 +100,10 @@ def test_mc_put_kernel_vs_plain(cuda, bd):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bd", [8, 10, 12])
-@pytest.mark.parametrize("ss", [(1, 1), (1, 0), (0, 0)],
-                         ids=["420", "422", "444"])
-def test_mc_comp_kernel_vs_plain(cuda, bd, ss):
-    from dav1d_tpu_torch.ops import kernel_cases as kc
+def _comp_kernel_vs_plain(cuda, bd, ss, case):
     from dav1d_tpu_torch.ops import mc
     from dav1d_tpu_torch.ops.device import device_tables
     tb = device_tables(cuda)
-    case = kc.comp_case(bd, seed=bd + 3 * ss[0] + ss[1], ss_hor=ss[0],
-                        ss_ver=ss[1])
     outs = {}
     for name in ("kernel", "plain"):
         seg = torch.zeros(case["seg_shape"], dtype=torch.int32, device=cuda)
@@ -133,13 +130,37 @@ def test_mc_comp_kernel_vs_plain(cuda, bd, ss):
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
-@pytest.mark.parametrize("wht", [False, True], ids=["itx", "wht"])
-def test_itx_add_kernel_vs_plain(cuda, bd, wht):
-    from dav1d_tpu_torch.ops import itx
+@pytest.mark.parametrize("ss", [(1, 1), (1, 0), (0, 0)],
+                         ids=["420", "422", "444"])
+def test_mc_comp_kernel_vs_plain(cuda, bd, ss):
     from dav1d_tpu_torch.ops import kernel_cases as kc
-    case = kc.itx_case(bd, seed=bd)
+    _comp_kernel_vs_plain(cuda, bd, ss, kc.comp_case(
+        bd, seed=bd + 3 * ss[0] + ss[1], ss_hor=ss[0], ss_ver=ss[1]))
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("ss", [(1, 1), (1, 0), (0, 0)],
+                         ids=["420", "422", "444"])
+def test_mc_comp_ragged_blocks_kernel_vs_plain(cuda, bd, ss):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _comp_kernel_vs_plain(cuda, bd, ss, kc.comp_case(
+        bd, seed=50 + bd + 3 * ss[0] + ss[1], ss_hor=ss[0], ss_ver=ss[1],
+        sizes=kc.ragged_comp_sizes()))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_mc_comp_unaligned_rows_kernel_vs_plain(cuda, bd):
+    # reference rows of 222 / 111 pixels: no row is 16-byte aligned, so
+    # the kernel copies every window 4 bytes at a time
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _comp_kernel_vs_plain(cuda, bd, (1, 1), kc.comp_case(
+        bd, seed=70 + bd, ss_hor=1, ss_ver=1, ref_shape=(160, 222)))
+
+
+def _itx_kernel_vs_plain(cuda, case, table, bd, wht=False):
+    from dav1d_tpu_torch.ops import itx
     pool = _t(case["pool"], cuda)
-    jobs = _t(case["wht" if wht else "jobs"], cuda)
+    jobs = _t(case[table], cuda)
     got = _t(case["plane"], cuda)
     want = got.clone()
     before = itx.LAUNCHES["itx_add"]
@@ -149,6 +170,22 @@ def test_itx_add_kernel_vs_plain(cuda, bd, wht):
     torch.cuda.synchronize()
     assert not torch.equal(want, _t(case["plane"], cuda))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("wht", [False, True], ids=["itx", "wht"])
+def test_itx_add_kernel_vs_plain(cuda, bd, wht):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _itx_kernel_vs_plain(cuda, kc.itx_case(bd, seed=bd),
+                         "wht" if wht else "jobs", bd, wht)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("table", ["extreme", "ragged"])
+def test_itx_add_stress_kernel_vs_plain(cuda, bd, table):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _itx_kernel_vs_plain(cuda, kc.itx_stress_case(bd, seed=20 + bd), table,
+                         bd)
 
 
 def test_inter_wrapper_checks(cuda):

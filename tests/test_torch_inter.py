@@ -162,8 +162,7 @@ def _pass_overlaps(jobs, shapes):
     return out
 
 
-@pytest.mark.parametrize("name", ["8bit-420", "jnt-masked", "2-tile-cols",
-                                  "8bit-444"])
+@pytest.mark.parametrize("name", sorted(STREAMS))
 def test_job_passes_write_disjoint_pixels(name, jobs_seen):
     _port_md5s(_stream(STREAMS[name]))
     assert jobs_seen
