@@ -11,13 +11,22 @@ exits nonzero and prints no "ok" line:
                 (deblock, mc_put, mc_comp, itx_add; one nvcc each), all
                 started together
 3. kernel     - the deblock kernel against its plain torch version on
-                the card (torch.equal), bd 8/10/12, luma/chroma, small
-                shapes plus the 1080p and 4K planes; per-pass kernel and
-                plain ms
+                the card (torch.equal), bd 8/10/12, luma/chroma, each
+                direction alone (the other direction's edges inactive,
+                against the plain pass) and both in one launch, on small
+                shapes,
+                shapes whose 64x64 tiles end ragged, the 1080p and 4K
+                planes, and whole 4:2:0 frames in one launch; the device
+                time of one 1080p frame's deblock (all device work and
+                the kernel alone), wrapper and plain ms, and the bound
+                for the fused bytes and for the two-pass bytes
 4. kernel_mc  - the put and compound kernels against their plain
                 versions (torch.equal): bd 8/10/12, every put size
-                2..128 with every filter type (8-tap and bilinear) and
-                windows across every frame edge; compounds with all four
+                2..128 with every filter type (8-tap and bilinear),
+                subpel and integer (copy) motion, and windows across
+                every frame edge, put tables that end every class in a
+                ragged block, and three such tables as the planes of one
+                launch; compounds with all four
                 combine modes, wedge masks of classes 16 and 32 for every
                 layout, and the seg mask from luma to chroma; compound
                 tables that end every class in a ragged kernel block and
@@ -32,7 +41,9 @@ exits nonzero and prints no "ok" line:
                 same inputs; then, on those inputs, each kernel's device
                 time (torch.profiler), per launch too, beside its block
                 count and the time of a launch of its largest block
-                alone; the plain version's ms and the bound
+                alone; the plain version's ms and the bound; and the
+                deblock of that frame's planes and maps (torch.equal,
+                device time beside the synthetic frame's)
 7. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
                 _enc.ivf through Decoder(Settings(decode_frame_type=3))
                 on cuda: one picture, the expected md5, per-stage wall
@@ -209,8 +220,59 @@ def _device_us(torch, fn, name, iters=10):
 
 
 def _deblock_bytes(h4, w4):
-    # int32 plane read + written, the two byte maps read, two LUTs
+    # one directional pass run on its own (the two-pass design): the
+    # int32 plane read and written, the two byte maps read, two LUTs
     return 8 * 16 * h4 * w4 + 2 * h4 * w4 + 2 * 64 * 4
+
+
+def _deblock_frame_work(shapes):
+    """(fused bytes, two-pass bytes, ops) of deblocking planes of (h4,
+    w4) in both directions: fused, each int32 pixel read and written
+    once, the four byte maps and the two LUTs read once; two-pass, the
+    plane read and written by each pass (_deblock_bytes); ops, the
+    decision of every (line, edge) of both passes."""
+    fused = sum(8 * 16 * h4 * w4 + 4 * h4 * w4 for h4, w4 in shapes) + \
+        2 * 64 * 4
+    two = sum(2 * _deblock_bytes(h4, w4) for h4, w4 in shapes)
+    ops = sum(2 * 4 * h4 * w4 for h4, w4 in shapes) * \
+        DEBLOCK_OPS_PER_EDGE_LINE
+    return fused, two, ops
+
+
+def _device_window_us(torch, fn, iters=10):
+    """Per call of fn, the device time (us) of every device activity in
+    a profiled window (kernels, copies, memsets) and of the deblock
+    kernels alone; None when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None, None
+    total = sum(e.time_range.elapsed_us() for e in evs)
+    kern = sum(e.time_range.elapsed_us() for e in evs
+               if "deblock_" in e.name)
+    return total / iters, kern / iters
+
+
+def deblock_frame_times(torch, fn, plain):
+    """Times of deblocking one frame's planes on the card: fn(), the
+    wrapper (CUDA events, ms), all device work it launches and the
+    deblock kernels alone (torch.profiler, us), and plain(), the plain
+    version (ms)."""
+    all_us, kern_us = _device_window_us(torch, fn)
+    if not kern_us:
+        raise RuntimeError("torch.profiler reported no device time for "
+                           "the deblock kernel")
+    return {"wrapper_ms": _time_ms(torch, fn),
+            "device_all_us": all_us, "kernel_device_us": kern_us,
+            "plain_ms": _time_ms(torch, plain, iters=3)}
 
 
 def phase_kernel(torch, card):
@@ -221,89 +283,85 @@ def phase_kernel(torch, card):
     e, i = calc_eih(3)
     lut_e = torch.from_numpy(e.astype(np.int32)).to(dev)
     lut_i = torch.from_numpy(i.astype(np.int32)).to(dev)
-    small = [(16, 64), (8, 8), (20, 36)]
+
+    def planes(h4, w4, luma, bd, seed):
+        rng = np.random.default_rng(seed)
+        plane, maps = _lf_inputs(rng, h4, w4, bd)
+        return (torch.from_numpy(plane).to(dev), luma,
+                *[tuple(torch.from_numpy(a).to(dev) for a in m)
+                  for m in maps])
+
+    # small shapes, shapes whose 64x64 tiles end ragged at the right and
+    # bottom, the 1080p and 4K planes
+    small = [(16, 64), (8, 8), (20, 36), (36, 52), (41, 23)]
     shapes = {True: small + [(288, 480), (544, 960)],
               False: small + [(144, 240), (272, 480)]}
     n_cases = 0
     max_err = 0
+
+    def check(got, want, what):
+        nonlocal n_cases, max_err
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            max_err = max(max_err, int((g - w).abs().max()))
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:4].tolist()
+                raise AssertionError(f"deblock kernel != plain: {what} at "
+                                     f"{bad}")
+        n_cases += 1
+
     for bd in (8, 10, 12):
         for luma in (True, False):
             for h4, w4 in shapes[luma]:
-                rng = np.random.default_rng(bd * 100 + h4 + w4 + luma)
-                plane, maps = _lf_inputs(rng, h4, w4, bd)
-                P = torch.from_numpy(plane).to(dev)
-                M = [tuple(torch.from_numpy(a).to(dev) for a in m)
-                     for m in maps]
-                for vert, (cls, L) in zip((True, False), M):
-                    k = lf.deblock_pass_cuda(P, cls, L, lut_e, lut_i, bd,
-                                             luma, vert)
-                    p = lf.deblock_pass_plain(P, cls, L, lut_e, lut_i, bd,
-                                              luma, vert)
-                    torch.cuda.synchronize()
-                    max_err = max(max_err, int((k - p).abs().max()))
-                    if not torch.equal(k, p):
-                        bad = (k != p).nonzero()[:4].tolist()
-                        raise AssertionError(
-                            f"deblock kernel != plain: bd={bd} luma={luma}"
-                            f" shape={(h4, w4)} vertical={vert} at {bad}")
-                    n_cases += 1
-                full_k = lf.deblock_plane(P, *M, lut_e, lut_i, bd, luma)
-                full_p = lf.deblock_pass_plain(
-                    lf.deblock_pass_plain(P, *M[0], lut_e, lut_i, bd, luma,
-                                          True),
-                    *M[1], lut_e, lut_i, bd, luma, False)
-                if not torch.equal(full_k, full_p):
-                    raise AssertionError(f"deblock plane mismatch bd={bd} "
-                                         f"luma={luma} shape={(h4, w4)}")
+                ent = planes(h4, w4, luma, bd, bd * 100 + h4 + w4 + luma)
+                P, _, vm, hm = ent
+                for vert, (cls, L) in zip((True, False), (vm, hm)):
+                    # the other direction's edges all inactive
+                    off = (torch.full_like(cls, -1), L)
+                    one = (P, luma, (cls, L) if vert else off,
+                           off if vert else (cls, L))
+                    check(lf.deblock_frame_cuda([one], lut_e, lut_i, bd),
+                          [lf.deblock_pass_plain(P, cls, L, lut_e, lut_i,
+                                                 bd, luma, vert)],
+                          f"bd={bd} luma={luma} shape={(h4, w4)} "
+                          f"vertical={vert}")
+                check(lf.deblock_frame_cuda([ent], lut_e, lut_i, bd),
+                      lf.deblock_frame_plain([ent], lut_e, lut_i, bd),
+                      f"bd={bd} luma={luma} shape={(h4, w4)} both passes")
+        # whole 4:2:0 frames, every plane in one launch
+        for h4, w4 in ((288, 480), (544, 960), (36, 52)):
+            ent = [planes(h4, w4, True, bd, bd + h4)] + \
+                [planes(h4 // 2, w4 // 2, False, bd, bd + h4 + k)
+                 for k in (1, 2)]
+            check(lf.deblock_frame_cuda(ent, lut_e, lut_i, bd),
+                  lf.deblock_frame_plain(ent, lut_e, lut_i, bd),
+                  f"bd={bd} frame {(h4, w4)}")
 
-    # per-pass times at the 1080p 8-bit shapes of the main path
-    timings = {}
-    frame_ms = frame_dev_us = frame_plain_ms = 0.0
-    frame_bytes = frame_threads = 0.0
-    for name, (h4, w4), luma, count in (("luma", (288, 480), True, 1),
-                                         ("chroma", (144, 240), False, 2)):
-        rng = np.random.default_rng(7)
-        plane, maps = _lf_inputs(rng, h4, w4, 8)
-        P = torch.from_numpy(plane).to(dev)
-        M = [tuple(torch.from_numpy(a).to(dev) for a in m) for m in maps]
-        for vert, (cls, L) in zip((True, False), M):
-            key = f"{name}_{'v' if vert else 'h'}"
-            kms = _time_ms(torch, lambda: lf.deblock_pass_cuda(
-                P, cls, L, lut_e, lut_i, 8, luma, vert))
-            pms = _time_ms(torch, lambda: lf.deblock_pass_plain(
-                P, cls, L, lut_e, lut_i, 8, luma, vert), iters=5)
-            dus = _device_us(torch, lambda: lf.deblock_pass_cuda(
-                P, cls, L, lut_e, lut_i, 8, luma, vert), "deblock_")
-            if dus is None:
-                raise RuntimeError("torch.profiler reported no device "
-                                   "time for the deblock kernel")
-            timings[key] = {"shape4": [h4, w4], "ms": kms, "plain_ms": pms,
-                            "kernel_device_us": dus,
-                            "bound_us": _deblock_bytes(h4, w4) /
-                            HBM_BYTES_PER_S * 1e6}
-            frame_ms += count * kms
-            frame_dev_us += count * dus
-            frame_plain_ms += count * pms
-            frame_bytes += count * _deblock_bytes(h4, w4)
-            lines = 4 * h4 if vert else 4 * w4
-            frame_threads += count * lines * (w4 if vert else h4)
-    bound_s = max(frame_bytes / HBM_BYTES_PER_S,
-                  frame_threads * DEBLOCK_OPS_PER_EDGE_LINE /
-                  INT32_OPS_PER_S)
+    # one 1080p 8-bit 4:2:0 frame of random maps (75% of the positions
+    # active)
+    ent = [planes(288, 480, True, 8, 7), planes(144, 240, False, 8, 8),
+           planes(144, 240, False, 8, 9)]
+    t = deblock_frame_times(
+        torch, lambda: lf.deblock_frame_cuda(ent, lut_e, lut_i, 8),
+        lambda: lf.deblock_frame_plain(ent, lut_e, lut_i, 8))
+    fused, two, ops = _deblock_frame_work([(288, 480), (144, 240),
+                                           (144, 240)])
+    bound_s = max(fused / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
     emit({"phase": "kernel", "card": card, "cases": n_cases,
-          "max_abs_err": max_err, "equal": True, "passes_1080p": timings,
-          "frame_1080p": {"wrapper_ms": frame_ms,
-                          "kernel_device_ms": frame_dev_us / 1e3,
-                          "plain_ms": frame_plain_ms, "bytes": frame_bytes,
-                          "bound_ms": bound_s * 1e3}})
-    # "ms": the kernels' device time for one 1080p 4:2:0 frame's six
-    # passes (the wrapper's event time above adds the dst copy and the
-    # host-side launch cost)
-    return {"max_abs_err": max_err, "ms": frame_dev_us / 1e3,
-            "plain_ms": frame_plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": "bytes" if frame_bytes / HBM_BYTES_PER_S >=
-            frame_threads * DEBLOCK_OPS_PER_EDGE_LINE / INT32_OPS_PER_S
-            else "operations"}
+          "max_abs_err": max_err, "equal": True,
+          "frame_1080p": {**t, "launches": 1, "fused_bytes": fused,
+                          "blocks_per_sm": lf._lib().deblock_blocks_per_sm(),
+                          "two_pass_bytes": two, "ops": ops,
+                          "bound_fused_us": bound_s * 1e6,
+                          "bound_two_pass_us": two / HBM_BYTES_PER_S * 1e6,
+                          "active_share": float(np.mean(
+                              [(m[0] >= 0).float().mean().item()
+                               for e_ in ent for m in e_[2:]]))}})
+    # "ms": all device work of one 1080p 4:2:0 frame's deblock
+    return {"max_abs_err": max_err, "ms": t["device_all_us"] / 1e3,
+            "plain_ms": t["plain_ms"], "bound_ms": bound_s * 1e3,
+            "bound_by": "bytes" if fused / HBM_BYTES_PER_S >=
+            ops / INT32_OPS_PER_S else "operations"}
 
 
 def _counts_reset():
@@ -333,6 +391,7 @@ def _check_equal(torch, got, want, what):
 
 def phase_kernel_mc(torch, card):
     """Synthetic put and compound cases: kernel vs plain, torch.equal."""
+    import numpy as np
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import mc
     from dav1d_tpu_torch.ops.device import device_tables
@@ -341,20 +400,39 @@ def phase_kernel_mc(torch, card):
     errs = {"mc_put": 0, "mc_comp": 0}
     n_put = n_comp = 0
     for bd in (8, 10, 12):
-        for seed in (bd, bd + 100):
-            case = kc.put_case(bd, seed)
+        # every size and filter type, subpel and copy, twice; a table
+        # whose classes (filtered and copy) end in ragged blocks: each
+        # alone, then the three as the planes of one launch
+        cases = [kc.put_case(bd, seed) for seed in (bd, bd + 100)] + \
+            [kc.put_case(bd, bd + 200, sizes=kc.ragged_put_sizes())]
+        args = {k: [] for k in ("kernel", "plain")}
+        for pi, case in enumerate(cases):
             refs = [_t(torch, r, dev) for r in case["refs"]]
+            for k in args:
+                args[k].append((refs, torch.zeros(
+                    case["dst_shape"], dtype=torch.int32, device=dev),
+                    case["rh"], case["rw"]))
+            got, want = (torch.zeros(case["dst_shape"], dtype=torch.int32,
+                                     device=dev) for _ in range(2))
             jobs = _t(torch, case["jobs"], dev)
-            got = torch.zeros(case["dst_shape"], dtype=torch.int32,
-                              device=dev)
-            want = got.clone()
             mc.put_cuda(refs, jobs, got, case["rh"], case["rw"], bd)
             mc.put_plain(refs, jobs, want, case["rh"], case["rw"], bd,
                          tb["mc_filter_banks"])
             torch.cuda.synchronize()
             errs["mc_put"] = max(errs["mc_put"], _check_equal(
-                torch, got, want, f"mc_put bd={bd} seed={seed}"))
+                torch, got, want, f"mc_put bd={bd} case {pi}"))
             n_put += len(case["jobs"])
+        jobs = np.concatenate([c["jobs"] for c in cases])
+        jobs[:, 0] = np.repeat(np.arange(3), [len(c["jobs"]) for c in cases])
+        rows, blk = mc.put_blocks(jobs, group=jobs[:, 0])
+        mc.put_planes_cuda(args["kernel"], _t(torch, rows, dev), bd,
+                           _t(torch, blk, dev))
+        mc.put_planes_plain(args["plain"], _t(torch, jobs, dev), bd,
+                            tb["mc_filter_banks"])
+        torch.cuda.synchronize()
+        for pi, (a, b) in enumerate(zip(args["kernel"], args["plain"])):
+            errs["mc_put"] = max(errs["mc_put"], _check_equal(
+                torch, a[1], b[1], f"mc_put bd={bd} one launch, plane {pi}"))
         for ss, sizes in itertools.product(
                 ((1, 1), (1, 0), (0, 0)), (None, kc.ragged_comp_sizes())):
             seed = bd + 3 * ss[0] + ss[1] + (50 if sizes else 0)
@@ -426,18 +504,22 @@ def _put_work(jobs, n_refs, ref_shape, rh, rw):
     """(bytes, ops) a put call must move / do: the distinct reference
     pixels its windows read (each once), each output pixel written once
     and the job table; 2 ops per multiply-add of the two 8-tap passes
-    (bilinear: 2 taps) plus the two roundings and the clip."""
+    (bilinear: 2 taps) plus the two roundings and the clip. A job with
+    amx = amy = 0 is a clamped copy: its h x w pixels, no ops."""
     import numpy as np
     seen = np.zeros((n_refs, *ref_shape), bool)
     ops = 0
     for j in np.asarray(jobs).tolist():
         h, w, slot, dy, dx, ft = j[1], j[2], j[5], j[6], j[7], j[10]
-        taps, off = (2, 0) if ft < 0 else (8, 3)
+        copy = j[8] == 0 and j[9] == 0
+        taps, off = (1, 0) if copy else (2, 0) if ft < 0 else (8, 3)
+        # the window: rows y0 .. y0 + h + taps - 2, columns alike
         y0, x0 = dy - off, dx - off
-        y1, x1 = y0 + h + taps - 1, x0 + w + taps - 1
+        y1, x1 = y0 + h + taps - 2, x0 + w + taps - 2
         seen[slot, min(max(y0, 0), rh - 1):min(max(y1, 0), rh - 1) + 1,
              min(max(x0, 0), rw - 1):min(max(x1, 0), rw - 1) + 1] = True
-        ops += 2 * taps * ((h + taps - 1) * w + h * w) + 4 * h * w
+        if not copy:
+            ops += 2 * taps * ((h + taps - 1) * w + h * w) + 4 * h * w
     out = int(sum(j[1] * j[2] for j in np.asarray(jobs).tolist()))
     return 4 * (int(seen.sum()) + out + np.asarray(jobs).size), ops
 
@@ -496,11 +578,22 @@ def _bound(bytes_, ops):
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
+def _fresh(t):
+    """A copy of a kernel input (a tensor, a list of them, or None)."""
+    if t is None:
+        return None
+    return [x.clone() for x in t] if isinstance(t, list) else t.clone()
+
+
 def _largest_block(name, blk):
-    """The row of a compound or residual block table whose block covers
-    the most pixels."""
+    """The row of a put, compound or residual block table whose block
+    covers the most pixels (filtered before copy puts)."""
     import numpy as np
-    if name == "mc_comp":
+    if name == "mc_put":
+        c = blk[:, 0] % 25
+        px = (2 << (c // 5)) * (2 << (c % 5)) * blk[:, 2] * \
+            np.where(blk[:, 0] < 25, 2, 1)
+    elif name == "mc_comp":
         px = (4 << (blk[:, 0] >> 2)) * (4 << (blk[:, 0] & 3)) * blk[:, 2]
     else:
         from dav1d_tpu_torch.entropy import levels as lv
@@ -516,23 +609,33 @@ def phase_kernel_real(torch, card):
     and its plain version on those inputs."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    from dav1d_tpu_torch.ops import itx, mc
+    from dav1d_tpu_torch.ops import itx, lf, mc
     from dav1d_tpu_torch.ops.device import device_tables
     dev = torch.device("cuda")
     tb = device_tables(dev)
     calls = {"mc_put": [], "mc_comp": [], "itx_add": []}
     errs = {k: 0 for k in calls}
-    orig = {"put": mc.put, "comp": mc.comp, "itx_add": itx.itx_add}
+    orig = {"put_planes": mc.put_planes, "comp": mc.comp,
+            "itx_add": itx.itx_add,
+            "deblock_frame": lf.deblock_frame}
 
-    def put(refs, jobs, plane, rh, rw, bd):
-        before = plane.clone()
-        orig["put"](refs, jobs, plane, rh, rw, bd)
-        want = before.clone()
-        mc.put_plain(refs, jobs, want, rh, rw, bd, tb["mc_filter_banks"])
-        errs["mc_put"] = max(errs["mc_put"], _check_equal(
-            torch, plane, want, "mc_put on s7 tables"))
-        calls["mc_put"].append((refs, jobs, before, rh, rw, bd))
-        return plane
+    def put_planes(planes, jobs, bd, blocks=None):
+        before = [p.clone() for _, p, _, _ in planes]
+        orig["put_planes"](planes, jobs, bd, blocks)
+        want = [(r, b.clone(), rh, rw)
+                for (r, _, rh, rw), b in zip(planes, before)]
+        mc.put_planes_plain(want, jobs, bd, tb["mc_filter_banks"])
+        for (_, p, _, _), (_, w, _, _) in zip(planes, want):
+            errs["mc_put"] = max(errs["mc_put"], _check_equal(
+                torch, p, w, "mc_put on s7 tables"))
+        calls["mc_put"].append((planes, jobs, before, bd, blocks))
+        return [p for _, p, _, _ in planes]
+
+    frames = []
+
+    def deblock_frame(entries, lut_e, lut_i, bd):
+        frames.append((entries, lut_e, lut_i, bd))
+        return orig["deblock_frame"](entries, lut_e, lut_i, bd)
 
     def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver,
              blocks=None):
@@ -560,12 +663,14 @@ def phase_kernel_real(torch, card):
         calls["itx_add"].append((pool, jobs, before, bd, wht, blocks))
         return plane
 
-    mc.put, mc.comp, itx.itx_add = put, comp, itx_add
+    mc.put_planes, mc.comp, itx.itx_add = put_planes, comp, itx_add
+    lf.deblock_frame = deblock_frame
     try:
         _, digest, _, _, md5s = _decode(STREAM_S7, timed=False, n_tu=2)
     finally:
-        mc.put, mc.comp, itx.itx_add = orig["put"], orig["comp"], \
-            orig["itx_add"]
+        mc.put_planes, mc.comp, itx.itx_add = orig["put_planes"], \
+            orig["comp"], orig["itx_add"]
+        lf.deblock_frame = orig["deblock_frame"]
     if md5s != MD5S_S7[:2]:
         raise AssertionError(f"kernel_real: md5s {md5s}")
     if not all(calls.values()):
@@ -578,15 +683,20 @@ def phase_kernel_real(torch, card):
     def runners(name, plain, largest=False):
         out = []
         for c in calls[name]:
-            if largest and name != "mc_put" and c[-1] is not None:
+            if largest and c[-1] is not None:
                 i = _largest_block(name, c[-1].cpu().numpy())
                 c = (*c[:-1], c[-1][i:i + 1])
             if name == "mc_put":
-                refs, jobs, before, rh, rw, bd = c
-                out.append((before, None, (lambda p, s, c=c: mc.put_plain(
-                    c[0], c[1], p, c[3], c[4], c[5], tb["mc_filter_banks"]))
-                    if plain else (lambda p, s, c=c: mc.put_cuda(
-                        c[0], c[1], p, c[3], c[4], c[5]))))
+                planes, jobs, before, bd, blocks = c
+
+                def fn(ps, s, c=c, plain=plain):
+                    args = [(r, p, rh, rw)
+                            for (r, _, rh, rw), p in zip(c[0], ps)]
+                    if plain:
+                        return mc.put_planes_plain(args, c[1], c[3],
+                                                   tb["mc_filter_banks"])
+                    return mc.put_planes_cuda(args, c[1], c[3], c[4])
+                out.append((before, None, fn))
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 if plain:
@@ -617,8 +727,7 @@ def phase_kernel_real(torch, card):
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps + 1):
                 for before, segb, fn in runners(name, False, largest):
-                    fn(before.clone(),
-                       segb.clone() if segb is not None else None)
+                    fn(_fresh(before), _fresh(segb))
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
@@ -653,8 +762,7 @@ def phase_kernel_real(torch, card):
         for _ in range(reps):
             total = 0.0
             for before, segb, fn in runners(name, plain):
-                p = before.clone()
-                s = segb.clone() if segb is not None else None
+                p, s = _fresh(before), _fresh(segb)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
@@ -675,16 +783,18 @@ def phase_kernel_real(torch, card):
         if not dev_us:
             raise RuntimeError(f"torch.profiler reported no device time "
                                f"for {name}")
-        extra = {}
-        if name != "mc_put":
-            extra = {"blocks_per_launch": [len(c[-1]) for c in calls[name]],
-                     "largest_block_alone_us": device_us(name, True)[1]}
+        extra = {"blocks_per_launch": [len(c[-1]) for c in calls[name]],
+                 "largest_block_alone_us": device_us(name, True)[1]}
         bytes_ = ops = 0
         for c in calls[name]:
             if name == "mc_put":
-                refs, jobs, before, rh, rw, bd = c
-                b, o = _put_work(jobs.cpu().numpy(), len(refs),
-                                 tuple(refs[0].shape), rh, rw)
+                planes, jobs, before, bd, _ = c
+                j = jobs.cpu().numpy()
+                b = o = 0
+                for pi, (refs, _, rh, rw) in enumerate(planes):
+                    bp, op = _put_work(j[j[:, 0] == pi], len(refs),
+                                       tuple(refs[0].shape), rh, rw)
+                    b, o = b + bp, o + op
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 b, o = _comp_work(jobs.cpu().numpy(), len(refs),
@@ -704,9 +814,29 @@ def phase_kernel_real(torch, card):
             "plain_ms": frame_ms(name, True, 3),
             "bytes": bytes_, "ops": ops, "bound_ms": bound_ms,
             "bound_by": bound_by}
+    # the deblock of the inter frame's planes and maps, as the decode
+    # sent them to the kernel
+    entries, lut_e, lut_i, bd = frames[-1]
+    got = lf.deblock_frame_cuda(entries, lut_e, lut_i, bd)
+    err = max(_check_equal(torch, g, w, "deblock on s7 frame 2")
+              for g, w in zip(got, lf.deblock_frame_plain(entries, lut_e,
+                                                          lut_i, bd)))
+    fused, two, ops = _deblock_frame_work(
+        [(e[0].shape[0] // 4, e[0].shape[1] // 4) for e in entries])
+    deblock_real = {
+        **deblock_frame_times(
+            torch, lambda: lf.deblock_frame_cuda(entries, lut_e, lut_i, bd),
+            lambda: lf.deblock_frame_plain(entries, lut_e, lut_i, bd)),
+        "max_abs_err": err, "launches": 1,
+        "active_share": [[float((m[0] >= 0).float().mean()) for m in e[2:]]
+                         for e in entries],
+        "bound_fused_us": max(fused / HBM_BYTES_PER_S,
+                              ops / INT32_OPS_PER_S) * 1e6,
+        "bound_two_pass_us": two / HBM_BYTES_PER_S * 1e6}
     emit({"phase": "kernel_real", "card": card, "stream": STREAM_S7,
           "frame": 2, "md5s": md5s, "equal": True,
           "one_element_fill_us": floor_us(), "kernels": res,
+          "deblock": deblock_real,
           "library_ms": "null: no single PyTorch call computes a "
           "clamped-window 8-tap put, a masked compound or an integer AV1 "
           "inverse transform"})

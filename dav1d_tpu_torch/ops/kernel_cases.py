@@ -76,20 +76,44 @@ def _mv(rng, h, w, n_refs, rh, rw, ft):
             int(rng.integers(0, n_refs))]
 
 
-def put_case(bd, seed, n_refs=3, width=512):
-    """Every put size with every filter type (8-tap and bilinear).
-    Returns {refs (R, H, W), jobs (n, 11), dst_shape, rh, rw}."""
+def put_case(bd, seed, n_refs=3, width=512, sizes=None):
+    """Puts with every filter type (8-tap and bilinear) in turn. sizes:
+    (h, w, copy) per job, copy meaning integer motion (amx = amy = 0;
+    other jobs get a nonzero phase); by default every put size twice
+    with subpel motion, then every size once more as a copy. Returns
+    {refs (R, H, W), jobs (n, 11), dst_shape, rh, rw}."""
     rng = np.random.default_rng(seed)
     rh, rw = FRAME
-    sizes = [s for s in PUT_SIZES for _ in range(2)]
-    py, px, height = pack(sizes, width)
+    if sizes is None:
+        sizes = [(h, w, False) for h, w in PUT_SIZES for _ in range(2)] + \
+            [(h, w, True) for h, w in PUT_SIZES]
+    py, px, height = pack([s[:2] for s in sizes], width)
     jobs = []
-    for i, (h, w) in enumerate(sizes):
+    for i, (h, w, copy) in enumerate(sizes):
         ft = FT_VALUES[(i + seed) % len(FT_VALUES)]
         dy, dx, amx, amy, _, slot = _mv(rng, h, w, n_refs, rh, rw, ft)
+        if copy:
+            amx = amy = 0
+        elif amx == amy == 0:
+            amx = 8
         jobs.append([0, h, w, py[i], px[i], slot, dy, dx, amx, amy, ft])
     return {"refs": _refs(rng, bd, n_refs), "jobs": np.asarray(jobs,
             np.int32), "dst_shape": (height, width), "rh": rh, "rw": rw}
+
+
+def ragged_put_sizes():
+    """(h, w, copy) of puts that leave a ragged last kernel block in
+    every class the kernel bins them into (ops/mc.py put_blocks): one
+    job more than a block holds of each class up to 32x32 (sides 2..32,
+    at most 4:1), filtered and as copies, then every size larger than
+    32x32 (split into 32-wide tiles) twice of each kind."""
+    from .mc import put_jobs_per_block
+    small = [(h, w) for h in (2, 4, 8, 16, 32) for w in (2, 4, 8, 16, 32)
+             if max(h, w) <= 4 * min(h, w)]
+    out = [(h, w, copy) for copy in (False, True) for h, w in small
+           for _ in range(put_jobs_per_block(h, w, copy) + 1)]
+    return out + [(h, w, copy) for copy in (False, True)
+                  for h, w in PUT_SIZES if max(h, w) > 32 for _ in range(2)]
 
 
 def _wedge_bs(h, w):

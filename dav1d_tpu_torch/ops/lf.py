@@ -6,14 +6,17 @@ both sides of an edge, so the edges of one directional pass never read
 what another edge of the same pass writes: a whole pass is
 data-parallel. A pass reads one plane and writes a copy of it.
 
-Two implementations of one pass:
+Two implementations:
 
-- `deblock_pass_plain`: whole-plane torch arithmetic (the plain
-  version). For column edge x the p_i/q_i taps are the strided views
-  plane[:, 4x-1-i] / plane[:, 4x+i]; `filter_values` computes every
-  candidate value and write mask at once. Used for CPU tensors only.
-- the hand-written CUDA kernel in csrc/deblock.cu, one thread per
-  (pixel line, 4-px edge); used for every CUDA tensor.
+- `deblock_pass_plain`: one directional pass as whole-plane torch
+  arithmetic (the plain version). For column edge x the p_i/q_i taps
+  are the strided views plane[:, 4x-1-i] / plane[:, 4x+i];
+  `filter_values` computes every candidate value and write mask at
+  once. `deblock_frame_plain` runs it per plane, vertical then
+  horizontal. Used for CPU tensors only.
+- the hand-written CUDA kernel in csrc/deblock.cu: one launch filters
+  every plane of a frame in both directions, tile by tile in shared
+  memory (`deblock_frame_cuda`); used for every CUDA tensor.
 
 Map convention: both passes take (cls, L) maps shaped (h4, w4) in plane
 orientation. Vertical-pass entry (y, x) is the edge at column 4x for
@@ -200,7 +203,19 @@ def deblock_pass_plain(plane, cls, L, lut_e, lut_i, bd, luma, vertical):
                            luma).t().contiguous()
 
 
+def deblock_frame_plain(entries, lut_e, lut_i, bd):
+    """Deblock planes, plain torch: entries [(plane, luma, vmaps,
+    hmaps)], each maps pair (cls, L); per plane the vertical pass, then
+    the horizontal one, with deblock_pass_plain (the reference's
+    cols-then-rows order). Returns the filtered planes."""
+    return [deblock_pass_plain(
+        deblock_pass_plain(plane, *vmaps, lut_e, lut_i, bd, luma, True),
+        *hmaps, lut_e, lut_i, bd, luma, False)
+        for plane, luma, vmaps, hmaps in entries]
+
+
 _LIB = None
+MAX_PLANES = 3          # planes one launch of csrc/deblock.cu takes
 
 
 def _lib():
@@ -208,64 +223,68 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load_library
         lib = load_library("deblock")
-        lib.deblock_pass.restype = ct.c_int
-        lib.deblock_pass.argtypes = [
-            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-            ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-            ct.c_int, ct.c_int, ct.c_void_p]
+        lib.deblock_frame.restype = ct.c_int
+        lib.deblock_frame.argtypes = [
+            ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p,
+            ct.c_int, ct.c_void_p]
+        lib.deblock_blocks_per_sm.restype = ct.c_int
+        lib.deblock_blocks_per_sm.argtypes = []
         _LIB = lib
     return _LIB
 
 
-def deblock_pass_cuda(plane, cls, L, lut_e, lut_i, bd, luma, vertical):
-    """One directional pass with the CUDA kernel (csrc/deblock.cu):
-    same contract as deblock_pass_plain, CUDA tensors only. Launches
-    on the current stream and does not synchronise."""
-    H, W = plane.shape
-    if H % 4 or W % 4:
-        raise ValueError(f"plane shape {(H, W)} not a multiple of 4")
+def deblock_frame_cuda(entries, lut_e, lut_i, bd):
+    """deblock_frame_plain's contract with one launch of the CUDA kernel
+    (csrc/deblock.cu) for every plane and both directions; CUDA tensors
+    only, each plane 16-byte aligned (the kernel moves pixels 16 bytes
+    at a time). Each output is a fresh tensor, written whole by the
+    kernel. Launches on the current stream and does not synchronise."""
+    from .cuda_build import check_tensor as check
+    if not 1 <= len(entries) <= MAX_PLANES:
+        raise ValueError(f"{len(entries)} planes, expected 1..3")
     if bd not in (8, 10, 12):
         raise ValueError(f"bitdepth {bd}")
-    h4, w4 = H // 4, W // 4
-    dev = plane.device
+    dev = entries[0][0].device
     if dev.type != "cuda":
-        raise ValueError("deblock_pass_cuda needs CUDA tensors")
-    from .cuda_build import check_tensor as check
-    check(plane, "plane", torch.int32, dev, (H, W))
-    check(cls, "cls", torch.int8, dev, (h4, w4))
-    check(L, "L", torch.uint8, dev, (h4, w4))
+        raise ValueError("deblock_frame_cuda needs CUDA tensors")
     check(lut_e, "lut_e", torch.int32, dev, (64,))
     check(lut_i, "lut_i", torch.int32, dev, (64,))
-    lib = _lib()
-    dst = plane.clone()
-    rc = lib.deblock_pass(
-        plane.data_ptr(), dst.data_ptr(), cls.data_ptr(), L.data_ptr(),
-        lut_e.data_ptr(), lut_i.data_ptr(), h4, w4, bd, int(luma),
-        int(vertical), torch.cuda.current_stream(dev).cuda_stream)
+    ptrs, dims, outs = [], [], []
+    for n, (plane, luma, vmaps, hmaps) in enumerate(entries):
+        H, W = plane.shape
+        if H % 4 or W % 4:
+            raise ValueError(f"plane shape {(H, W)} not a multiple of 4")
+        h4, w4 = H // 4, W // 4
+        check(plane, f"plane {n}", torch.int32, dev, (H, W))
+        if plane.data_ptr() % 16:
+            raise ValueError(f"plane {n} is not 16-byte aligned")
+        out = torch.empty_like(plane)
+        ptrs += [plane.data_ptr(), out.data_ptr()]
+        for d, (cls, L) in (("v", vmaps), ("h", hmaps)):
+            check(cls, f"{d}cls {n}", torch.int8, dev, (h4, w4))
+            check(L, f"{d}L {n}", torch.uint8, dev, (h4, w4))
+            ptrs += [cls.data_ptr(), L.data_ptr()]
+        dims += [h4, w4, int(bool(luma))]
+        outs.append(out)
+    rc = _lib().deblock_frame(
+        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
+        len(entries), lut_e.data_ptr(), lut_i.data_ptr(), bd,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {rc}")
     LAUNCHES["deblock"] += 1
-    return dst
+    return outs
 
 
-def deblock_pass(plane, cls, L, lut_e, lut_i, bd, luma, vertical):
-    """One directional pass: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if plane.is_cuda:
-        return deblock_pass_cuda(plane, cls, L, lut_e, lut_i, bd, luma,
-                                 vertical)
-    if plane.device.type != "cpu":
-        raise ValueError(f"unsupported device {plane.device}")
-    return deblock_pass_plain(plane, cls, L, lut_e, lut_i, bd, luma,
-                              vertical)
-
-
-def deblock_plane(plane, vmaps, hmaps, lut_e, lut_i, bd, luma):
-    """Both passes over one plane: vertical edges, then horizontal
-    (the reference's cols-then-rows order). vmaps/hmaps are (cls, L)
-    tensors shaped (h4, w4) in plane orientation."""
-    plane = deblock_pass(plane, *vmaps, lut_e, lut_i, bd, luma, True)
-    return deblock_pass(plane, *hmaps, lut_e, lut_i, bd, luma, False)
+def deblock_frame(entries, lut_e, lut_i, bd):
+    """Deblock planes: the CUDA kernel (one launch) for CUDA tensors,
+    the plain version for CPU tensors."""
+    dev = entries[0][0].device
+    if dev.type == "cuda":
+        return deblock_frame_cuda(entries, lut_e, lut_i, bd)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return deblock_frame_plain(entries, lut_e, lut_i, bd)
 
 
 def _pad_maps(maps, n4h, n4w):
@@ -279,33 +298,21 @@ def _pad_maps(maps, n4h, n4w):
     return out_cls, out_l
 
 
-def _to_dev(maps, device):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in maps)
-
-
-def deblock_planes_device(planes, plan, bd):
-    """Deblock int32 plane tensors (all on one device). planes: [y] or
-    [y, u, v] full padded picture planes. Edges near the frame boundary
-    read the prediction overshoot in the padding (the reference filters
-    its padded picture too), so the passes run on the full planes with
-    the parameter maps padded by inactive entries. Returns a new list."""
-    f = plan.f
-    fh = f.frame_hdr
-    lflf = fh.loopfilter
+def frame_maps(plan, shapes):
+    """The host side of a frame's deblock: [(plane index, luma, vmaps,
+    hmaps)] with numpy (cls int8, L uint8) maps on each deblocked
+    plane's full 4x4 grid (shapes: the planes' (H, W)). Edges near the
+    frame boundary read the prediction overshoot in the padding (the
+    reference filters its padded picture too), so the maps cover the
+    full planes, padded by inactive entries."""
+    lflf = plan.f.frame_hdr.loopfilter
     from .lf_native import build_lf_masks_native
     m = build_lf_masks_native(plan)
     if m is None:
         m = build_lf_masks(plan)
-    device = planes[0].device
-    from .device import device_tables
-    tb = device_tables(device)
-    lut_e = tb["lf_lut_e"][lflf.sharpness].contiguous()
-    lut_i = tb["lf_lut_i"][lflf.sharpness].contiguous()
-
-    out = list(planes)
+    out = []
     if lflf.level_y[0] or lflf.level_y[1]:
-        ah, aw = planes[0].shape
+        ah, aw = shapes[0]
         fh4, fw4 = ah // 4, aw // 4
         lvl_v = m.lvl[:, :, 0].astype(np.int32)
         lvl_h = m.lvl[:, :, 1].astype(np.int32)
@@ -317,13 +324,11 @@ def deblock_planes_device(planes, plan, bd):
             m.hcls_y, lvl_h,
             np.concatenate([lvl_h[:1], lvl_h[:-1]], axis=0))
         yh[0][0, :] = -1
-        yv = _to_dev(_pad_maps(yv, fh4, fw4), device)
-        yh = _to_dev(_pad_maps(yh, fh4, fw4), device)
-        out[0] = deblock_plane(planes[0], yv, yh, lut_e, lut_i, bd, True)
-
-    if len(planes) > 1 and (lflf.level_u or lflf.level_v):
+        out.append((0, True, _pad_maps(yv, fh4, fw4),
+                    _pad_maps(yh, fh4, fw4)))
+    if len(shapes) > 1 and (lflf.level_u or lflf.level_v):
         ch4, cw4 = m.ch4, m.cw4
-        ah, aw = planes[1].shape
+        ah, aw = shapes[1]
         fh4, fw4 = ah // 4, aw // 4
         for pl in range(2):
             lvl_v = m.lvl[:ch4, :cw4, 2 + pl].astype(np.int32)
@@ -335,8 +340,53 @@ def deblock_planes_device(planes, plan, bd):
                 m.hcls_uv, lvl_v,
                 np.concatenate([lvl_v[:1], lvl_v[:-1]], axis=0))
             ph[0][0, :] = -1
-            pv = _to_dev(_pad_maps(pv, fh4, fw4), device)
-            ph = _to_dev(_pad_maps(ph, fh4, fw4), device)
-            out[1 + pl] = deblock_plane(planes[1 + pl], pv, ph, lut_e,
-                                        lut_i, bd, False)
+            out.append((1 + pl, False, _pad_maps(pv, fh4, fw4),
+                        _pad_maps(ph, fh4, fw4)))
+    return out
+
+
+def upload_maps(maps, device):
+    """frame_maps' numpy maps -> the same list with (cls int8, L uint8)
+    tensors on `device`: views of one buffer that crosses to the device
+    in a single host-to-device copy."""
+    parts = [a.view(np.uint8).reshape(-1) for _, _, vm, hm in maps
+             for a in (*vm, *hm)]
+    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    out, pos = [], 0
+    for pi, luma, vm, hm in maps:
+        dev_maps = []
+        for cls, L in (vm, hm):
+            n = cls.size
+            cls_d = buf[pos:pos + n].view(torch.int8).view(cls.shape)
+            dev_maps.append((cls_d, buf[pos + n:pos + 2 * n].view(L.shape)))
+            pos += 2 * n
+        out.append((pi, luma, *dev_maps))
+    return out
+
+
+def deblock_planes_device(planes, plan, bd):
+    """Deblock int32 plane tensors (all on one device). planes: [y] or
+    [y, u, v] full padded picture planes. The maps of every deblocked
+    plane cross to the device in one copy; on CUDA one kernel launch
+    filters every plane in both directions. Returns a new list."""
+    from ..utils import timing
+    from .device import device_tables, sync_if_timed
+    device = planes[0].device
+    with timing.phase("deblock.masks"):
+        maps = frame_maps(plan, [tuple(p.shape) for p in planes])
+    out = list(planes)
+    if not maps:
+        return out
+    with timing.phase("deblock.maps_upload"):
+        maps = upload_maps(maps, device)
+        sync_if_timed(device)
+    sharpness = plan.f.frame_hdr.loopfilter.sharpness
+    tb = device_tables(device)
+    with timing.phase("deblock.launch"):
+        got = deblock_frame(
+            [(planes[pi], luma, vm, hm) for pi, luma, vm, hm in maps],
+            tb["lf_lut_e"][sharpness].contiguous(),
+            tb["lf_lut_i"][sharpness].contiguous(), bd)
+    for (pi, *_), g in zip(maps, got):
+        out[pi] = g
     return out

@@ -27,10 +27,12 @@ to the plane's allocated size. Jobs of one call never write the same
 pixel (AV1 blocks are disjoint), so the writes need no ordering; the
 plane is updated in place.
 
-The compound kernel runs class-uniform blocks: `comp_blocks` sorts a
-plane's jobs by tile shape and cuts them into block rows [cls, first,
-count, ty0, tx0]: up to `comp_jobs_per_block` jobs of one shape, or
-one 32-wide tile of a job larger than 32 in a dimension.
+Both kernels run class-uniform blocks: `put_blocks` / `comp_blocks`
+sort a plane's jobs by tile shape and cut them into block rows [cls,
+first, count, ty0, tx0]: up to `put_jobs_per_block` /
+`comp_jobs_per_block` jobs of one shape, or one 32-wide tile of a job
+larger than 32 in a dimension. Puts with integer motion (amx = amy =
+0) get classes of their own, run as clamped copies.
 """
 from __future__ import annotations
 
@@ -50,6 +52,10 @@ MAX_REFS = 8
 LAUNCHES = {"mc_put": 0, "mc_comp": 0}
 # a compound block's shared words and most output pixels (csrc/mc_comp.cu)
 COMP_SMEM_WORDS, COMP_MAX_PX = 8192, 1024
+# the same for a put block (csrc/mc_put.cu), and its tile classes: TH
+# and TW in {2, 4, 8, 16, 32}, each as a filtered and as a copy class
+PUT_SMEM_WORDS, PUT_MAX_PX = 8192, 1024
+PUT_CLASSES = 25
 
 def filter_banks_from(sub):
     """(2, 4, 16, 8) int32 from the (5, 15, 8) dav1d_mc_subpel_filters
@@ -82,38 +88,66 @@ def comp_jobs_per_block(th, tw):
     return min(COMP_SMEM_WORDS // words, COMP_MAX_PX // (th * tw))
 
 
-# log2(size) - 2 of every compound block dimension (4 .. 128), else -1
-_LOG2M2 = np.full(129, -1, np.int64)
-_LOG2M2[[4, 8, 16, 32, 64, 128]] = np.arange(6)
-_CAP = np.array([comp_jobs_per_block(4 << (c >> 2), 4 << (c & 3))
-                 for c in range(16)], np.int64)
+def put_jobs_per_block(th, tw, copy=False):
+    """Jobs of one th x tw class a put block runs: at most PUT_MAX_PX
+    output pixels; a filtered job also takes shared words (a (th+7)-row
+    window of row stride 44, 28, 20 or 12 words at tw 32, 16, 8 / 4 or
+    2, a (th+7)-row intermediate of stride tw + 4, 12 at tw 4 and 4 at
+    tw 2, 16 taps), as many as fit PUT_SMEM_WORDS (csrc/mc_put.cu
+    jobs_per_block)."""
+    px = PUT_MAX_PX // (th * tw)
+    if copy:
+        return px
+    ws = {32: 44, 16: 28, 2: 12}.get(tw, 20)
+    ms = {2: 4, 4: 12}.get(tw, tw + 4)
+    return min(PUT_SMEM_WORDS // ((th + 7) * (ws + ms) + 16), px)
 
 
-def comp_blocks(jobs, group=None):
-    """(jobs sorted stably by class, block table) of (n, 25) compound
-    rows. The class is the tile shape (min(h, 32), min(w, 32)), cls =
-    (log2 th - 2) * 4 + log2 tw - 2. Block rows (int32, (nb, 5)) [cls,
-    first, count, ty0, tx0]: jobs of at most 32x32 in runs of
-    comp_jobs_per_block, the last one ragged; larger jobs one block per
-    32-wide tile, placed first (they are the longest blocks). `group`
-    (n,): a key sorted before the class (the plane), so that one call
-    bins every plane; no block spans two groups, and each group's block
-    rows are contiguous."""
-    jobs = np.asarray(jobs, np.int32)
+# log2(size) - 1 of every block dimension (2 .. 128), else -1
+_LOG2M1 = np.full(129, -1, np.int64)
+_LOG2M1[[2, 4, 8, 16, 32, 64, 128]] = np.arange(7)
+_COMP_CAP = np.array([comp_jobs_per_block(4 << (c >> 2), 4 << (c & 3))
+                      for c in range(16)], np.int64)
+_PUT_CAP = np.array([put_jobs_per_block(2 << (c % 25 // 5), 2 << (c % 5),
+                                        c >= 25)
+                     for c in range(2 * PUT_CLASSES)], np.int64)
+
+
+def _log2m1(jobs, kind, smallest):
+    """log2(h) - 1, log2(w) - 1 of job rows; raises on a size that has
+    no kernel class (not a power of two in smallest..128)."""
     h, w = jobs[:, 1], jobs[:, 2]
-    lh = _LOG2M2[np.clip(h, 0, 128)]
-    lw = _LOG2M2[np.clip(w, 0, 128)]
-    bad = (lh < 0) | (lw < 0) | (h > 128) | (w > 128)
+    lh = _LOG2M1[np.clip(h, 0, 128)]
+    lw = _LOG2M1[np.clip(w, 0, 128)]
+    bad = (lh < 0) | (lw < 0) | (h > 128) | (w > 128) | \
+        (h < smallest) | (w < smallest)
     if bad.any():
         i = int(np.flatnonzero(bad)[0])
-        raise ValueError(f"compound job of {h[i]}x{w[i]}: no kernel class")
-    large = (lh > 3) | (lw > 3)
-    key = (np.minimum(lh, 3) * 4 + np.minimum(lw, 3)) * 2 + large
+        raise ValueError(f"{kind} job of {h[i]}x{w[i]}: no kernel class")
+    return lh, lw
+
+
+def _stable_order(key):
+    """np.argsort(key, kind="stable") of non-negative integer keys, cast
+    to their narrowest type first: numpy sorts 8- and 16-bit keys by
+    radix, ~6x faster than int64 on a frame's ~4k puts."""
+    return np.argsort(key.astype(np.min_scalar_type(int(key.max(initial=0)))),
+                      kind="stable")
+
+
+def _tile_blocks(jobs, cls, large, n_cls, cap, group):
+    """(jobs sorted stably by (group, cls, large), block table) for a
+    class-binned kernel. Block rows (int32, (nb, 5)) [cls, first, count,
+    ty0, tx0]: jobs of at most 32x32 in runs of cap[cls], the last one
+    ragged; larger jobs one block per 32-wide tile, placed first in
+    their group (they are the longest blocks). No block spans two
+    groups, and each group's block rows are contiguous."""
+    key = cls * 2 + large
     if group is not None:
-        key = key + 32 * np.asarray(group, np.int64)
-    order = np.argsort(key, kind="stable")
+        key = key + 2 * n_cls * np.asarray(group, np.int64)
+    order = _stable_order(key)
     jobs, key = jobs[order], key[order]
-    blk = cut_blocks(key, np.where(key & 1, 1, _CAP[(key >> 1) & 15]))
+    blk = cut_blocks(key, np.where(key & 1, 1, cap[(key >> 1) % n_cls]))
     # a large job's block becomes one block per 32-wide tile
     f = blk[:, 1]
     big = (blk[:, 0] & 1).astype(bool)
@@ -126,10 +160,38 @@ def comp_blocks(jobs, group=None):
     out[:, 3] = (k // nx[rep]) * 32
     out[:, 4] = (k % nx[rep]) * 32
     # per group, the tiles of large jobs first
-    out = out[np.argsort((out[:, 0] >> 5) * 2 + (~out[:, 0] & 1),
-                         kind="stable")]
-    out[:, 0] = (out[:, 0] >> 1) & 15
+    out = out[_stable_order((out[:, 0] // (2 * n_cls)) * 2 +
+                            (~out[:, 0] & 1))]
+    out[:, 0] = (out[:, 0] >> 1) % n_cls
     return np.ascontiguousarray(jobs), out.astype(np.int32)
+
+
+def comp_blocks(jobs, group=None):
+    """(jobs sorted stably by class, block table) of (n, 25) compound
+    rows. The class is the tile shape (min(h, 32), min(w, 32)), cls =
+    (log2 th - 2) * 4 + log2 tw - 2; blocks as _tile_blocks cuts them,
+    comp_jobs_per_block jobs at most. `group` (n,): a key sorted before
+    the class (the plane), so that one call bins every plane."""
+    jobs = np.asarray(jobs, np.int32)
+    lh, lw = _log2m1(jobs, "compound", 4)
+    large = (lh > 4) | (lw > 4)
+    cls = (np.minimum(lh, 4) - 1) * 4 + np.minimum(lw, 4) - 1
+    return _tile_blocks(jobs, cls, large, 16, _COMP_CAP, group)
+
+
+def put_blocks(jobs, group=None):
+    """(jobs sorted stably by class, block table) of (n, 11) put rows.
+    The class is the tile shape (min(h, 32), min(w, 32)) and whether the
+    job is a copy (amx = amy = 0): cls = copy * 25 + (log2 th - 1) * 5 +
+    log2 tw - 1; blocks as _tile_blocks cuts them, put_jobs_per_block
+    jobs at most. `group` (n,): a key sorted before the class (the
+    plane), so that one call bins every plane."""
+    jobs = np.asarray(jobs, np.int32)
+    lh, lw = _log2m1(jobs, "put", 2)
+    large = (lh > 4) | (lw > 4)
+    copy = (jobs[:, 8] == 0) & (jobs[:, 9] == 0)
+    cls = copy * PUT_CLASSES + np.minimum(lh, 4) * 5 + np.minimum(lw, 4)
+    return _tile_blocks(jobs, cls, large, 2 * PUT_CLASSES, _PUT_CAP, group)
 
 
 # ---------------------------------------------------------------------------
@@ -317,9 +379,19 @@ def _lib(name):
         fn = getattr(lib, name)
         fn.restype = ct.c_int
         if name == "mc_put":
-            fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
-                           ct.c_int, ct.c_void_p, ct.c_int, ct.c_int,
-                           ct.c_int, ct.c_int, ct.c_int, ct.c_void_p]
+            fn.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_void_p,
+                           ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p]
+            jpb = lib.mc_put_jobs_per_block
+            jpb.restype = ct.c_int
+            jpb.argtypes = [ct.c_int, ct.c_int, ct.c_int]
+            for th in (2, 4, 8, 16, 32):
+                for tw in (2, 4, 8, 16, 32):
+                    for copy in (0, 1):
+                        if jpb(th, tw, copy) != \
+                                put_jobs_per_block(th, tw, copy):
+                            raise RuntimeError(
+                                "mc_put: jobs per block of the kernel and "
+                                "of put_blocks differ")
         else:
             fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_int, ct.c_void_p,
                            ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_int,
@@ -361,20 +433,66 @@ def _check_common(jobs, K, plane, bd, device):
     check_tensor(plane, "plane", torch.int32, device)
 
 
-def put_cuda(refs, jobs, plane, rh, rw, bd):
-    """The put with csrc/mc_put.cu: same contract as put_plain, CUDA
-    tensors only. Launches on the current stream, does not synchronise."""
-    dev = plane.device
-    _check_common(jobs, 11, plane, bd, dev)
-    ptrs, ref_w = _check_refs(refs, dev, rh, rw)
+def _blocks_for(jobs, blocks, binner, dev):
+    """(jobs, blocks) for a class-binned kernel: the given block table,
+    or the jobs sorted and binned here (a copy through the host)."""
+    if blocks is None:
+        rows, blk = binner(jobs.cpu().numpy())
+        jobs = torch.from_numpy(rows).to(dev)
+        blocks = torch.from_numpy(blk).to(dev)
+    check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 5))
+    return jobs, blocks
+
+
+def put_planes_cuda(planes, jobs, bd, blocks=None):
+    """The put of a frame's planes in one launch of csrc/mc_put.cu; CUDA
+    tensors only. planes: [(refs, plane, rh, rw)], one per plane index
+    of the jobs' plane column; jobs and blocks as put_cuda takes them,
+    the block table binned with the plane as its group (put_blocks(jobs,
+    group=jobs[:, 0])). A job of a plane index past the list raises
+    where the jobs are binned here, and traps the kernel in a given
+    block table. Launches on the current stream, does not
+    synchronise."""
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"{len(planes)} planes, expected 1..3")
+    dev = planes[0][1].device
+    ptrs, dims = [], []
+    for refs, plane, rh, rw in planes:
+        _check_common(jobs, 11, plane, bd, dev)
+        rp, ref_w = _check_refs(refs, dev, rh, rw)
+        ptrs += list(rp) + [plane.data_ptr()]
+        dims += [len(refs), ref_w, plane.shape[0], plane.shape[1], rh, rw]
+    def binner(j):
+        if len(j) and not 0 <= j[:, 0].min() <= j[:, 0].max() < len(planes):
+            raise ValueError(f"put jobs of planes {j[:, 0].min()}.."
+                             f"{j[:, 0].max()} for {len(planes)} planes")
+        return put_blocks(j, group=j[:, 0])
+    jobs, blocks = _blocks_for(jobs, blocks, binner, dev)
     rc = _lib("mc_put").mc_put(
-        ptrs, len(refs), ref_w, jobs.data_ptr(), len(jobs),
-        plane.data_ptr(), plane.shape[0], plane.shape[1], rh, rw, bd,
+        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
+        len(planes), jobs.data_ptr(), blocks.data_ptr(), len(blocks), bd,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mc_put kernel launch failed: CUDA error {rc}")
     LAUNCHES["mc_put"] += 1
-    return plane
+    return [p for _, p, _, _ in planes]
+
+
+def put_cuda(refs, jobs, plane, rh, rw, bd, blocks=None):
+    """The put with csrc/mc_put.cu: put_plain's contract for jobs of
+    plane index 0, CUDA tensors only. `blocks`: the put_blocks table of
+    `jobs`, which must then be class-sorted; without it the jobs are sorted and binned here
+    (a copy through the host). Launches on the current stream, does not
+    synchronise."""
+    return put_planes_cuda([(refs, plane, rh, rw)], jobs, bd, blocks)[0]
+
+
+def put_planes_plain(planes, jobs, bd, fb):
+    """put_planes_cuda's contract in plain torch: put_plain per plane on
+    the jobs of its plane index."""
+    for pi, (refs, plane, rh, rw) in enumerate(planes):
+        put_plain(refs, jobs[jobs[:, 0] == pi], plane, rh, rw, bd, fb)
+    return [p for _, p, _, _ in planes]
 
 
 def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
@@ -398,11 +516,7 @@ def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
         seg_mode = 1 if luma else 2
     check_tensor(wl16, "wl16", torch.int8, dev, (3 * 11 * 32, 16, 16))
     check_tensor(wl32, "wl32", torch.int8, dev, (3 * 11 * 32, 32, 32))
-    if blocks is None:
-        rows, blk = comp_blocks(jobs.cpu().numpy())
-        jobs = torch.from_numpy(rows).to(dev)
-        blocks = torch.from_numpy(blk).to(dev)
-    check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 5))
+    jobs, blocks = _blocks_for(jobs, blocks, comp_blocks, dev)
     rc = _lib("mc_comp").mc_comp(
         ptrs, len(refs), ref_w, jobs.data_ptr(), blocks.data_ptr(),
         len(blocks), plane.data_ptr(), plane.shape[0], plane.shape[1], seg_ptr, seg_h,
@@ -419,15 +533,23 @@ def _cpu_only(t):
         raise ValueError(f"unsupported device {t.device}")
 
 
-def put(refs, jobs, plane, rh, rw, bd):
+def put(refs, jobs, plane, rh, rw, bd, blocks=None):
     """Put jobs into `plane`: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors (which needs no block table)."""
+    return put_planes([(refs, plane, rh, rw)], jobs, bd, blocks)[0]
+
+
+def put_planes(planes, jobs, bd, blocks=None):
+    """Put a frame's jobs into their planes (put_planes_cuda's
+    contract): one launch of the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (which needs no block table)."""
+    plane = planes[0][1]
     if plane.is_cuda:
-        return put_cuda(refs, jobs, plane, rh, rw, bd)
+        return put_planes_cuda(planes, jobs, bd, blocks)
     _cpu_only(plane)
     from .device import device_tables
-    return put_plain(refs, jobs, plane, rh, rw, bd,
-                     device_tables(plane.device)["mc_filter_banks"])
+    return put_planes_plain(planes, jobs, bd,
+                            device_tables(plane.device)["mc_filter_banks"])
 
 
 def comp(refs, jobs, plane, seg, rh, rw, bd, luma, ss_hor, ss_ver,

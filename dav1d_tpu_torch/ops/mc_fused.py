@@ -5,7 +5,8 @@ Port of dav1d_tpu's ops/mc_fused.py `execute` (the single-program inter
 Stage B), keeping its job-table layouts (recon/inter_device.py) and its
 pass order (`segments`):
 
-  puts      single-reference 8-tap / bilinear, every plane
+  puts      single-reference 8-tap / bilinear, every plane in one
+            launch
   compounds luma before chroma: luma seg-mask jobs write the seg plane
             that chroma jobs with mkind 2 read (two launches in order on
             one stream)
@@ -15,16 +16,18 @@ pass order (`segments`):
 What existed only for the TPU is gone: segments as while_loops over
 fixed chunks, pow2 buffer ladders, the PAD apron and the
 block-gather-and-roll windows, used-prefix and int16 / lo-hi pool
-uploads. Here each pass is one kernel launch per plane, the job tables,
-their block tables and the int32 coefficient pool cross to the device
-in one copy, and the kernels read the reference planes in place. As
-dav1d_tpu bins residual jobs into one segment per transform size, the
-host sorts each plane's compound and residual jobs by class and cuts
-them into class-uniform kernel blocks (ops/mc.py comp_blocks, ops/itx.py
-res_blocks). Warp and OBMC jobs are not ported yet.
+uploads. Here the puts are one kernel launch for every plane and each
+other pass one launch per plane, the job tables, their block tables and
+the int32 coefficient pool cross to the device in one copy, and the
+kernels read the reference planes in place. As dav1d_tpu bins residual
+jobs into one segment per transform size, the host sorts each plane's
+put, compound and residual jobs by class and cuts them into
+class-uniform kernel blocks (ops/mc.py put_blocks, comp_blocks,
+ops/itx.py res_blocks). Warp and OBMC jobs are not ported yet.
 """
 from __future__ import annotations
 
+import itertools
 from functools import lru_cache
 
 import numpy as np
@@ -65,10 +68,12 @@ def _wedge_lut(c):
 
 
 def _plane_tables(jobs, lut, bases, n_planes):
-    """Split the emitter's tables per plane with reference slots and
-    pool offsets resolved: {(kind, plane): (n, K) int32}, kind in put,
-    comp, res, wht, plus the kernels' block tables comp_blocks and
-    res_blocks (comp and res rows class-sorted to match)."""
+    """The emitter's tables with reference slots and pool offsets
+    resolved: "put", every plane's puts in one table, and "put_blocks",
+    its put_blocks table (one launch serves all planes); per plane,
+    {(kind, plane): (n, K) int32}, kind in comp, res, wht, plus the
+    kernels' block tables comp_blocks and res_blocks. Put, comp and res
+    rows are class-sorted to match their blocks."""
     out = {}
     puts = jobs["puts"].copy()
     puts[:, 5] = lut[puts[:, 5]]
@@ -80,12 +85,12 @@ def _plane_tables(jobs, lut, bases, n_planes):
     rows, is_wht = itx.job_rows(res, cfoff)
     # one binning call per kind for every plane; the plane is the
     # leading sort key, so each plane's rows and blocks are contiguous
+    out["put"], out["put_blocks"] = mc.put_blocks(puts, group=puts[:, 0])
     comp, comp_blk = mc.comp_blocks(comp, group=comp[:, 0])
     res_pl = res[~is_wht, 0]
     res_rows, res_blk = itx.res_blocks(rows[~is_wht], group=res_pl)
     res_pl = np.sort(res_pl, kind="stable")
     for pi in range(n_planes):
-        out["put", pi] = puts[puts[:, 0] == pi]
         for kind, t, blk, pl in (("comp", comp, comp_blk, comp[:, 0]),
                                  ("res", res_rows, res_blk, res_pl)):
             a, b = np.searchsorted(pl, [pi, pi + 1])
@@ -124,8 +129,9 @@ def execute(recon, jobs):
         refs, lut = recon._ref_planes()
         pool, bases = recon._build_cf_pool()
         tables = _plane_tables(jobs, lut, bases, n_planes)
-        for (kind, pi), t in tables.items():
-            if kind in ("res", "wht") and \
+        for key in itertools.product(("res", "wht"), range(n_planes)):
+            t = tables.get(key)
+            if t is not None and \
                     int((t[:, 5] + itx.CF_LEN[t[:, 0]]).max()) > len(pool):
                 raise ValueError("residual job reads past the "
                                  "coefficient pool")
@@ -136,9 +142,10 @@ def execute(recon, jobs):
     bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
 
     with timing.phase("inter.puts"):
-        for pi in range(n_planes):
-            if ("put", pi) in T:
-                mc.put(refs[pi], T["put", pi], planes[pi], *bounds[pi], bd)
+        if "put" in T:
+            mc.put_planes([(refs[pi], planes[pi], *bounds[pi])
+                           for pi in range(n_planes)], T["put"], bd,
+                          blocks=T["put_blocks"])
         sync_if_timed(dev)
 
     with timing.phase("inter.comps"):

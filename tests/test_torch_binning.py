@@ -1,17 +1,22 @@
-"""The host side of the compound and residual kernels' class binning
-(ops/mc.py comp_blocks, ops/itx.py res_blocks, called once per kind
-for every plane by ops/mc_fused.py _plane_tables), on the CPU. Inputs:
-the frame-2 tables of bench_streams/1920x1080_8b_flt_s7.ivf as the
-port's emitter writes them (decoded with device="cpu"), and the seeded
-tables of ops/kernel_cases.py. Shown:
+"""The host side of the put, compound and residual kernels' class
+binning (ops/mc.py put_blocks, comp_blocks, ops/itx.py res_blocks,
+called once per kind for every plane by ops/mc_fused.py _plane_tables),
+on the CPU. Inputs: the frame-2 tables of
+bench_streams/1920x1080_8b_flt_s7.ivf as the port's emitter writes them
+(decoded with device="cpu"), and the seeded tables of
+ops/kernel_cases.py. Shown:
 
 - the block tables cover every job exactly once (a job larger than
-  32x32 once per 32-wide tile), every block is class-uniform and holds
-  no more jobs than a kernel block takes, and the sort is stable;
+  32x32 once per 32-wide tile), every block is class-uniform (puts:
+  copy jobs, amx = amy = 0, apart) and holds no more jobs than a kernel
+  block takes, and the sort is stable;
 - the plain versions, run on the class-sorted tables, give the same
   planes (and seg plane) as on the emitter's order;
-- no two jobs of one residual or compound table write the same pixel,
-  which is what makes the reordering exact."""
+- no two jobs of one put, residual or compound table write the same
+  pixel, which is what makes the reordering exact.
+
+The same decode's deblock (planes and maps of frame 2) checks the
+deblock kernel's tiling on a real frame."""
 from functools import lru_cache
 import os
 
@@ -22,9 +27,11 @@ import torch
 from dav1d_tpu_torch.api import Decoder, Settings
 from dav1d_tpu_torch.bitstream.ivf import IvfReader
 from dav1d_tpu_torch.entropy import levels as lv
-from dav1d_tpu_torch.ops import itx, mc, mc_fused
+from dav1d_tpu_torch.ops import itx, lf, mc, mc_fused
 from dav1d_tpu_torch.ops import kernel_cases as kc
 from dav1d_tpu_torch.ops.device import device_tables
+
+from torch_port_cases import deblock_tiled_plain
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,12 +42,14 @@ TH = np.array([4 * t.h for t in lv.TXFM_INFO])
 @lru_cache(maxsize=None)
 def _s7_frame2():
     """The s7 inter frame's per-plane tables in the emitter's order
-    ({(kind, plane): rows}, kind comp / res) and the compound and
-    residual calls of its Stage B, each with its inputs as they were
-    before the call."""
-    emitted, calls = {}, {"comp": [], "res": [], "tables": []}
+    ({(kind, plane): rows}, kind put / comp / res), the put, compound
+    and residual calls of its Stage B, each with its inputs as they
+    were before the call, and the deblock calls' inputs."""
+    emitted = {}
+    calls = {"put": [], "comp": [], "res": [], "tables": [], "deblock": []}
     orig = (mc.comp_blocks, itx.res_blocks, mc.comp, itx.itx_add,
-            mc_fused._plane_tables)
+            mc_fused._plane_tables, mc.put_blocks, mc.put_planes,
+            lf.deblock_frame)
 
     def plane_tables(*args):
         out = orig[4](*args)
@@ -51,6 +60,20 @@ def _s7_frame2():
         for pi in np.unique(group):
             emitted["comp", int(pi)] = jobs[group == pi].copy()
         return orig[0](jobs, group)
+
+    def put_blocks(jobs, group=None):
+        for pi in np.unique(group):
+            emitted["put", int(pi)] = jobs[group == pi].copy()
+        return orig[5](jobs, group)
+
+    def put_planes(planes, jobs, bd, blocks=None):
+        calls["put"].append(([(r, p.clone(), rh, rw)
+                              for r, p, rh, rw in planes], jobs.clone(), bd))
+        return orig[6](planes, jobs, bd, blocks)
+
+    def deblock_frame(entries, lut_e, lut_i, bd):
+        calls["deblock"].append((entries, lut_e, lut_i, bd))
+        return orig[7](entries, lut_e, lut_i, bd)
 
     def res_blocks(rows, group=None):
         for pi in np.unique(group):
@@ -69,8 +92,10 @@ def _s7_frame2():
         return orig[3](pool, jobs, plane, bd, wht, blocks)
 
     mc.comp_blocks, itx.res_blocks, mc.comp, itx.itx_add, \
-        mc_fused._plane_tables = (comp_blocks, res_blocks, comp, itx_add,
-                                  plane_tables)
+        mc_fused._plane_tables, mc.put_blocks, mc.put_planes, \
+        lf.deblock_frame = (comp_blocks, res_blocks, comp, itx_add,
+                            plane_tables, put_blocks, put_planes,
+                            deblock_frame)
     try:
         path = os.path.join(ROOT, "bench_streams", "1920x1080_8b_flt_s7.ivf")
         dec = Decoder(Settings(device="cpu"))
@@ -81,7 +106,8 @@ def _s7_frame2():
             list(dec.pictures())
     finally:
         mc.comp_blocks, itx.res_blocks, mc.comp, itx.itx_add, \
-            mc_fused._plane_tables = orig
+            mc_fused._plane_tables, mc.put_blocks, mc.put_planes, \
+            lf.deblock_frame = orig
     return emitted, calls
 
 
@@ -96,6 +122,9 @@ def _tables():
     cc = kc.comp_case(10, 6, 1, 0)
     out["cases-comp-422-y"] = ("comp", cc["jobs_y"])
     out["cases-comp-422-c"] = ("comp", cc["jobs_c"])
+    out["cases-put"] = ("put", kc.put_case(8, 3)["jobs"])
+    out["cases-put-ragged"] = ("put", kc.put_case(
+        10, 4, sizes=kc.ragged_put_sizes())["jobs"])
     sc = kc.itx_stress_case(8, 7)
     out["cases-res-extreme"] = ("res", sc["extreme"])
     out["cases-res-ragged"] = ("res", sc["ragged"])
@@ -103,8 +132,9 @@ def _tables():
     return out
 
 
-NAMES = ["s7-comp0", "s7-comp1", "s7-comp2", "s7-res0", "s7-res1",
-         "s7-res2", "cases-comp-ragged-y", "cases-comp-ragged-c",
+NAMES = ["s7-put0", "s7-put1", "s7-put2", "s7-comp0", "s7-comp1",
+         "s7-comp2", "s7-res0", "s7-res1", "s7-res2", "cases-put",
+         "cases-put-ragged", "cases-comp-ragged-y", "cases-comp-ragged-c",
          "cases-comp-422-y", "cases-comp-422-c", "cases-res-extreme",
          "cases-res-ragged", "cases-res-all"]
 
@@ -130,19 +160,33 @@ def _check_res(rows, sorted_rows, blocks):
         assert (counts[:-1] == itx.jobs_per_block(cls >> 4)).all()
 
 
-def _check_comp(jobs, sorted_jobs, blocks):
+def _check_tiled(jobs, sorted_jobs, blocks, kind):
+    """The comp_blocks / put_blocks contract: class-uniform blocks (put
+    copy jobs apart), at most a kernel block's jobs, jobs above 32x32
+    once per 32-wide tile, large-job tiles first."""
     h, w = sorted_jobs[:, 1], sorted_jobs[:, 2]
+    copy = (sorted_jobs[:, 8] == 0) & (sorted_jobs[:, 9] == 0)
     assert sorted(map(tuple, jobs.tolist())) == \
         sorted(map(tuple, sorted_jobs.tolist()))
     tiles = {}
+    seen_small = False
     for cls, first, count, ty0, tx0 in blocks.tolist():
-        th, tw = 4 << (cls >> 2), 4 << (cls & 3)
-        assert 1 <= count <= mc.comp_jobs_per_block(th, tw)
+        if kind == "put":
+            c, cp = cls % mc.PUT_CLASSES, cls >= mc.PUT_CLASSES
+            th, tw = 2 << (c // 5), 2 << (c % 5)
+            assert 1 <= count <= mc.put_jobs_per_block(th, tw, cp)
+        else:
+            th, tw = 4 << (cls >> 2), 4 << (cls & 3)
+            assert 1 <= count <= mc.comp_jobs_per_block(th, tw)
         for s in range(first, first + count):
             assert (min(h[s], 32), min(w[s], 32)) == (th, tw)
+            if kind == "put":
+                assert copy[s] == cp
             tiles.setdefault(s, []).append((ty0, tx0))
         large = max(h[first], w[first]) > 32
         assert count == 1 if large else (ty0, tx0) == (0, 0)
+        assert not (large and seen_small)       # tiles of large jobs first
+        seen_small |= not large
     assert sorted(tiles) == list(range(len(jobs)))
     for s, got in tiles.items():
         th, tw = min(h[s], 32), min(w[s], 32)
@@ -157,7 +201,8 @@ def test_blocks_cover_every_job_once(name):
     if kind == "res":
         _check_res(rows, *itx.res_blocks(rows))
     else:
-        _check_comp(rows, *mc.comp_blocks(rows))
+        fn = mc.put_blocks if kind == "put" else mc.comp_blocks
+        _check_tiled(rows, *fn(rows), kind)
 
 
 @pytest.mark.parametrize("pi", range(3))
@@ -168,12 +213,25 @@ def test_plane_tables_bin_every_plane(pi):
     (tables,) = calls["tables"]
     _check_res(emitted["res", pi], tables["res", pi],
                tables["res_blocks", pi])
-    _check_comp(emitted["comp", pi], tables["comp", pi],
-                tables["comp_blocks", pi])
+    _check_tiled(emitted["comp", pi], tables["comp", pi],
+                 tables["comp_blocks", pi], "comp")
     for kind, fn in (("res", itx.res_blocks), ("comp", mc.comp_blocks)):
         rows, blk = fn(emitted[kind, pi])
         assert np.array_equal(tables[kind, pi], rows)
         assert np.array_equal(tables[kind + "_blocks", pi], blk)
+    # the puts of every plane share one table and one launch: plane pi's
+    # rows and block rows are those of binning the plane alone, its
+    # blocks' first jobs offset by the planes before it
+    puts, blk = tables["put"], tables["put_blocks"]
+    a, b = np.searchsorted(puts[:, 0], [pi, pi + 1])
+    mine = blk[(blk[:, 1] >= a) & (blk[:, 1] < b)]
+    assert (puts[blk[:, 1], 0][(blk[:, 1] >= a) & (blk[:, 1] < b)] ==
+            pi).all()
+    mine[:, 1] -= a
+    rows, want = mc.put_blocks(emitted["put", pi])
+    assert np.array_equal(puts[a:b], rows)
+    assert np.array_equal(mine, want)
+    _check_tiled(emitted["put", pi], puts[a:b], mine, "put")
 
 
 def test_s7_tables_use_many_classes():
@@ -184,12 +242,30 @@ def test_s7_tables_use_many_classes():
     _, blk = mc.comp_blocks(comp)
     assert (blk[:, 3] + blk[:, 4] > 0).any()        # tiles of large jobs
     assert len(np.unique(blk[:, 0])) > 5
+    for pi in range(3):
+        _, blk = mc.put_blocks(emitted["put", pi])
+        copy = blk[:, 0] >= mc.PUT_CLASSES
+        assert copy.any() and (~copy).any()         # copy and subpel
+        assert len(np.unique(blk[:, 0])) > 10
+    _, blk = mc.put_blocks(emitted["put", 0])
+    assert (blk[:, 3] + blk[:, 4] > 0).any()
 
 
 def test_plain_sorted_order_matches_emitter_order_s7():
     emitted, calls = _s7_frame2()
     tb = device_tables("cpu")
     assert len(calls["comp"]) == 3 and len(calls["res"]) == 3
+    (planes, jobs, bd), = calls["put"]
+    fb = tb["mc_filter_banks"]
+    outs = []
+    for order in (np.concatenate([emitted["put", pi] for pi in range(3)]),
+                  jobs.numpy()):
+        args = [(r, p.clone(), rh, rw) for r, p, rh, rw in planes]
+        outs.append(mc.put_planes_plain(args, torch.from_numpy(order), bd,
+                                        fb))
+    for (_, p, _, _), a, b in zip(planes, *outs):
+        assert not torch.equal(a, p)
+        assert torch.equal(a, b)
     for refs, jobs, before, seg, rh, rw, bd, luma, sh, sv in calls["comp"]:
         pi = int(jobs[0, 0])
         outs = []
@@ -261,3 +337,30 @@ def test_tables_write_disjoint_pixels(name):
     else:
         h, w = rows[:, 1], rows[:, 2]
     assert kc.overlaps(rows[:, 3], rows[:, 4], h, w, shape) == 0
+
+
+@pytest.mark.parametrize("bd,seed", [(8, 12), (12, 13)])
+def test_plain_sorted_order_matches_case_order_put(bd, seed):
+    case = kc.put_case(bd, seed, sizes=kc.ragged_put_sizes())
+    refs = [torch.from_numpy(r) for r in case["refs"]]
+    fb = device_tables("cpu")["mc_filter_banks"]
+    outs = []
+    for jobs in (case["jobs"], mc.put_blocks(case["jobs"])[0]):
+        plane = torch.zeros(case["dst_shape"], dtype=torch.int32)
+        mc.put_plain(refs, torch.from_numpy(jobs), plane, case["rh"],
+                     case["rw"], bd, fb)
+        outs.append(plane)
+    assert torch.equal(*outs)
+
+
+def test_deblock_tiles_equal_whole_planes_s7():
+    """The deblock kernel's 64x64 tiles with a halo of 12, stitched, on
+    the s7 inter frame's own planes and maps (24-31% of the positions
+    active), equal its whole-plane plain deblock."""
+    _, calls = _s7_frame2()
+    entries, lut_e, lut_i, bd = calls["deblock"][-1]
+    want = lf.deblock_frame_plain(entries, lut_e, lut_i, bd)
+    got = deblock_tiled_plain(entries, lut_e, lut_i, bd)
+    for g, w, e in zip(got, want, entries):
+        assert not torch.equal(w, e[0])
+        assert torch.equal(g, w)

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain torch versions on the card,
 bit-exact (torch.equal): deblock on the tests/test_lf_pallas.py input
-recipe; the put, compound and residual kernels on the seeded cases of
+recipe, one direction at a time (the other direction's edges all
+inactive) and whole frames of up to three planes in one launch, with planes that end in ragged tiles; the put, compound
+and residual kernels on the seeded cases of
 dav1d_tpu_torch/ops/kernel_cases.py at bd 8/10/12, including residuals
-at the full coefficient range, and residual and compound tables whose
-classes end in ragged kernel blocks or split into 32-wide tiles. Marked
+at the full coefficient range, and put (filtered and copy), residual
+and compound tables whose classes end in ragged kernel blocks or split
+into 32-wide tiles. Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -27,8 +30,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(bd, luma, h4, w4, device):
-    rng = np.random.default_rng(bd * 100 + h4 + w4 + luma)
+def _inputs(bd, luma, h4, w4, device, seed=0):
+    rng = np.random.default_rng(bd * 100 + h4 + w4 + luma + 1000 * seed)
     px_max = (1 << bd) - 1
     plane = rng.integers(0, px_max + 1, (4 * h4, 4 * w4)).astype(np.int32)
     flat = rng.integers(0, px_max + 1, (h4, w4))
@@ -53,10 +56,15 @@ def _inputs(bd, luma, h4, w4, device):
                          ids=["wide", "tiny", "odd"])
 @pytest.mark.parametrize("vertical", [True, False], ids=["v", "h"])
 def test_kernel_vs_plain(cuda, bd, luma, h4, w4, vertical):
+    # one direction's pass: the frame kernel with the other direction's
+    # edges all inactive, against the plain pass alone
     P, maps, le, li = _inputs(bd, luma, h4, w4, cuda)
     cls, L = maps[0 if vertical else 1]
+    off = (torch.full_like(cls, -1), L)
     before = lf.LAUNCHES["deblock"]
-    got = lf.deblock_pass_cuda(P, cls, L, le, li, bd, luma, vertical)
+    got = lf.deblock_frame_cuda(
+        [(P, luma, (cls, L) if vertical else off,
+          off if vertical else (cls, L))], le, li, bd)[0]
     assert lf.LAUNCHES["deblock"] == before + 1
     ref = lf.deblock_pass_plain(P, cls, L, le, li, bd, luma, vertical)
     torch.cuda.synchronize()
@@ -66,13 +74,70 @@ def test_kernel_vs_plain(cuda, bd, luma, h4, w4, vertical):
 def test_wrapper_checks(cuda):
     P, maps, le, li = _inputs(8, True, 8, 8, cuda)
     cls, L = maps[0]
+
+    def run(plane, vmaps=maps[0]):
+        return lf.deblock_frame_cuda([(plane, True, vmaps, maps[1])], le, li,
+                                     8)
     with pytest.raises(TypeError):
-        lf.deblock_pass_cuda(P.to(torch.int64), cls, L, le, li, 8, True,
-                             True)
+        run(P.to(torch.int64))
     with pytest.raises(ValueError):
-        lf.deblock_pass_cuda(P, cls[:4], L, le, li, 8, True, True)
+        run(P, (cls[:4], L))
     with pytest.raises(ValueError):
-        lf.deblock_pass_cuda(P.t(), cls, L, le, li, 8, True, True)
+        run(P.t())
+    # a contiguous plane 4 bytes off a 16-byte boundary
+    unaligned = torch.empty(P.numel() + 1, dtype=torch.int32,
+                            device=cuda)[1:].view(P.shape)
+    unaligned.copy_(P)
+    with pytest.raises(ValueError, match="aligned"):
+        run(unaligned)
+
+
+def _frame_entries(bd, shapes, device, seed=0):
+    """(entries, lut_e, lut_i) of a frame's planes: (h4, w4, luma) per
+    plane, random maps in both directions."""
+    entries = []
+    for n, (h4, w4, luma) in enumerate(shapes):
+        P, maps, le, li = _inputs(bd, luma, h4, w4, device, seed + n)
+        entries.append((P, luma, maps[0], maps[1]))
+    return entries, le, li
+
+
+# 4:2:0 and 4:4:4 frames whose planes end in ragged 64x64 tiles, one
+# plane of exactly 64x64, and planes smaller than a tile
+FRAMES = {"420": [(36, 52, True), (18, 26, False), (18, 26, False)],
+          "444": [(20, 36, False)] * 3, "tile": [(16, 16, True)],
+          "tiny": [(8, 8, True), (2, 2, False)]}
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("frame", sorted(FRAMES))
+def test_frame_kernel_vs_plain(cuda, bd, frame):
+    # one launch deblocks every plane in both directions
+    entries, le, li = _frame_entries(bd, FRAMES[frame], cuda, seed=bd)
+    before = lf.LAUNCHES["deblock"]
+    got = lf.deblock_frame_cuda(entries, le, li, bd)
+    assert lf.LAUNCHES["deblock"] == before + 1
+    want = lf.deblock_frame_plain(entries, le, li, bd)
+    torch.cuda.synchronize()
+    assert any(not torch.equal(w, e[0]) for w, e in zip(want, entries))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_frame_wrapper_checks(cuda):
+    entries, le, li = _frame_entries(8, FRAMES["420"], cuda)
+    with pytest.raises(ValueError):
+        lf.deblock_frame_cuda(entries + entries[:1], le, li, 8)
+    P, luma, vm, hm = entries[1]
+    with pytest.raises(ValueError):
+        lf.deblock_frame_cuda([(P, luma, vm, entries[0][3])], le, li, 8)
+    with pytest.raises(TypeError):
+        lf.deblock_frame_cuda([(P, luma, (vm[0], vm[1].to(torch.int8)),
+                                hm)], le, li, 8)
+    with pytest.raises(ValueError):
+        lf.deblock_frame_cuda([(P[:, :-2], luma, vm, hm)], le, li, 8)
+    with pytest.raises(ValueError):
+        lf.deblock_frame_cuda(entries, le, li, 9)
 
 
 # --- inter Stage B: put, compound and residual kernels -------------------
@@ -98,6 +163,56 @@ def test_mc_put_kernel_vs_plain(cuda, bd):
                  device_tables(cuda)["mc_filter_banks"])
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("table", ["host", "wrapper"])
+def test_mc_put_ragged_blocks_kernel_vs_plain(cuda, bd, table):
+    # every class, filtered and copy, ends in a ragged block; jobs above
+    # 32x32 are tiled. "host": the put_blocks table built beforehand, as
+    # the decode path sends it; "wrapper": put_cuda bins by itself
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    case = kc.put_case(bd, seed=30 + bd, sizes=kc.ragged_put_sizes())
+    refs = [_t(r, cuda) for r in case["refs"]]
+    rows, blk = mc.put_blocks(case["jobs"])
+    blocks = _t(blk, cuda) if table == "host" else None
+    jobs = _t(rows if table == "host" else case["jobs"], cuda)
+    got = torch.zeros(case["dst_shape"], dtype=torch.int32, device=cuda)
+    want = got.clone()
+    mc.put_cuda(refs, jobs, got, case["rh"], case["rw"], bd, blocks)
+    mc.put_plain(refs, jobs, want, case["rh"], case["rw"], bd,
+                 device_tables(cuda)["mc_filter_banks"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_mc_put_planes_one_launch_vs_plain(cuda, bd):
+    # three tables of different reference and destination shapes as the
+    # planes of one launch, binned with the plane as the group
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    from dav1d_tpu_torch.ops.device import device_tables
+    cases = [kc.put_case(bd, seed=40 + bd),
+             kc.put_case(bd, seed=50 + bd, sizes=kc.ragged_put_sizes()),
+             kc.put_case(bd, seed=60 + bd, width=256)]
+    jobs = np.concatenate([c["jobs"] for c in cases])
+    jobs[:, 0] = np.repeat(np.arange(3), [len(c["jobs"]) for c in cases])
+    rows, blk = mc.put_blocks(jobs, group=jobs[:, 0])
+    args = {k: [([_t(r, cuda) for r in c["refs"]],
+                 torch.zeros(c["dst_shape"], dtype=torch.int32,
+                             device=cuda), c["rh"], c["rw"])
+                for c in cases] for k in ("kernel", "plain")}
+    before = mc.LAUNCHES["mc_put"]
+    mc.put_planes_cuda(args["kernel"], _t(rows, cuda), bd, _t(blk, cuda))
+    assert mc.LAUNCHES["mc_put"] == before + 1
+    mc.put_planes_plain(args["plain"], _t(jobs, cuda), bd,
+                        device_tables(cuda)["mc_filter_banks"])
+    torch.cuda.synchronize()
+    for a, b in zip(args["kernel"], args["plain"]):
+        assert torch.equal(a[1], b[1])
 
 
 def _comp_kernel_vs_plain(cuda, bd, ss, case):
@@ -200,3 +315,9 @@ def test_inter_wrapper_checks(cuda):
         mc.put_cuda([ref] * 9, jobs, ref.clone(), 16, 16, 8)
     with pytest.raises(ValueError):
         itx.itx_add_cuda(ref.view(-1), jobs[:, :6], ref.t(), 8)
+    with pytest.raises(ValueError):
+        mc.put_cuda([ref], jobs, ref.clone(), 16, 16, 8,
+                    blocks=jobs[:, :4].contiguous())
+    with pytest.raises(TypeError):
+        mc.put_cuda([ref], jobs, ref.clone(), 16, 16, 8,
+                    blocks=jobs[:, :5].long())

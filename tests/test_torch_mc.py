@@ -187,6 +187,35 @@ def test_plain_case_destinations_are_disjoint():
                            case[dst]) == 0
 
 
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_copy_premise(bd):
+    """The put kernel's copy classes: with amx = amy = 0 the plain put
+    is exactly the clamped copy ref[clamp(dy + r), clamp(dx + c)], for
+    every put size, every 8-tap filter type and bilinear, with windows
+    across every frame edge (the identity tap 64 at index 3 gives x << ib
+    and then x; bilinear's 16 likewise)."""
+    n_ft = len(kc.FT_VALUES)
+    sizes = [(h, w, True) for h, w in kc.PUT_SIZES for _ in range(n_ft)]
+    case = kc.put_case(bd, seed=90 + bd, sizes=sizes)
+    jobs = case["jobs"]
+    for h, w in kc.PUT_SIZES:
+        mine = jobs[(jobs[:, 1] == h) & (jobs[:, 2] == w)]
+        assert set(mine[:, 10]) == set(kc.FT_VALUES)
+    rh, rw = case["rh"], case["rw"]
+    dy, dx, h, w = jobs[:, 6], jobs[:, 7], jobs[:, 1], jobs[:, 2]
+    assert (dy < 0).any() and (dy + h > rh).any()       # every frame edge
+    assert (dx < 0).any() and (dx + w > rw).any()
+    got = _port_put(case, bd)
+    want = np.zeros_like(got)
+    for j in jobs.tolist():
+        _, hh, ww, py, px, slot, y, x = j[:8]
+        rows = np.clip(y + np.arange(hh), 0, rh - 1)
+        cols = np.clip(x + np.arange(ww), 0, rw - 1)
+        want[py:py + hh, px:px + ww] = \
+            case["refs"][slot][rows[:, None], cols[None, :]]
+    assert np.array_equal(got, want)
+
+
 def test_wrappers_raise_on_cuda_without_a_kernel_path():
     # CPU tensors take the plain version; anything else must be a CUDA
     # tensor, which launches the kernel (no silent fallback)

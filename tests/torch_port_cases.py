@@ -45,3 +45,42 @@ def frame_planes(name):
             out.append((pj, pt, pic.bpc, planes, dbk))
     assert out
     return out
+
+
+def deblock_tiled_plain(entries, lut_e, lut_i, bd, tile=64, halo=12):
+    """csrc/deblock.cu's decomposition of a frame's deblock, in plain
+    torch: every tile x tile output tile of every plane deblocked (both
+    directions, ops/lf.py deblock_frame_plain) on its own crop with a
+    halo of `halo` pixels, zeros and inactive maps outside the plane,
+    and the crop's interior kept. Equal to deblocking the whole planes
+    exactly when the halo covers every edge that writes into a tile."""
+    import torch
+    from dav1d_tpu_torch.ops.lf import deblock_frame_plain
+    out = []
+    for plane, luma, vmaps, hmaps in entries:
+        H, W = plane.shape
+        res = torch.empty_like(plane)
+        n = tile + 2 * halo
+        for r0 in range(0, H, tile):
+            for c0 in range(0, W, tile):
+                y0, x0 = r0 - halo, c0 - halo
+                ys, xs = max(y0, 0), max(x0, 0)
+                ye, xe = min(y0 + n, H), min(x0 + n, W)
+                crop = torch.zeros((n, n), dtype=plane.dtype)
+                crop[ys - y0:ye - y0, xs - x0:xe - x0] = plane[ys:ye, xs:xe]
+                maps = []
+                for m in (vmaps, hmaps):
+                    cls = torch.full((n // 4, n // 4), -1, dtype=torch.int8)
+                    L = torch.zeros((n // 4, n // 4), dtype=torch.uint8)
+                    sl = (slice((ys - y0) // 4, (ye - y0) // 4),
+                          slice((xs - x0) // 4, (xe - x0) // 4))
+                    cls[sl] = m[0][ys // 4:ye // 4, xs // 4:xe // 4]
+                    L[sl] = m[1][ys // 4:ye // 4, xs // 4:xe // 4]
+                    maps.append((cls, L))
+                got = deblock_frame_plain([(crop, luma, *maps)], lut_e, lut_i,
+                                          bd)[0]
+                ih, iw = min(tile, H - r0), min(tile, W - c0)
+                res[r0:r0 + ih, c0:c0 + iw] = got[halo:halo + ih,
+                                                  halo:halo + iw]
+        out.append(res)
+    return out
