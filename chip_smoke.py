@@ -7,9 +7,9 @@ exits nonzero and prints no "ok" line:
 
 1. device     - the card, its power limit, torch's CUDA version,
                 nvcc/ninja
-2. build      - native/libstagea.so (make) and the four sm_90a kernels
-                (deblock, mc_put, mc_comp, itx_add; one nvcc each), all
-                started together
+2. build      - native/libstagea.so (make) and the six sm_90a kernels
+                (deblock, mc_put, mc_comp, itx_add, mc_warp, mc_obmc;
+                one nvcc each), all started together
 3. kernel     - the deblock kernel against its plain torch version on
                 the card (torch.equal), bd 8/10/12, luma/chroma, each
                 direction alone (the other direction's edges inactive,
@@ -35,29 +35,47 @@ exits nonzero and prints no "ok" line:
                 transform sizes with every valid (row, column) kind pair,
                 plus WHT; coefficients at the full range; tables that
                 end every class in a ragged kernel block; bd 8/10/12
-6. kernel_real- the first 2 temporal units of the s7 stream decoded on
-                cuda with every put / compound / residual launch of the
+6. kernel_warp_obmc - the warp and OBMC kernels against their plain
+                versions (torch.equal): bd 8/10/12, 4:2:0, 4:2:2 and
+                4:4:4, every plane in one launch; warps with random and
+                extreme shears (filter rows 0 and 192), windows across
+                every frame edge; every lap geometry the emitter writes
+                with every filter type, top then left laps on the same
+                blocks, laps cut at the plane's right and bottom edges
+7. kernel_real- the first 2 temporal units of the s7 stream, then of the
+                s31 stream, decoded on cuda with every launch of the
                 inter frame checked against the plain version on the
-                same inputs; then, on those inputs, each kernel's device
-                time (torch.profiler), per launch too, beside its block
-                count and the time of a launch of its largest block
-                alone; the plain version's ms and the bound; and the
-                deblock of that frame's planes and maps (torch.equal,
+                same inputs (s7: put, compound, residual; s31: those,
+                warp and OBMC); then, on those inputs, each kernel's
+                device time (torch.profiler), per launch too, beside its
+                block count and the time of a launch of its largest
+                block alone; the plain version's ms and the bound; and
+                the deblock of that frame's planes and maps (torch.equal,
                 device time beside the synthetic frame's)
-7. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
+8. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
                 _enc.ivf through Decoder(Settings(decode_frame_type=3))
                 on cuda: one picture, the expected md5, per-stage wall
                 ms, and the kernel launch counts of this path's run
-8. hbd        - the same for the 4K 10-bit keyframe
-9. inter      - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
+9. hbd        - the same for the 4K 10-bit keyframe
+10. inter     - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
                 through Decoder(Settings()) on cuda: per-picture and
-                stream md5s, the launch counts of this main-path run
-                (each kernel > 0), stage ms, wall ms (median of 3) and
-                the device idle share and per-kernel device ms of one
-                profiled decode
-10. inter_hbd - the same for the first 2 temporal units of
+                stream md5s, the launch counts of this run (put,
+                compound, residual and deblock > 0; s7 has no warp or
+                OBMC), stage ms, wall ms (median of 3), the device idle
+                share and per-kernel device ms of one profiled decode,
+                and from one more, synchronous (n_threads=1), the device
+                ms of the work each stage launched (CDEF, Wiener and SGR
+                among them) beside their bounds per picture
+11. inter_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
-11. kernels   - the per-kernel summary line
+12. inter_main - the main path: all 8 frames of the primary bench stream
+                bench_streams/1920x1080_8b_flt_s31_enc.ivf, as inter,
+                each of the six kernels launched (count > 0)
+13. inter_main_hbd - the same for the first 2 temporal units of
+                bench_streams/3840x2160_10b_flt_s33_enc.ivf (4K 10-bit)
+14. kernels   - the per-kernel summary line (launches from inter_main;
+                device, plain and bound ms from s31 frame 1 in
+                kernel_real, the deblock's from the synthetic frame)
 
 then the card's name and power limit, and the final {"ok": true, ...}
 line.
@@ -103,11 +121,31 @@ STREAM_S11 = "bench_streams/3840x2160_10b_flt_s11.ivf"
 MD5S_S11 = ["dfe5383e5aaa40b4d9741cb2a798e26d",
             "b5c3325247c7fcc06af5ae5e7b8b84fa"]
 MD5_S11 = "8c08bc5b1fce7625d9bd0ab7abf1a9dc"
-KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add")
+# every picture of the primary bench stream, STREAM_1080P (8 temporal
+# units; warp and OBMC in every inter frame), and the md5 of one muxer
+# over all 8: the same recipe as MD5S_S7
+MD5S_S31 = ["25ead3c156609f2b398c7f4f14141b23",
+            "5e6a4663747fa5d3501a91cee0010cd7",
+            "3d7a9af010fcf8a34b96d78bbf4a86ad",
+            "b8dc2a8916f0b039443728f01a505066",
+            "46e349a0177fbe27a6f1d106e05e2c5f",
+            "e855a67370e045a0655dbb3173b99686",
+            "12ad99c22c3d2e0abb9dcde301e9c57c",
+            "3c6dd14ac8b0e14cd938132520dd9c31"]
+MD5_S31 = "2028903f9e5e69af98b0348d5e246e13"
+# the same recipe on the first 2 temporal units of STREAM_4K10
+MD5S_S33 = ["2ed9103fb6b4e5d644968bac73475bed",
+            "b002aae1da5dad11bfaeb690e02324eb"]
+MD5_S33 = "9c5ef1fd85042a0f5a78c9e22a1aad6f"
+KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc")
+# the kernels an inter stream without warp or OBMC (s7, s11) launches
+KERNELS_NO_WARP = KERNELS[:4]
 # the CUDA kernels' names in a profiler trace, per wrapper
 KERNEL_NAMES = {"deblock": ("deblock_",), "mc_put": ("mc_put_kernel",),
                 "mc_comp": ("mc_comp_kernel",),
-                "itx_add": ("itx_add_kernel", "itx_wht_kernel")}
+                "itx_add": ("itx_add_kernel", "itx_wht_kernel"),
+                "mc_warp": ("mc_warp_kernel",),
+                "mc_obmc": ("mc_obmc_kernel",)}
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
@@ -500,6 +538,89 @@ def phase_kernel_itx(torch, card):
     return err
 
 
+def phase_kernel_warp_obmc(torch, card):
+    """Synthetic warp and OBMC cases: kernel vs plain, torch.equal."""
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc_obmc, mc_warp
+    from dav1d_tpu_torch.ops.device import device_tables
+    dev = torch.device("cuda")
+    tb = device_tables(dev)
+    errs = {"mc_warp": 0, "mc_obmc": 0}
+    n_warp = n_lap = 0
+    for bd, ss in itertools.product((8, 10, 12), ((1, 1), (1, 0), (0, 0))):
+        seed = bd + 3 * ss[0] + ss[1]
+        case = kc.warp_case(bd, seed, *ss)
+        jobs = _t(torch, case["jobs"], dev)
+        got, want = (kc.case_planes(case, dev) for _ in range(2))
+        mc_warp.warp_cuda(got, jobs, bd)
+        mc_warp.warp_planes_plain(want, jobs, bd, tb["mc_warp_filter"])
+        torch.cuda.synchronize()
+        for pi, (g, w) in enumerate(zip(got, want)):
+            errs["mc_warp"] = max(errs["mc_warp"], _check_equal(
+                torch, g[1], w[1], f"mc_warp bd={bd} ss={ss} plane {pi}"))
+        n_warp += len(jobs)
+        case = kc.obmc_case(bd, seed, *ss)
+        got, want = (kc.case_planes(case, dev) for _ in range(2))
+        for top, key in ((1, "top"), (0, "left")):
+            jobs = _t(torch, case[key], dev)
+            mc_obmc.obmc_cuda(got, jobs, bd, top)
+            mc_obmc.obmc_planes_plain(want, jobs, bd, tb["mc_filter_banks"],
+                                      tb["mc_obmc_masks"], top)
+            n_lap += len(jobs)
+        torch.cuda.synchronize()
+        for pi, (g, w) in enumerate(zip(got, want)):
+            errs["mc_obmc"] = max(errs["mc_obmc"], _check_equal(
+                torch, g[1], w[1], f"mc_obmc bd={bd} ss={ss} plane {pi}"))
+    emit({"phase": "kernel_warp_obmc", "card": card, "warp_tiles": n_warp,
+          "obmc_laps": n_lap, "max_abs_err": errs, "equal": True})
+    return errs
+
+
+def _warp_work(jobs, n_refs, ref_shape, rh, rw):
+    """(bytes, ops) of a warp call over one plane's tiles, counted as
+    _put_work counts a put: the distinct reference pixels the 15x15
+    windows read, each 8x8 output written once and the job table; per
+    tile 8 multiply-adds (2 ops each) for each of the 120 horizontal and
+    64 vertical sums, and 8 ops per sum for its filter row, rounding and
+    clip."""
+    import numpy as np
+    seen = np.zeros((n_refs, *ref_shape), bool)
+    for j in np.asarray(jobs).tolist():
+        slot, dy, dx = j[3], j[4] - 3, j[5] - 3
+        seen[slot, min(max(dy, 0), rh - 1):min(max(dy + 14, 0), rh - 1) + 1,
+             min(max(dx, 0), rw - 1):min(max(dx + 14, 0), rw - 1) + 1] = True
+    n = len(jobs)
+    return 4 * (int(seen.sum()) + 64 * n + np.asarray(jobs).size), \
+        n * 184 * (16 + 8)
+
+
+def _obmc_work(jobs, n_refs, ref_shape, rh, rw, top, dst_shape):
+    """(bytes, ops) of an OBMC call over one plane's laps of one
+    direction: the distinct reference pixels the windows of the blended
+    region read, each blended pixel (cut at the plane) read and written
+    once, and the job table; 2 ops per multiply-add of the two 8-tap
+    passes, 4 for the roundings and clip and 5 for the blend, per
+    pixel."""
+    import numpy as np
+    seen = np.zeros((n_refs, *ref_shape), bool)
+    px = ops = 0
+    H, W = dst_shape
+    for j in np.asarray(jobs).tolist():
+        ww, hh, py, pxx, slot, dy, dx = j[2], j[3], j[5], j[6], j[7], \
+            j[8] - 3, j[9] - 3
+        rows = min((hh * 3) >> 2 if top else hh, H - py)
+        cols = min(ww if top else (ww * 3) >> 2, W - pxx)
+        if rows <= 0 or cols <= 0:
+            continue
+        seen[slot,
+             min(max(dy, 0), rh - 1):min(max(dy + rows + 6, 0), rh - 1) + 1,
+             min(max(dx, 0), rw - 1):min(max(dx + cols + 6, 0), rw - 1) + 1
+             ] = True
+        px += rows * cols
+        ops += 16 * ((rows + 7) * cols + rows * cols) + 9 * rows * cols
+    return 4 * (int(seen.sum()) + 2 * px + np.asarray(jobs).size), ops
+
+
 def _put_work(jobs, n_refs, ref_shape, rh, rw):
     """(bytes, ops) a put call must move / do: the distinct reference
     pixels its windows read (each once), each output pixel written once
@@ -602,34 +723,58 @@ def _largest_block(name, blk):
     return int(np.argmax(px))
 
 
-def phase_kernel_real(torch, card):
-    """Decode the first 2 temporal units of the s7 stream on cuda with
-    every put / compound / residual launch of its inter frame checked
-    against the plain version on the same inputs; then time each kernel
-    and its plain version on those inputs."""
+def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
+                      need=KERNELS_NO_WARP[1:]):
+    """Decode the first 2 temporal units of `stream` on cuda with every
+    put / warp / compound / OBMC / residual launch of its inter frame
+    checked against the plain version on the same inputs (each kernel of
+    `need` launched); then time each kernel and its plain version on
+    those inputs."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    from dav1d_tpu_torch.ops import itx, lf, mc
+    from dav1d_tpu_torch.ops import itx, lf, mc, mc_obmc, mc_warp
     from dav1d_tpu_torch.ops.device import device_tables
     dev = torch.device("cuda")
     tb = device_tables(dev)
-    calls = {"mc_put": [], "mc_comp": [], "itx_add": []}
+    calls = {"mc_put": [], "mc_comp": [], "itx_add": [], "mc_warp": [],
+             "mc_obmc": []}
     errs = {k: 0 for k in calls}
     orig = {"put_planes": mc.put_planes, "comp": mc.comp,
-            "itx_add": itx.itx_add,
+            "itx_add": itx.itx_add, "warp_planes": mc_warp.warp_planes,
+            "obmc_planes": mc_obmc.obmc_planes,
             "deblock_frame": lf.deblock_frame}
+    label = os.path.basename(stream)
 
-    def put_planes(planes, jobs, bd, blocks=None):
-        before = [p.clone() for _, p, _, _ in planes]
-        orig["put_planes"](planes, jobs, bd, blocks)
-        want = [(r, b.clone(), rh, rw)
-                for (r, _, rh, rw), b in zip(planes, before)]
-        mc.put_planes_plain(want, jobs, bd, tb["mc_filter_banks"])
-        for (_, p, _, _), (_, w, _, _) in zip(planes, want):
-            errs["mc_put"] = max(errs["mc_put"], _check_equal(
-                torch, p, w, "mc_put on s7 tables"))
-        calls["mc_put"].append((planes, jobs, before, bd, blocks))
-        return [p for _, p, _, _ in planes]
+    def planes_plain(name, planes, jobs, bd, arg):
+        """The plain version of a put / warp / OBMC launch over
+        `planes` (arg: the OBMC direction)."""
+        if name == "mc_put":
+            return mc.put_planes_plain(planes, jobs, bd,
+                                       tb["mc_filter_banks"])
+        if name == "mc_warp":
+            return mc_warp.warp_planes_plain(planes, jobs, bd,
+                                             tb["mc_warp_filter"])
+        return mc_obmc.obmc_planes_plain(planes, jobs, bd,
+                                         tb["mc_filter_banks"],
+                                         tb["mc_obmc_masks"], arg)
+
+    def planes_spy(name, run):
+        # a launch over a frame's planes: (planes, jobs, before, bd, arg,
+        # blocks); arg is the OBMC direction, blocks the put's table
+        def spy(planes, jobs, bd, *args, **kw):
+            before = [p.clone() for _, p, _, _ in planes]
+            run(planes, jobs, bd, *args, **kw)
+            arg = args[0] if name == "mc_obmc" else None
+            blocks = kw.get("blocks") if name == "mc_put" else None
+            want = [(r, b.clone(), rh, rw)
+                    for (r, _, rh, rw), b in zip(planes, before)]
+            planes_plain(name, want, jobs, bd, arg)
+            for (_, p, _, _), (_, w, _, _) in zip(planes, want):
+                errs[name] = max(errs[name], _check_equal(
+                    torch, p, w, f"{name} on {label} tables"))
+            calls[name].append((planes, jobs, before, bd, arg, blocks))
+            return [p for _, p, _, _ in planes]
+        return spy
 
     frames = []
 
@@ -648,7 +793,7 @@ def phase_kernel_real(torch, card):
                       tb["mc_wedge_lut32"], luma, ss_hor, ss_ver)
         for a, b in ((plane, want), (seg, want_seg)):
             errs["mc_comp"] = max(errs["mc_comp"], _check_equal(
-                torch, a, b, "mc_comp on s7 tables"))
+                torch, a, b, f"mc_comp on {label} tables"))
         calls["mc_comp"].append((refs, jobs, before, seg_before, rh, rw,
                                  bd, luma, ss_hor, ss_ver, blocks))
         return plane
@@ -659,26 +804,33 @@ def phase_kernel_real(torch, card):
         want = before.clone()
         itx.itx_add_plain(pool, jobs, want, bd, wht)
         errs["itx_add"] = max(errs["itx_add"], _check_equal(
-            torch, plane, want, "itx_add on s7 tables"))
+            torch, plane, want, f"itx_add on {label} tables"))
         calls["itx_add"].append((pool, jobs, before, bd, wht, blocks))
         return plane
 
-    mc.put_planes, mc.comp, itx.itx_add = put_planes, comp, itx_add
+    mc.put_planes = planes_spy("mc_put", orig["put_planes"])
+    mc_warp.warp_planes = planes_spy("mc_warp", orig["warp_planes"])
+    mc_obmc.obmc_planes = planes_spy("mc_obmc", orig["obmc_planes"])
+    mc.comp, itx.itx_add = comp, itx_add
     lf.deblock_frame = deblock_frame
     try:
-        _, digest, _, _, md5s = _decode(STREAM_S7, timed=False, n_tu=2)
+        _, digest, _, _, md5s = _decode(stream, timed=False, n_tu=2)
     finally:
         mc.put_planes, mc.comp, itx.itx_add = orig["put_planes"], \
             orig["comp"], orig["itx_add"]
+        mc_warp.warp_planes = orig["warp_planes"]
+        mc_obmc.obmc_planes = orig["obmc_planes"]
         lf.deblock_frame = orig["deblock_frame"]
-    if md5s != MD5S_S7[:2]:
-        raise AssertionError(f"kernel_real: md5s {md5s}")
-    if not all(calls.values()):
-        raise AssertionError(f"kernel_real: a kernel had no launch: "
+    if md5s != md5s_want[:2]:
+        raise AssertionError(f"kernel_real {label}: md5s {md5s}")
+    if not all(calls[k] for k in need):
+        raise AssertionError(f"kernel_real {label}: a kernel had no "
+                             f"launch: "
                              f"{ {k: len(v) for k, v in calls.items()} }")
+    calls = {k: v for k, v in calls.items() if v}
 
     # each launch, given fresh copies of its inputs; with `largest`, each
-    # compound and residual launch keeps only the block of its table
+    # put, compound and residual launch keeps only the block of its table
     # that covers the most pixels
     def runners(name, plain, largest=False):
         out = []
@@ -686,17 +838,18 @@ def phase_kernel_real(torch, card):
             if largest and c[-1] is not None:
                 i = _largest_block(name, c[-1].cpu().numpy())
                 c = (*c[:-1], c[-1][i:i + 1])
-            if name == "mc_put":
-                planes, jobs, before, bd, blocks = c
-
-                def fn(ps, s, c=c, plain=plain):
+            if name in ("mc_put", "mc_warp", "mc_obmc"):
+                def fn(ps, s, c=c, plain=plain, name=name):
                     args = [(r, p, rh, rw)
                             for (r, _, rh, rw), p in zip(c[0], ps)]
                     if plain:
-                        return mc.put_planes_plain(args, c[1], c[3],
-                                                   tb["mc_filter_banks"])
-                    return mc.put_planes_cuda(args, c[1], c[3], c[4])
-                out.append((before, None, fn))
+                        return planes_plain(name, args, c[1], c[3], c[4])
+                    if name == "mc_put":
+                        return mc.put_planes_cuda(args, c[1], c[3], c[5])
+                    if name == "mc_warp":
+                        return mc_warp.warp_cuda(args, c[1], c[3])
+                    return mc_obmc.obmc_cuda(args, c[1], c[3], c[4])
+                out.append((c[2], None, fn))
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 if plain:
@@ -783,17 +936,32 @@ def phase_kernel_real(torch, card):
         if not dev_us:
             raise RuntimeError(f"torch.profiler reported no device time "
                                f"for {name}")
-        extra = {"blocks_per_launch": [len(c[-1]) for c in calls[name]],
-                 "largest_block_alone_us": device_us(name, True)[1]}
+        if name in ("mc_warp", "mc_obmc"):
+            # one kernel block per four tiles / per lap, no block table
+            extra = {"blocks_per_launch": [
+                -(-len(c[1]) // 4) if name == "mc_warp" else len(c[1])
+                for c in calls[name]]}
+        else:
+            extra = {"blocks_per_launch": [len(c[-1])
+                                           for c in calls[name]],
+                     "largest_block_alone_us": device_us(name, True)[1]}
         bytes_ = ops = 0
         for c in calls[name]:
-            if name == "mc_put":
-                planes, jobs, before, bd, _ = c
+            if name in ("mc_put", "mc_warp", "mc_obmc"):
+                planes, jobs, before = c[:3]
                 j = jobs.cpu().numpy()
+                col = 1 if name == "mc_obmc" else 0
                 b = o = 0
                 for pi, (refs, _, rh, rw) in enumerate(planes):
-                    bp, op = _put_work(j[j[:, 0] == pi], len(refs),
-                                       tuple(refs[0].shape), rh, rw)
+                    args = (j[j[:, col] == pi], len(refs),
+                            tuple(refs[0].shape), rh, rw)
+                    if name == "mc_put":
+                        bp, op = _put_work(*args)
+                    elif name == "mc_warp":
+                        bp, op = _warp_work(*args)
+                    else:
+                        bp, op = _obmc_work(*args, c[4],
+                                            tuple(before[pi].shape))
                     b, o = b + bp, o + op
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
@@ -818,7 +986,7 @@ def phase_kernel_real(torch, card):
     # sent them to the kernel
     entries, lut_e, lut_i, bd = frames[-1]
     got = lf.deblock_frame_cuda(entries, lut_e, lut_i, bd)
-    err = max(_check_equal(torch, g, w, "deblock on s7 frame 2")
+    err = max(_check_equal(torch, g, w, f"deblock on {label} frame 1")
               for g, w in zip(got, lf.deblock_frame_plain(entries, lut_e,
                                                           lut_i, bd)))
     fused, two, ops = _deblock_frame_work(
@@ -833,20 +1001,22 @@ def phase_kernel_real(torch, card):
         "bound_fused_us": max(fused / HBM_BYTES_PER_S,
                               ops / INT32_OPS_PER_S) * 1e6,
         "bound_two_pass_us": two / HBM_BYTES_PER_S * 1e6}
-    emit({"phase": "kernel_real", "card": card, "stream": STREAM_S7,
-          "frame": 2, "md5s": md5s, "equal": True,
+    emit({"phase": "kernel_real", "card": card, "stream": stream,
+          "temporal_unit": 1, "md5s": md5s, "equal": True,
           "one_element_fill_us": floor_us(), "kernels": res,
           "deblock": deblock_real,
           "library_ms": "null: no single PyTorch call computes a "
-          "clamped-window 8-tap put, a masked compound or an integer AV1 "
-          "inverse transform"})
+          "clamped-window 8-tap put, an affine-warped 8x8 tile, a masked "
+          "compound, an OBMC lap blend or an integer AV1 inverse "
+          "transform"})
     return res
 
 
-def _decode(path, timed, frame_type=None, n_tu=None):
+def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0):
     """Decode `path` (its first n_tu temporal units; keyframes only
-    with frame_type=3) on cuda through the public API; returns
-    (pictures, stream md5, wall ms, stage ms, per-picture md5s)."""
+    with frame_type=3; n_threads as Settings takes it) on cuda through
+    the public API; returns (pictures, stream md5, wall ms, stage ms,
+    per-picture md5s)."""
     import torch
     from dav1d_tpu_torch.api import Decoder, Settings
     from dav1d_tpu_torch.bitstream.ivf import IvfReader
@@ -857,8 +1027,8 @@ def _decode(path, timed, frame_type=None, n_tu=None):
     timing.ENABLED = timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    settings = Settings() if frame_type is None else \
-        Settings(decode_frame_type=frame_type)
+    settings = Settings(n_threads=n_threads) if frame_type is None else \
+        Settings(decode_frame_type=frame_type, n_threads=n_threads)
     dec = Decoder(settings)
     mux = Md5Muxer()
     pics, md5s = [], []
@@ -900,6 +1070,78 @@ def _profiled(torch, path, **kw):
     return digest, busy_us / 1e3, wall, per
 
 
+def _stage_device(torch, path, **kw):
+    """One more profiled decode, synchronous (Settings(n_threads=1):
+    every stage on the calling thread, where the profiler sees its
+    ranges): the device ms of the work each stage (utils.timing phase)
+    and each LR filter (lr.wiener, lr.sgr) launched, from
+    record_function ranges set up around them here and taken away
+    after; the bytes each LR filter must move (the pixels it restores,
+    int32, read and written once, and its unit tables: every tensor
+    argument but the source, pre-filter and destination planes); and
+    the decode's md5."""
+    from contextlib import contextmanager
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from dav1d_tpu_torch.ops import lr
+    from dav1d_tpu_torch.utils import timing
+    orig = {"phase": timing.phase, "wiener": lr.wiener_items,
+            "sgr": lr.sgr_items}
+    labels = set()
+    lr_bytes = {"lr.wiener": 0, "lr.sgr": 0}
+
+    @contextmanager
+    def phase(label):
+        labels.add(label)
+        with record_function(label), orig["phase"](label):
+            yield
+
+    def annotate(label, fn, ohs):
+        def run(*a, **k):
+            labels.add(label)
+            lr_bytes[label] += 8 * int((a[ohs] * a[ohs + 1]).sum()) + sum(
+                t.numel() * t.element_size() for t in a[3:]
+                if isinstance(t, torch.Tensor))
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+    timing.phase = phase
+    lr.wiener_items = annotate("lr.wiener", orig["wiener"], 9)
+    lr.sgr_items = annotate("lr.sgr", orig["sgr"], 11)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, digest, _, _, _ = _decode(path, timed=False, n_threads=1,
+                                         **kw)
+    finally:
+        timing.phase = orig["phase"]
+        lr.wiener_items, lr.sgr_items = orig["wiener"], orig["sgr"]
+    stage = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name in labels:
+            stage[e.name] = stage.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+    return digest, stage, lr_bytes
+
+
+def _filter_bounds(pic, n_pics, lr_bytes):
+    """Least device ms per picture of CDEF, Wiener and SGR: the bytes
+    each must move over the HBM rate. CDEF: every pixel of the frame's
+    planes read and written once as int32, and an int32 direction and
+    strength per 8x8 luma block; Wiener / SGR: what lr_bytes counted in
+    the profiled decode, per picture."""
+    w, h = pic.w, pic.h
+    px = w * h
+    if pic.layout:
+        px += 2 * ((w + pic.ss_hor) >> pic.ss_hor) * \
+            ((h + pic.ss_ver) >> pic.ss_ver)
+    cdef = 8 * px + 8 * ((w + 7) >> 3) * ((h + 7) >> 3)
+    out = {"cdef": cdef / HBM_BYTES_PER_S * 1e3}
+    for k, v in lr_bytes.items():
+        out[k.split(".")[1]] = v / n_pics / HBM_BYTES_PER_S * 1e3
+    return out
+
+
 def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
                  need=("deblock",), repeats=REPEATS, **kw):
     """Decode a stream on cuda through the public API: md5s, launch
@@ -934,6 +1176,10 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
     d3, busy_ms, prof_wall, kernel_ms = _profiled(torch, path, **kw)
     if d3 != md5:
         raise AssertionError(f"{name}: md5 {d3} in the profiled decode")
+    d4, stage_dev, lr_bytes = _stage_device(torch, path, **kw)
+    if d4 != md5:
+        raise AssertionError(f"{name}: md5 {d4} in the synchronous "
+                             f"profiled decode")
     emit({"phase": name, "stream": path, "md5": digest, "pictures": n_pics,
           "luma_shape": list(y.shape), "launches": launches,
           "first_wall_ms": wall_first, "synced_wall_ms": wall_timed,
@@ -943,7 +1189,9 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
           "fps_median": 1e3 * n_pics / sorted(walls)[repeats // 2],
           "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / prof_wall,
-          "kernel_device_ms": kernel_ms})
+          "kernel_device_ms": kernel_ms, "stage_device_ms": stage_dev,
+          "filter_bound_ms_per_picture": _filter_bounds(pics[0], n_pics,
+                                                        lr_bytes)})
     return launches
 
 
@@ -962,22 +1210,32 @@ def main():
     for k, e in phase_kernel_mc(torch, card).items():
         lines[k]["max_abs_err"] = e
     lines["itx_add"]["max_abs_err"] = phase_kernel_itx(torch, card)
-    for k, r in phase_kernel_real(torch, card).items():
-        lines[k].update({f: r[f] for f in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")})
-        lines[k]["max_abs_err"] = max(lines[k]["max_abs_err"],
-                                      r["max_abs_err"])
+    for k, e in phase_kernel_warp_obmc(torch, card).items():
+        lines[k]["max_abs_err"] = e
+    for args in ((), (STREAM_1080P, MD5S_S31, KERNELS[1:])):    # s7, s31
+        for k, r in phase_kernel_real(torch, card, *args).items():
+            # the kernels line keeps the main path's frame: s31's
+            lines[k].update({f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")})
+            lines[k]["max_abs_err"] = max(lines[k]["max_abs_err"],
+                                          r["max_abs_err"])
     phase_stream(torch, "slice", STREAM_1080P, MD5_1080P, (1152, 1920),
                  "uint8", frame_type=3)
     phase_stream(torch, "hbd", STREAM_4K10, MD5_4K10, (2176, 3840),
                  "uint16", frame_type=3)
-    launches = phase_stream(torch, "inter", STREAM_S7, MD5_S7, (1152, 1920),
-                            "uint8", pic_md5s=MD5S_S7, need=KERNELS,
-                            repeats=INTER_REPEATS)
+    phase_stream(torch, "inter", STREAM_S7, MD5_S7, (1152, 1920), "uint8",
+                 pic_md5s=MD5S_S7, need=KERNELS_NO_WARP,
+                 repeats=INTER_REPEATS)
+    phase_stream(torch, "inter_hbd", STREAM_S11, MD5_S11, (2176, 3840),
+                 "uint16", pic_md5s=MD5S_S11, need=KERNELS_NO_WARP,
+                 repeats=INTER_REPEATS, n_tu=2)
+    launches = phase_stream(torch, "inter_main", STREAM_1080P, MD5_S31,
+                            (1152, 1920), "uint8", pic_md5s=MD5S_S31,
+                            need=KERNELS, repeats=INTER_REPEATS)
     for k in KERNELS:                  # this slice's main path
         lines[k]["launches"] = launches[k]
-    phase_stream(torch, "inter_hbd", STREAM_S11, MD5_S11, (2176, 3840),
-                 "uint16", pic_md5s=MD5S_S11, need=KERNELS,
+    phase_stream(torch, "inter_main_hbd", STREAM_4K10, MD5_S33,
+                 (2176, 3840), "uint16", pic_md5s=MD5S_S33, need=KERNELS,
                  repeats=INTER_REPEATS, n_tu=2)
     sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
                            "dav1d_tpu/ops/lf_pallas.py:74"),
@@ -986,10 +1244,15 @@ def main():
                "mc_comp": ("dav1d_tpu_torch/csrc/mc_comp.cu",
                            "dav1d_tpu/ops/mc_fused.py:626"),
                "itx_add": ("dav1d_tpu_torch/csrc/itx_add.cu",
-                           "dav1d_tpu/ops/mc_fused.py:733")}
+                           "dav1d_tpu/ops/mc_fused.py:733"),
+               "mc_warp": ("dav1d_tpu_torch/csrc/mc_warp.cu",
+                           "dav1d_tpu/ops/mc_fused.py:537"),
+               "mc_obmc": ("dav1d_tpu_torch/csrc/mc_obmc.cu",
+                           "dav1d_tpu/ops/mc_fused.py:576")}
     # library_ms is null for every kernel: no single PyTorch call
     # computes a deblock pass, a clamped-window 8-tap put, a masked
-    # compound or an integer AV1 inverse transform
+    # compound, an integer AV1 inverse transform, an affine-warped 8x8
+    # tile or an OBMC lap blend
     emit({"kernels": [{
         "name": k, "route": "cuda", "source": sources[k][0],
         "replaces": sources[k][1], **{f: lines[k][f] for f in (

@@ -57,6 +57,8 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
     mc_filter_banks      (2, 4, 16, 8) int32 MC subpel taps
     mc_wedge_lut16       (1056, 16, 16) int8 wedge masks, class 16
     mc_wedge_lut32       (1056, 32, 32) int8 wedge masks, class 32
+    mc_warp_filter       (193, 8) int32 dav1d_mc_warp_filter
+    mc_obmc_masks        (64,) int32 dav1d_obmc_masks
     """
     from .lf_ref import calc_eih
     from .cdef import proj_matrix
@@ -78,13 +80,18 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
             d["dav1d_mc_subpel_filters"])).to(dev),
         "mc_wedge_lut16": torch.from_numpy(_wedge_lut(16)).to(dev),
         "mc_wedge_lut32": torch.from_numpy(_wedge_lut(32)).to(dev),
+        "mc_warp_filter": torch.from_numpy(np.asarray(
+            d["dav1d_mc_warp_filter"], np.int32)).to(dev),
+        "mc_obmc_masks": torch.from_numpy(np.asarray(
+            d["dav1d_obmc_masks"], np.int32)).to(dev),
     }
 
 
 @lru_cache(maxsize=None)
 def _tables_on(device: str) -> dict:
     names = ("dav1d_sgr_x_by_x", "dav1d_sgr_params",
-             "dav1d_mc_subpel_filters")
+             "dav1d_mc_subpel_filters", "dav1d_mc_warp_filter",
+             "dav1d_obmc_masks")
     return tables_from_numpy({k: tables.get(k) for k in names}, device)
 
 

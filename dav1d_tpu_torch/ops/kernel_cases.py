@@ -312,3 +312,143 @@ def overlaps(py, px, h, w, shape):
                             w.tolist()):
         cnt[y:y + hh, x:x + ww] += 1
     return int((cnt > 1).sum())
+
+
+# the emitter's OBMC filter types: every 8-tap type (it never writes a
+# bilinear lap)
+OBMC_FT = [ft for ft in FT_VALUES if ft >= 0]
+# shear at the ends of its valid range (4|alpha| + 7|beta| and 4|gamma|
+# + 4|delta| below 2^16, multiples of 64), and the fractions that take
+# the filter row to 0 and to 192
+WARP_EXTREMES = [(16320, 0, 8128, 8128, 0, 0),
+                 (-16320, 0, -8128, -8128, 65535, 65535),
+                 (0, 9344, 0, 16320, 0, 65535),
+                 (0, -9344, 16320, 0, 65535, 0),
+                 (7616, 4992, -8128, 8128, 32768, 4096)]
+
+
+def _plane_geo(ss_hor, ss_ver):
+    """Per plane of a 3-plane frame: (ref_shape, (rh, rw), ss_h, ss_v)."""
+    out = []
+    for pi in range(3):
+        sh, sv = (ss_hor, ss_ver) if pi else (0, 0)
+        out.append(((REF_SHAPE[0] >> sv, REF_SHAPE[1] >> sh),
+                    ((FRAME[0] + sv) >> sv, (FRAME[1] + sh) >> sh),
+                    sh, sv))
+    return out
+
+
+def _warp_params(rng):
+    """(alpha, beta, gamma, delta, frac_x, frac_y) of a valid shear,
+    each a multiple of 64."""
+    a = int(rng.integers(-255, 256)) * 64
+    b_max = (65535 - 4 * abs(a)) // (7 * 64)
+    b = int(rng.integers(-b_max, b_max + 1)) * 64
+    g = int(rng.integers(-255, 256)) * 64
+    d_max = (65535 - 4 * abs(g)) // (4 * 64)
+    d = int(rng.integers(-d_max, d_max + 1)) * 64
+    return a, b, g, d, int(rng.integers(0, 65536)), int(rng.integers(0,
+                                                                     65536))
+
+
+def warp_case(bd, seed, ss_hor=1, ss_ver=1, n_refs=3, tiles=48,
+              width=256):
+    """Warp tiles of a 3-plane frame, `tiles` per plane: random valid
+    shears and the WARP_EXTREMES (filter rows 0 and 192 reached), windows
+    on and across every frame edge. mx / my carry the emitter's offsets:
+    ((frac - 4 alpha - 7 beta) & ~63, (frac - 4 gamma - 4 delta) & ~63).
+    Returns {planes: [{refs (R, H, W), dst_shape, rh, rw}], jobs (n,
+    12)}."""
+    rng = np.random.default_rng(seed)
+    planes, jobs = [], []
+    for pi, (ref_shape, (rh, rw), _, _) in enumerate(
+            _plane_geo(ss_hor, ss_ver)):
+        py, px, height = pack([(8, 8)] * tiles, width)
+        for i in range(tiles):
+            if i < len(WARP_EXTREMES):
+                a, b, g, d, fx, fy = WARP_EXTREMES[i]
+            else:
+                a, b, g, d, fx, fy = _warp_params(rng)
+            mx = (fx - 4 * a - 7 * b) & ~63
+            my = (fy - 4 * g - 4 * d) & ~63
+            jobs.append([pi, py[i], px[i], int(rng.integers(0, n_refs)),
+                         _edge_pos(rng, 8, rh), _edge_pos(rng, 8, rw),
+                         mx, my, a, b, g, d])
+        planes.append({"refs": _refs(rng, bd, n_refs, ref_shape),
+                       "dst_shape": (height, width), "rh": rh, "rw": rw})
+    return {"planes": planes, "jobs": np.asarray(jobs, np.int32)}
+
+
+def obmc_geometries(top, h_mul, v_mul):
+    """Every (ww, hh, lap_h) the emitter writes for a lap of direction
+    `top` on a plane of (h_mul, v_mul) pixels per 4x4 luma unit
+    (native/interjobs.cpp emit_obmc): top laps of ow4 in 2..16 and oh4
+    in 1..8 units, left laps of ow4 in 1..8 and oh4 in 2..16."""
+    if top:
+        return [(ow4 * h_mul, oh4 * v_mul, ((oh4 * 3 + 3) >> 2) * v_mul)
+                for ow4 in (2, 4, 8, 16) for oh4 in (1, 2, 4, 8)]
+    return [(ow4 * h_mul, oh4 * v_mul, oh4 * v_mul)
+            for ow4 in (1, 2, 4, 8) for oh4 in (2, 4, 8, 16)]
+
+
+def obmc_case(bd, seed, ss_hor=1, ss_ver=1, n_refs=3, width=256):
+    """OBMC laps of a 3-plane frame: per plane, every top and every left
+    geometry the emitter writes (obmc_geometries), paired on blocks, a
+    top and a left lap at the same (py, px) (the left one reading the
+    corner the top one wrote); every 8-tap filter type in turn, random
+    phases (0 included), windows on and across every frame edge; and
+    blocks across the plane's right edge, its bottom edge and its corner
+    (their writes cut at the plane). Returns {planes: [{refs, plane (the
+    predictions blended into), rh, rw}], top (n, 13), left (m, 13)}."""
+    rng = np.random.default_rng(seed)
+    planes, laps = [], {1: [], 0: []}
+    k = 0
+    for pi, (ref_shape, (rh, rw), sh, sv) in enumerate(
+            _plane_geo(ss_hor, ss_ver)):
+        geo = {t: obmc_geometries(t, 4 >> sh, 4 >> sv) for t in (1, 0)}
+        n = max(len(geo[1]), len(geo[0]))
+        pairs = [(geo[1][i % len(geo[1])], geo[0][(i * 5) % len(geo[0])])
+                 for i in range(n)]
+        # edge blocks: the largest top lap, the largest left laps
+        edge = [(geo[1][-1], geo[0][-1 - i]) for i in range(4)]
+
+        def foot(p):
+            (tw, th, _), (lw, lh, _) = p
+            return max((th * 3) >> 2, lh), max(tw, (lw * 3) >> 2)
+        py, px, height = pack([foot(p) for p in pairs], width)
+        H, W = height + 40, width + 40
+        # a block across the right edge, two across the bottom edge and
+        # one at the corner, apart from each other and the packed ones
+        at = [(0, W - 8), (H - 4, 0), (H - 25, 80), (H - 3, W - 5)]
+        for (y, x), p in zip(list(zip(py, px)) + at, pairs + edge):
+            for t, (ww, hh, lap_h) in zip((1, 0), p):
+                ft = OBMC_FT[k % len(OBMC_FT)]
+                k += 1
+                laps[t].append([t, pi, ww, hh, lap_h, y, x,
+                                int(rng.integers(0, n_refs)),
+                                _edge_pos(rng, lap_h, rh),
+                                _edge_pos(rng, ww, rw),
+                                int(rng.integers(0, 16)),
+                                int(rng.integers(0, 16)), ft])
+        planes.append({"refs": _refs(rng, bd, n_refs, ref_shape),
+                       "plane": rng.integers(0, 1 << bd, (H, W)).astype(
+                           np.int32), "rh": rh, "rw": rw})
+    return {"planes": planes, "top": np.asarray(laps[1], np.int32),
+            "left": np.asarray(laps[0], np.int32)}
+
+
+def case_planes(case, device):
+    """[(refs, plane, rh, rw)] tensors on `device` of a warp_case (zeroed
+    destinations) or an obmc_case (its predictions), as the wrappers of
+    ops/mc_warp.py and ops/mc_obmc.py take them."""
+    import torch
+    out = []
+    for p in case["planes"]:
+        if "plane" in p:
+            dst = torch.from_numpy(p["plane"].copy()).to(device)
+        else:
+            dst = torch.zeros(p["dst_shape"], dtype=torch.int32,
+                              device=device)
+        out.append(([torch.from_numpy(r).to(device) for r in p["refs"]],
+                    dst, p["rh"], p["rw"]))
+    return out

@@ -49,7 +49,7 @@ COMP_AVG, COMP_WAVG, COMP_SEG, COMP_MASK = 2, 1, 3, 4
 MAX_REFS = 8
 
 # kernel launches per name (counted where the CUDA kernel is launched)
-LAUNCHES = {"mc_put": 0, "mc_comp": 0}
+LAUNCHES = {"mc_put": 0, "mc_comp": 0, "mc_warp": 0, "mc_obmc": 0}
 # a compound block's shared words and most output pixels (csrc/mc_comp.cu)
 COMP_SMEM_WORDS, COMP_MAX_PX = 8192, 1024
 # the same for a put block (csrc/mc_put.cu), and its tile classes: TH
@@ -433,6 +433,25 @@ def _check_common(jobs, K, plane, bd, device):
     check_tensor(plane, "plane", torch.int32, device)
 
 
+def plane_args(planes, jobs, K, bd):
+    """(ptrs, dims) ctypes arrays of a launch over a frame's planes, as
+    csrc/mc_put.cu, mc_warp.cu and mc_obmc.cu take them: per plane, its
+    8 reference pointers (null past its count) and its destination;
+    n_refs, ref_w, dst_h, dst_w, rh, rw. planes: [(refs, plane, rh,
+    rw)], 1..3 of them; raises unless every tensor is one the kernels
+    take and jobs is an (n, K) int32 table on their device."""
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"{len(planes)} planes, expected 1..3")
+    dev = planes[0][1].device
+    ptrs, dims = [], []
+    for refs, plane, rh, rw in planes:
+        _check_common(jobs, K, plane, bd, dev)
+        rp, ref_w = _check_refs(refs, dev, rh, rw)
+        ptrs += list(rp) + [plane.data_ptr()]
+        dims += [len(refs), ref_w, plane.shape[0], plane.shape[1], rh, rw]
+    return (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims)
+
+
 def _blocks_for(jobs, blocks, binner, dev):
     """(jobs, blocks) for a class-binned kernel: the given block table,
     or the jobs sorted and binned here (a copy through the host)."""
@@ -453,15 +472,9 @@ def put_planes_cuda(planes, jobs, bd, blocks=None):
     where the jobs are binned here, and traps the kernel in a given
     block table. Launches on the current stream, does not
     synchronise."""
-    if not 1 <= len(planes) <= 3:
-        raise ValueError(f"{len(planes)} planes, expected 1..3")
+    ptrs, dims = plane_args(planes, jobs, 11, bd)
     dev = planes[0][1].device
-    ptrs, dims = [], []
-    for refs, plane, rh, rw in planes:
-        _check_common(jobs, 11, plane, bd, dev)
-        rp, ref_w = _check_refs(refs, dev, rh, rw)
-        ptrs += list(rp) + [plane.data_ptr()]
-        dims += [len(refs), ref_w, plane.shape[0], plane.shape[1], rh, rw]
+
     def binner(j):
         if len(j) and not 0 <= j[:, 0].min() <= j[:, 0].max() < len(planes):
             raise ValueError(f"put jobs of planes {j[:, 0].min()}.."
@@ -469,9 +482,8 @@ def put_planes_cuda(planes, jobs, bd, blocks=None):
         return put_blocks(j, group=j[:, 0])
     jobs, blocks = _blocks_for(jobs, blocks, binner, dev)
     rc = _lib("mc_put").mc_put(
-        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
-        len(planes), jobs.data_ptr(), blocks.data_ptr(), len(blocks), bd,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptrs, dims, len(planes), jobs.data_ptr(), blocks.data_ptr(),
+        len(blocks), bd, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mc_put kernel launch failed: CUDA error {rc}")
     LAUNCHES["mc_put"] += 1

@@ -7,9 +7,14 @@ pass order (`segments`):
 
   puts      single-reference 8-tap / bilinear, every plane in one
             launch
+  warps     8x8 affine warp tiles, every plane in one launch
   compounds luma before chroma: luma seg-mask jobs write the seg plane
             that chroma jobs with mkind 2 read (two launches in order on
             one stream)
+  OBMC      laps blended into the puts' and warps' predictions: the top
+            laps of every plane, then the left laps (a block's left laps
+            read its top-left corner after its top laps wrote it); one
+            launch each, in order on one stream
   residuals inverse transform + add from the frame's coefficient pool,
             then the lossless WHT jobs
 
@@ -23,7 +28,8 @@ kernels read the reference planes in place. As dav1d_tpu bins residual
 jobs into one segment per transform size, the host sorts each plane's
 put, compound and residual jobs by class and cuts them into
 class-uniform kernel blocks (ops/mc.py put_blocks, comp_blocks,
-ops/itx.py res_blocks). Warp and OBMC jobs are not ported yet.
+ops/itx.py res_blocks); warp tiles and OBMC laps go unsorted, one
+kernel block per four tiles or per lap (ops/mc_warp.py, mc_obmc.py).
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from ..utils import timing
-from . import itx, mc
+from . import itx, mc, mc_obmc, mc_warp
 from .device import sync_if_timed
 
 
@@ -70,13 +76,22 @@ def _wedge_lut(c):
 def _plane_tables(jobs, lut, bases, n_planes):
     """The emitter's tables with reference slots and pool offsets
     resolved: "put", every plane's puts in one table, and "put_blocks",
-    its put_blocks table (one launch serves all planes); per plane,
-    {(kind, plane): (n, K) int32}, kind in comp, res, wht, plus the
-    kernels' block tables comp_blocks and res_blocks. Put, comp and res
-    rows are class-sorted to match their blocks."""
+    its put_blocks table (one launch serves all planes); "warp", every
+    plane's warp tiles, and ("obmc", top) for top in 1, 0, every
+    plane's laps of that direction; per plane, {(kind, plane): (n, K)
+    int32}, kind in comp, res, wht, plus the kernels' block tables
+    comp_blocks and res_blocks. Put, comp and res rows are class-sorted
+    to match their blocks."""
     out = {}
     puts = jobs["puts"].copy()
     puts[:, 5] = lut[puts[:, 5]]
+    out["warp"] = jobs["warps"].copy()
+    out["warp"][:, 3] = lut[out["warp"][:, 3]]
+    obmc = jobs["obmc"].copy()
+    obmc[:, 7] = lut[obmc[:, 7]]
+    for top in (1, 0):
+        out["obmc", top] = obmc[obmc[:, 0] == top]
+        mc_obmc.check_geometry(out["obmc", top], top)
     comp = jobs["comp"].copy()
     comp[:, 18] = lut[comp[:, 18]]
     comp[:, 24] = lut[comp[:, 24]]
@@ -117,9 +132,6 @@ def _upload(tables, pool, device):
 def execute(recon, jobs):
     """Run the frame's MC and residual passes on recon.device; the
     planes go to recon._finish_device_planes."""
-    if len(jobs["warps"]) or len(jobs["obmc"]):
-        raise NotImplementedError("warp / OBMC not ported yet: ROADMAP "
-                                  "item 2b")
     f = recon.f
     pic = recon.pic
     dev = recon.device
@@ -140,12 +152,17 @@ def execute(recon, jobs):
                   for p in pic.planes]
         sync_if_timed(dev)
     bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
+    per_plane = [(refs[pi], planes[pi], *bounds[pi])
+                 for pi in range(n_planes)]
 
     with timing.phase("inter.puts"):
         if "put" in T:
-            mc.put_planes([(refs[pi], planes[pi], *bounds[pi])
-                           for pi in range(n_planes)], T["put"], bd,
-                          blocks=T["put_blocks"])
+            mc.put_planes(per_plane, T["put"], bd, blocks=T["put_blocks"])
+        sync_if_timed(dev)
+
+    with timing.phase("inter.warps"):
+        if "warp" in T:
+            mc_warp.warp_planes(per_plane, T["warp"], bd)
         sync_if_timed(dev)
 
     with timing.phase("inter.comps"):
@@ -158,6 +175,12 @@ def execute(recon, jobs):
                 mc.comp(refs[pi], T["comp", pi], planes[pi], seg,
                         *bounds[pi], bd, pi == 0, f.ss_hor, f.ss_ver,
                         blocks=T["comp_blocks", pi])
+        sync_if_timed(dev)
+
+    with timing.phase("inter.obmc"):
+        for top in (1, 0):                # top laps before left laps
+            if ("obmc", top) in T:
+                mc_obmc.obmc_planes(per_plane, T["obmc", top], bd, top)
         sync_if_timed(dev)
 
     with timing.phase("inter.residuals"):

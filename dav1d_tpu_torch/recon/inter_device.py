@@ -4,8 +4,9 @@ Port of dav1d_tpu's recon/inter_device.py restricted to `run_native`:
 the native job emitter (native/interjobs.cpp, bound in
 inter_jobs_native) writes the frame's job tables straight from the
 Stage-A pools, ops/mc_fused.execute runs them on the device (puts,
-compounds luma before chroma, residuals), and the pure-intra leftover
-blocks replay on the host in decode order:
+warps, compounds luma before chroma, OBMC top then left laps,
+residuals), and the pure-intra leftover blocks replay on the host in
+decode order:
 
   the leftover rows are fetched from the device after the residual
   pass, native/intrarec.cpp reconstructs the leftovers into the host
@@ -19,9 +20,10 @@ picture's device planes (`Picture.dev`), uploaded once for a reference
 that has none.
 
 Not on this route, each raising NotImplementedError with its ROADMAP
-item: warp / OBMC jobs (2b), leftovers that are not pure intra or that
-the native engine cannot serve (5), frames the native emitter cannot
-serve (9).
+item: leftovers that are not pure intra or that the native engine
+cannot serve (5), frames the native emitter cannot serve (9; among them
+warped compounds, which the emitter leaves to the host path, and OBMC
+laps of a bilinear filter, which it never writes).
 """
 from __future__ import annotations
 
@@ -36,11 +38,13 @@ from .picture import Picture
 
 
 class DeviceInterReconstructor:
-    # job layouts (native/interjobs.cpp):
+    # job layouts (native/interjobs.cpp), each run on the device by
+    # ops/mc_fused.execute:
     #  puts  (n, 11): plane, h, w, py, px, ref, dy, dx, amx, amy, ft
     #  warps (n, 12): plane, py, px, ref, dy, dx, mx, my, al, be, ga, de
+    #                 (one 8x8 tile each; ops/mc_warp.py)
     #  obmc  (n, 13): top, plane, ww, hh, lap_h, py, px, ref, dy, dx,
-    #                 amx, amy, ft
+    #                 amx, amy, ft (one lap each; ops/mc_obmc.py)
     #  comp  (n, 25): plane, h, w, py, px, mode, jw, sign, mkind,
     #                 mk0..mk3, dy0, dx0, amx0, amy0, ft0, ref0,
     #                 dy1, dx1, amx1, amy1, ft1, ref1

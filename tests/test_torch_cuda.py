@@ -6,7 +6,10 @@ and residual kernels on the seeded cases of
 dav1d_tpu_torch/ops/kernel_cases.py at bd 8/10/12, including residuals
 at the full coefficient range, and put (filtered and copy), residual
 and compound tables whose classes end in ragged kernel blocks or split
-into 32-wide tiles. Marked
+into 32-wide tiles; the warp and OBMC kernels on their seeded cases
+(every plane in one launch, 4:2:0, 4:2:2 and 4:4:4, bd 8/10/12,
+extreme shears, every lap geometry, laps cut at the plane edges, top
+before left). Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -321,3 +324,73 @@ def test_inter_wrapper_checks(cuda):
     with pytest.raises(TypeError):
         mc.put_cuda([ref], jobs, ref.clone(), 16, 16, 8,
                     blocks=jobs[:, :5].long())
+
+
+LAYOUTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_mc_warp_kernel_vs_plain(cuda, bd, layout):
+    # every plane in one launch: random and extreme shears (filter rows
+    # 0 and 192), windows across every frame edge
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc, mc_warp
+    from dav1d_tpu_torch.ops.device import device_tables
+    case = kc.warp_case(bd, seed=bd, ss_hor=LAYOUTS[layout][0],
+                        ss_ver=LAYOUTS[layout][1])
+    jobs = _t(case["jobs"], cuda)
+    got, want = (kc.case_planes(case, cuda) for _ in range(2))
+    before = mc.LAUNCHES["mc_warp"]
+    mc_warp.warp_cuda(got, jobs, bd)
+    assert mc.LAUNCHES["mc_warp"] == before + 1
+    mc_warp.warp_planes_plain(want, jobs, bd,
+                              device_tables(cuda)["mc_warp_filter"])
+    torch.cuda.synchronize()
+    for (_, g, _, _), (_, w, _, _) in zip(got, want):
+        assert w.count_nonzero() > w.numel() // 2
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_mc_obmc_kernel_vs_plain(cuda, bd, layout):
+    # every lap geometry the emitter writes, every filter type, top and
+    # left laps on the same blocks (two launches in order), laps cut at
+    # the plane's right and bottom edges
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc, mc_obmc
+    from dav1d_tpu_torch.ops.device import device_tables
+    tb = device_tables(cuda)
+    case = kc.obmc_case(bd, seed=bd, ss_hor=LAYOUTS[layout][0],
+                        ss_ver=LAYOUTS[layout][1])
+    got, want = (kc.case_planes(case, cuda) for _ in range(2))
+    before = mc.LAUNCHES["mc_obmc"]
+    for top, key in ((1, "top"), (0, "left")):
+        jobs = _t(case[key], cuda)
+        mc_obmc.obmc_cuda(got, jobs, bd, top)
+        mc_obmc.obmc_planes_plain(want, jobs, bd, tb["mc_filter_banks"],
+                                  tb["mc_obmc_masks"], top)
+    assert mc.LAUNCHES["mc_obmc"] == before + 2
+    torch.cuda.synchronize()
+    for p, (_, g, _, _), (_, w, _, _) in zip(case["planes"], got, want):
+        assert not torch.equal(w, _t(p["plane"], cuda))
+        assert torch.equal(g, w)
+
+
+def test_warp_obmc_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import mc_obmc, mc_warp
+    ref = torch.zeros((16, 16), dtype=torch.int32, device=cuda)
+    planes = [([ref], ref.clone(), 16, 16)]
+    with pytest.raises(TypeError):
+        mc_warp.warp_cuda(planes, torch.zeros(
+            (1, 12), dtype=torch.int64, device=cuda), 8)
+    with pytest.raises(ValueError):
+        mc_warp.warp_cuda(planes, torch.zeros(
+            (1, 11), dtype=torch.int32, device=cuda), 8)
+    with pytest.raises(ValueError):
+        mc_obmc.obmc_cuda([([ref], ref.clone(), 17, 16)], torch.zeros(
+            (1, 13), dtype=torch.int32, device=cuda), 8, 1)
+    with pytest.raises(ValueError):
+        mc_obmc.obmc_cuda(planes, torch.zeros(
+            (1, 13), dtype=torch.int32, device=cuda), 9, 1)

@@ -5,10 +5,14 @@ dav1d_tpu's golden numpy path (DAV1D_TPU_BACKEND=numpy), and for one
 stream also of dav1d_tpu's device path (the JAX per-group job kernels,
 DAV1D_TPU_FUSED=0 as tests/conftest.py sets). Covered: 8-bit 4:2:0,
 distance-weighted and masked (wedge, seg) compounds, 10-bit, 4:2:2 and
-4:4:4, two tile columns, lossless (WHT). Frames whose jobs the port has
-no kernel for yet (OBMC, warp), non-intra leftovers (interintra) and a
-missing native job emitter raise DecodeError naming their ROADMAP item.
-Every pass's jobs write disjoint pixels (the kernels rely on it)."""
+4:4:4, two tile columns, lossless (WHT), OBMC and local warp (8- and
+10-bit, 4:2:0, 4:2:2, 4:4:4, an odd frame size whose laps cross the
+plane's right and bottom edges) and global-motion warp, each stream
+showing that its warp / OBMC jobs ran. Non-intra leftovers
+(interintra) and a missing native job emitter raise DecodeError naming
+their ROADMAP item. Every pass's jobs write disjoint pixels (the
+kernels rely on it): puts, warp tiles, compounds, each direction's OBMC
+blends, residuals."""
 import os
 
 import numpy as np
@@ -21,7 +25,7 @@ from dav1d_tpu.utils.muxers import Md5Muxer as JaxMd5
 from dav1d_tpu_torch.api import DecodeError, Decoder, Settings
 from dav1d_tpu_torch.entropy import levels as lv
 from dav1d_tpu_torch.ops import kernel_cases as kc
-from dav1d_tpu_torch.ops import mc_fused
+from dav1d_tpu_torch.ops import mc_fused, mc_obmc
 from dav1d_tpu_torch.utils.muxers import Md5Muxer
 from tools.streamgen.gen import generate_stream
 
@@ -38,6 +42,7 @@ def _pyr_refidx(fi):
 
 PYR = dict(order_hints=[0, 8, 4, 2, 6, 5], refidx_fn=_pyr_refidx,
            refresh_fn=lambda fi: 1 << fi)
+MOTION = dict(warped_motion=1, switchable_motion_mode=1)
 STREAMS = {
     "8bit-420": dict(w=96, h=64, n_frames=3, seed=3),
     "jnt-masked": dict(w=96, h=96, n_frames=5, seed=27, jnt_comp=1,
@@ -51,12 +56,25 @@ STREAMS = {
                      masked_compound=1),
     "8bit-422": dict(w=96, h=64, n_frames=3, seed=63, layout=2,
                      masked_compound=1),
+    "obmc": dict(w=96, h=96, n_frames=4, seed=40, switchable_motion_mode=1,
+                 **PYR),
+    "warp": dict(w=96, h=96, n_frames=4, seed=41, **MOTION, **PYR),
+    "gmv": dict(w=96, h=96, n_frames=4, seed=44, warped_motion=1,
+                switchable_comp_refs=0,
+                gmv_types=lambda fi, rng: [2, 0, 1, 0, 3, 0, 0]),
+    "warp-10bit": dict(w=96, h=96, n_frames=4, seed=52, hbd=1, **MOTION,
+                       **PYR),
+    "warp-444": dict(w=96, h=64, n_frames=4, seed=45, layout=3, **MOTION,
+                     **PYR),
+    "warp-422": dict(w=96, h=64, n_frames=4, seed=65, layout=2, **MOTION,
+                     **PYR),
+    "warp-odd-size": dict(w=70, h=50, n_frames=4, seed=43, **MOTION, **PYR),
 }
+# the warp / OBMC job tables each stream must have run
+WARP_OBMC = {"obmc": ("obmc",), "gmv": ("warps",),
+             **{k: ("warps", "obmc") for k in STREAMS
+                if k.startswith("warp")}}
 RAISES = {
-    "obmc": (dict(w=96, h=96, n_frames=4, seed=40,
-                  switchable_motion_mode=1, **PYR), "ROADMAP item 2b"),
-    "warp": (dict(w=96, h=96, n_frames=4, seed=41, warped_motion=1,
-                  switchable_motion_mode=1, **PYR), "ROADMAP item 2b"),
     "interintra": (dict(w=96, h=96, n_frames=5, seed=25, inter_intra=1,
                         **PYR), "ROADMAP item 5"),
 }
@@ -125,6 +143,29 @@ def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen):
     if name == "jnt-masked":
         modes = set(np.concatenate([j["comp"][:, 5] for j, _ in jobs_seen]))
         assert {1, 3, 4} <= modes
+    for kind in WARP_OBMC.get(name, ()):
+        assert any(len(j[kind]) for j, _ in jobs_seen), kind
+    if "obmc" in WARP_OBMC.get(name, ()):
+        tops = {int(t) for j, _ in jobs_seen for t in j["obmc"][:, 0]}
+        assert tops == {0, 1}
+    if name == "warp-odd-size":
+        # blends across the frame's right and bottom edges, into the
+        # planes' allocated padding
+        frame = [(50, 70), (25, 35), (25, 35)]
+        assert any(_laps_past_edge(j, frame) for j, _ in jobs_seen)
+
+
+def _laps_past_edge(jobs, shapes):
+    """Laps whose blend crosses the right or bottom edge of their
+    plane's (rows, cols) in `shapes`."""
+    n = 0
+    for top in (1, 0):
+        o = jobs["obmc"][jobs["obmc"][:, 0] == top]
+        rows, cols = mc_obmc.blend_dims(o, top)
+        hw = np.array(shapes)[o[:, 1]].reshape(-1, 2)
+        n += int(((o[:, 5] + rows > hw[:, 0]) |
+                  (o[:, 6] + cols > hw[:, 1])).sum())
+    return n
 
 
 def test_inter_stream_md5s_match_dav1d_tpu_device_path():
@@ -154,6 +195,15 @@ def _pass_overlaps(jobs, shapes):
             j = jobs[kind][jobs[kind][:, 0] == pi]
             out[kind, pi] = kc.overlaps(j[:, 3], j[:, 4], j[:, 1], j[:, 2],
                                         shape)
+        w = jobs["warps"][jobs["warps"][:, 0] == pi]
+        eight = np.full(len(w), 8)
+        out["warps", pi] = kc.overlaps(w[:, 1], w[:, 2], eight, eight, shape)
+        for top in (1, 0):
+            o = jobs["obmc"][(jobs["obmc"][:, 1] == pi) &
+                             (jobs["obmc"][:, 0] == top)]
+            rows, cols = mc_obmc.blend_dims(o, top)
+            out["obmc", top, pi] = kc.overlaps(o[:, 5], o[:, 6], rows, cols,
+                                               shape)
         r = jobs["res"][jobs["res"][:, 0] == pi]
         tw = np.array([4 * t.w for t in lv.TXFM_INFO])
         th = np.array([4 * t.h for t in lv.TXFM_INFO])

@@ -16,9 +16,10 @@ import torch
 
 from dav1d_tpu.ops import mc as jmc
 from dav1d_tpu.ops import mc_jobs
+from dav1d_tpu.ops import mc_ref as jref
 from dav1d_tpu.ops.mc_fused import _wedge_lut as jax_wedge_lut
 from dav1d_tpu_torch.ops import kernel_cases as kc
-from dav1d_tpu_torch.ops import mc
+from dav1d_tpu_torch.ops import mc, mc_obmc, mc_warp
 from dav1d_tpu_torch.ops.device import device_tables
 from dav1d_tpu_torch.ops.mc_fused import _wedge_lut
 from dav1d_tpu_torch.ops.mc_ref import BS_32X32
@@ -223,3 +224,170 @@ def test_wrappers_raise_on_cuda_without_a_kernel_path():
         mc.put_cuda([torch.zeros((8, 8), dtype=torch.int32)],
                     torch.zeros((0, 11), dtype=torch.int32),
                     torch.zeros((8, 8), dtype=torch.int32), 8, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# warp and OBMC (ops/mc_warp.py, ops/mc_obmc.py)
+# ---------------------------------------------------------------------------
+
+def _port_warp(case, bd):
+    planes = kc.case_planes(case, "cpu")
+    mc_warp.warp_planes(planes, T(case["jobs"]), bd)
+    return [p.numpy() for _, p, _, _ in planes]
+
+
+def _port_obmc(case, bd):
+    planes = kc.case_planes(case, "cpu")
+    for top, key in ((1, "top"), (0, "left")):
+        mc_obmc.obmc_planes(planes, T(case[key]), bd, top)
+    return [p.numpy() for _, p, _, _ in planes]
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_warp_filter_rows_in_range(bd):
+    # the shears at the ends of the valid range reach filter rows 0 and
+    # 192 and never leave them
+    jobs = T(kc.warp_case(bd, seed=bd)["jobs"])
+    lo = min(int(r.min()) for r in mc_warp.filter_rows(jobs))
+    hi = max(int(r.max()) for r in mc_warp.filter_rows(jobs))
+    assert (lo, hi) == (0, mc_warp.N_ROWS - 1)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_warp_plain_vs_mc_jobs(bd):
+    case = kc.warp_case(bd, seed=bd)
+    got = _port_warp(case, bd)
+    jobs = case["jobs"]
+    for pi, p in enumerate(case["planes"]):
+        sub = jobs[jobs[:, 0] == pi]
+        assert (sub[:, 4] < 0).any() and (sub[:, 4] + 11 > p["rh"]).any()
+        assert (sub[:, 5] < 0).any() and (sub[:, 5] + 11 > p["rw"]).any()
+        run = mc_jobs.warp_jobs_fn(len(sub), bd, p["rh"], p["rw"])
+        want = np.asarray(run(p["refs"], sub,
+                              np.zeros(p["dst_shape"], np.int32)))
+        assert np.count_nonzero(want) > want.size // 2
+        assert np.array_equal(got[pi], want), pi
+
+
+@pytest.mark.parametrize("bd,ss", [(8, (0, 0)), (10, (1, 0)), (12, (1, 1))],
+                         ids=["8bit-444", "10bit-422", "12bit-420"])
+def test_warp_plain_vs_mc_ref(bd, ss):
+    case = kc.warp_case(bd, seed=20 + bd, ss_hor=ss[0], ss_ver=ss[1])
+    got = _port_warp(case, bd)
+    for j in case["jobs"].tolist():
+        pi, py, px, slot, dy, dx, mx, my = j[:8]
+        p = case["planes"][pi]
+        win = jref.emu_edge(15, 15, p["rw"], p["rh"], dx - 3, dy - 3,
+                            p["refs"][slot])
+        want = jref.warp_affine_8x8(win, 3, 3, j[8:12], mx, my, bd)
+        assert np.array_equal(got[pi][py:py + 8, px:px + 8], want), j
+
+
+def _obmc_jobs_groups(jobs):
+    """{(ww, hh, lap_h): rows} of one direction's laps."""
+    out = {}
+    for key in sorted({tuple(g) for g in jobs[:, 2:5].tolist()}):
+        out[key] = jobs[(jobs[:, 2:5] == key).all(1)]
+    return out
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_obmc_plain_vs_mc_jobs(bd):
+    # obmc_jobs_fn has static geometry: one call per (ww, hh, lap_h)
+    # group, the top laps of a plane before its left laps
+    case = kc.obmc_case(bd, seed=bd)
+    got = _port_obmc(case, bd)
+    for pi, p in enumerate(case["planes"]):
+        want = p["plane"].copy()
+        for top, key in ((1, "top"), (0, "left")):
+            mine = case[key][case[key][:, 1] == pi]
+            for (ww, hh, lap_h), sub in _obmc_jobs_groups(mine).items():
+                run = mc_jobs.obmc_jobs_fn(len(sub), ww, hh, lap_h, bd,
+                                           top, p["rh"], p["rw"])
+                want = np.asarray(run(p["refs"], sub, want))
+        assert not np.array_equal(want, p["plane"])
+        assert np.array_equal(got[pi], want), pi
+
+
+def _obmc_ref(case, bd):
+    """The laps with mc_ref.put_8tap over the emu-edge window and
+    blend_h (top) / blend_v (left), top laps first, on planes padded
+    past their right and bottom edges."""
+    out = []
+    for pi, p in enumerate(case["planes"]):
+        H, W = p["plane"].shape
+        P = np.zeros((H + 64, W + 64), np.int32)
+        P[:H, :W] = p["plane"]
+        for key, blend in (("top", jref.blend_h), ("left", jref.blend_v)):
+            for j in case[key][case[key][:, 1] == pi].tolist():
+                _, _, ww, hh, lap_h, py, px, slot, dy, dx, amx, amy, ft = j
+                win = jref.emu_edge(ww + 7, lap_h + 7, p["rw"], p["rh"],
+                                    dx - 3, dy - 3, p["refs"][slot])
+                lap = jref.put_8tap(win, 3, 3, ww, lap_h, amx, amy, ft, bd)
+                P[py:py + hh, px:px + ww] = blend(P[py:py + hh, px:px + ww],
+                                                  lap, ww, hh)
+        out.append(P[:H, :W])
+    return out
+
+
+@pytest.mark.parametrize("bd,ss", [(8, (1, 1)), (10, (1, 1)), (12, (1, 1)),
+                                   (8, (1, 0)), (10, (0, 0))],
+                         ids=["8bit-420", "10bit-420", "12bit-420",
+                              "8bit-422", "10bit-444"])
+def test_obmc_plain_vs_mc_ref(bd, ss):
+    case = kc.obmc_case(bd, seed=30 + bd + ss[0] + ss[1], ss_hor=ss[0],
+                        ss_ver=ss[1])
+    for pi in range(3):
+        h_mul = 4 >> (ss[0] if pi else 0)
+        v_mul = 4 >> (ss[1] if pi else 0)
+        for top, key in ((1, "top"), (0, "left")):
+            mine = case[key][case[key][:, 1] == pi]
+            # every geometry the emitter writes, every filter type, and
+            # laps whose blend crosses the plane's right and bottom edges
+            assert {tuple(g) for g in mine[:, 2:5].tolist()} == \
+                set(kc.obmc_geometries(top, h_mul, v_mul))
+            assert set(mine[:, 12]) == set(kc.OBMC_FT)
+            rows, cols = mc_obmc.blend_dims(mine, top)
+            H, W = case["planes"][pi]["plane"].shape
+            assert (mine[:, 5] + rows > H).any()
+            assert (mine[:, 6] + cols > W).any()
+    got = _port_obmc(case, bd)
+    for pi, want in enumerate(_obmc_ref(case, bd)):
+        assert np.array_equal(got[pi], want), pi
+
+
+def test_obmc_laps_of_one_direction_are_disjoint():
+    case = kc.obmc_case(8, seed=1)
+    for top, key in ((1, "top"), (0, "left")):
+        for pi, p in enumerate(case["planes"]):
+            j = case[key][case[key][:, 1] == pi]
+            rows, cols = mc_obmc.blend_dims(j, top)
+            assert kc.overlaps(j[:, 5], j[:, 6], rows, cols,
+                               p["plane"].shape) == 0
+
+
+def test_warp_obmc_wrappers_route_by_device(monkeypatch):
+    # a CUDA wrapper given CPU tensors raises; the dispatchers take the
+    # plain versions for CPU tensors only (no silent fallback)
+    case = kc.obmc_case(8, seed=2)
+    planes = kc.case_planes(case, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mc_obmc.obmc_cuda(planes, T(case["top"]), 8, 1)
+    wcase = kc.warp_case(8, seed=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mc_warp.warp_cuda(kc.case_planes(wcase, "cpu"),
+                                 T(wcase["jobs"]), 8)
+    calls = []
+    for mod, name in ((mc_obmc, "obmc_planes_plain"),
+                      (mc_warp, "warp_planes_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, name=name:
+                            calls.append(name))
+    mc_obmc.obmc_planes(planes, T(case["top"]), 8, 1)
+    mc_warp.warp_planes(kc.case_planes(wcase, "cpu"), T(wcase["jobs"]), 8)
+    assert calls == ["obmc_planes_plain", "warp_planes_plain"]
+    with pytest.raises(ValueError, match="direction"):
+        mc_obmc.check_geometry(case["left"], 1)
+    big = case["top"].copy()
+    big[0, 2] = 128
+    with pytest.raises(ValueError, match="geometry"):
+        mc_obmc.check_geometry(big, 1)

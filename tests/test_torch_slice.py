@@ -80,19 +80,20 @@ def _decode_all(data, **settings):
 
 def test_inter_frame_raises_decode_error():
     # inter frames decode since the inter slice (tests/test_torch_inter
-    # .py); one whose blocks need OBMC, which has no kernel yet, raises
-    # naming its ROADMAP item
+    # .py), with OBMC and warp; one whose blocks need
+    # interintra, which is not ported yet, raises naming its ROADMAP item
     from tools.streamgen.gen import generate_stream
     data, _ = generate_stream(
-        96, 96, n_frames=4, seed=40, switchable_motion_mode=1,
-        order_hints=[0, 8, 4, 2], refresh_fn=lambda fi: 1 << fi,
+        96, 96, n_frames=5, seed=25, inter_intra=1,
+        order_hints=[0, 8, 4, 2, 6], refresh_fn=lambda fi: 1 << fi,
         refidx_fn=lambda fi: [(0,) * 7, (0, 0, 0, 0, 1, 1, 1),
-                              (0, 0, 0, 0, 2, 2, 1)][fi - 1])
+                              (0, 0, 0, 0, 2, 2, 1),
+                              (2, 2, 2, 2, 3, 3, 1)][fi - 1])
     dec = Decoder(Settings(device="cpu"))
     frames = list(IvfReader(data))
     dec.send_data(frames[0].data)
     assert len(list(dec.pictures())) == 1          # the keyframe
-    with pytest.raises(DecodeError, match="ROADMAP item 2b"):
+    with pytest.raises(DecodeError, match="ROADMAP item 5"):
         for fr in frames[1:]:
             dec.send_data(fr.data)
             list(dec.pictures())

@@ -61,3 +61,14 @@ def test_tables_from_numpy_mc_keys_match_dav1d_tpu():
         t = lut[f"mc_wedge_lut{c}"]
         assert t.dtype == torch.int8 and t.shape == (1056, c, c)
         assert np.array_equal(t.numpy(), _wedge_lut(c))
+
+
+def test_warp_filter_and_obmc_masks_match_dav1d_tpu():
+    from dav1d_tpu.ops.mc_ref import _warp_filter, obmc_masks
+    for lut in (device_tables("cpu"),
+                tables_from_numpy({k: jt.get(k) for k in jt._data().files})):
+        wf, om = lut["mc_warp_filter"], lut["mc_obmc_masks"]
+        assert wf.dtype == om.dtype == torch.int32
+        assert wf.shape == (193, 8) and om.shape == (64,)
+        assert np.array_equal(wf.numpy(), _warp_filter())
+        assert np.array_equal(om.numpy(), obmc_masks())
