@@ -1,22 +1,39 @@
-"""CDEF on the device, in plain torch.
+"""CDEF on the device.
 
 Port of dav1d_tpu's ops/cdef.py (reference src/cdef_tmpl.c:37-305,
-cdef_apply_tmpl.c:91-330), kept term by term: every 8x8 block's
-direction search is one batched projection of its 64 pixels onto 90
-partial-sum bins, and the constrained filter is whole-plane arithmetic
-under per-block direction/strength maps. The projection runs as a
-float64 matrix product: exact, since every bin sums at most 8 values
-of magnitude <= 128 (integer matmul does not run on CUDA in torch, and
-fp32/TF32 would round). A hand-written kernel is later work.
+cdef_apply_tmpl.c:91-330). Two implementations:
+
+- the plain torch version, kept term by term with dav1d_tpu's
+  `_cdef_fn`: every 8x8 block's direction search is one batched
+  projection of its 64 pixels onto 90 partial-sum bins
+  (`find_dirs_plain`), and the constrained filter is whole-plane
+  arithmetic under per-block direction/strength maps
+  (`filter_plane_plain`, `cdef_frame_plain`, `cdef_planes_plain`). The
+  projection runs as a float64 matrix product: exact, since every bin
+  sums at most 8 values of magnitude <= 128 (integer matmul does not
+  run on CUDA in torch, and fp32/TF32 would round). Used for CPU
+  tensors only.
+- the hand-written CUDA kernel csrc/cdef.cu: every plane of a frame in
+  one launch, 64x64 luma tiles with a 2-pixel apron in shared memory
+  (`cdef_cuda`); used for every CUDA tensor.
+
+The per-8x8-block maps of a frame are one (6, nby, nbx) int32 array
+(`MAPS` names its rows), uploaded in one copy.
 """
 from __future__ import annotations
 
+import ctypes as ct
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .cdef_ref import cdef_dirs, FILL, UV_DIRS
+
+# kernel launches per name (counted where the CUDA kernel is launched)
+LAUNCHES = {"cdef": 0}
+# rows of a frame's (6, nby, nbx) block maps
+MAPS = ("y_pri", "y_sec", "uv_pri", "uv_sec", "y_apply", "uv_apply")
 
 _DIV_TABLE = (840, 420, 280, 210, 168, 140, 120)
 
@@ -55,7 +72,7 @@ def _expand(m, bv, bh):
                                    bh, dim=1)
 
 
-def find_dirs(y_plane, bd, proj):
+def find_dirs_plain(y_plane, bd, proj):
     """Per-8x8-block direction and variance of a cropped luma plane
     (bh*4, bw*4) int32. proj: the (64, 90) float64 projection."""
     bdm8 = bd - 8
@@ -101,8 +118,8 @@ def find_dirs(y_plane, bd, proj):
     return best.reshape(nby, nbx), var.reshape(nby, nbx)
 
 
-def filter_plane(plane, pri, sec, dir_map, damp, valid_h, valid_w, bsz_v,
-                 bsz_h, apply_map, bd):
+def filter_plane_plain(plane, pri, sec, dir_map, damp, valid_h, valid_w,
+                       bsz_v, bsz_h, apply_map, bd):
     """plane: (nby*bsz_v, nbx*bsz_h) int32; pri/sec/dir/apply: (nby, nbx)
     int32 maps (strengths pre-<<bdm8)."""
     bdm8 = bd - 8
@@ -174,15 +191,13 @@ def filter_plane(plane, pri, sec, dir_map, damp, valid_h, valid_w, bsz_v,
     return torch.where(act & ((prix != 0) | (secx != 0)), res, plane)
 
 
-def cdef_frame(y_plane, u_plane, v_plane, maps, layout, bd, damping,
-               has_chroma, proj):
-    """Frame CDEF on cropped planes: y (bh*4, bw*4), u/v subsampled;
-    maps: the _block_maps tensors. Returns (y, u, v) filtered."""
-    y_pri, y_sec, uv_pri, uv_sec, y_apply, uv_apply = maps
-    ss_ver = 1 if layout == 1 else 0
-    ss_hor = 0 if layout == 3 else 1
-    Hy, Wy = y_plane.shape
-    dir_map, var = find_dirs(y_plane, bd, proj)
+def block_params_plain(y_plane, maps, layout, bd, proj):
+    """Per 8x8 block of a cropped luma plane: the variance-adjusted luma
+    primary strength, the luma direction and the chroma direction (each
+    0 where its plane's primary strength is 0). maps: the (6, nby, nbx)
+    block maps."""
+    y_pri, uv_pri = maps[0], maps[2]
+    dir_map, var = find_dirs_plain(y_plane, bd, proj)
     # strength adjust by variance (reference cdef_apply_tmpl.c:91-97)
     t = var >> 6
     i = _ulog2_capped(torch.clamp(t, max=1 << 12), 12)
@@ -190,23 +205,152 @@ def cdef_frame(y_plane, u_plane, v_plane, maps, layout, bd, damping,
     adj = torch.where(var != 0, adj, 0)
     adj = torch.where(y_pri != 0, adj, 0)
     y_dir = torch.where(y_pri != 0, dir_map, 0)
-    y_out = filter_plane(y_plane, adj, y_sec, y_dir, damping, Hy, Wy, 8, 8,
-                         y_apply, bd)
-    if not has_chroma:
-        return y_out, u_plane, v_plane
     tbl = torch.tensor(UV_DIRS[1 if layout == 2 else 0], dtype=torch.int32,
                        device=y_plane.device)
     uv_dir = tbl[dir_map.to(torch.int64)]
     uv_dir = torch.where(uv_pri != 0, uv_dir, 0)
+    return adj, y_dir, uv_dir
+
+
+def cdef_frame_plain(y_plane, u_plane, v_plane, maps, layout, bd, damping,
+                     has_chroma, proj):
+    """Frame CDEF on cropped planes: y (bh*4, bw*4), u/v subsampled;
+    maps: the (6, nby, nbx) block maps. Returns (y, u, v) filtered."""
+    _, y_sec, uv_pri, uv_sec, y_apply, uv_apply = maps
+    ss_ver = 1 if layout == 1 else 0
+    ss_hor = 0 if layout == 3 else 1
+    Hy, Wy = y_plane.shape
+    adj, y_dir, uv_dir = block_params_plain(y_plane, maps, layout, bd, proj)
+    y_out = filter_plane_plain(y_plane, adj, y_sec, y_dir, damping, Hy, Wy,
+                               8, 8, y_apply, bd)
+    if not has_chroma:
+        return y_out, u_plane, v_plane
     ch, cw = Hy >> ss_ver, Wy >> ss_hor
-    outs = [filter_plane(p, uv_pri, uv_sec, uv_dir, damping - 1, ch, cw,
-                         8 >> ss_ver, 8 >> ss_hor, uv_apply, bd)
+    outs = [filter_plane_plain(p, uv_pri, uv_sec, uv_dir, damping - 1, ch,
+                               cw, 8 >> ss_ver, 8 >> ss_hor, uv_apply, bd)
             for p in (u_plane, v_plane)]
     return (y_out, *outs)
 
 
+def cdef_planes_plain(planes, maps, Hy, Wy, layout, bd, damping, proj):
+    """cdef_cuda's contract in plain torch: the CDEF of the crop (Hy, Wy)
+    of [y] or [y, u, v] full padded planes, the pixels outside it copied
+    through, into new tensors."""
+    y = planes[0]
+    if len(planes) > 1:
+        ss_ver, ss_hor = layout == 1, layout != 3
+        ch, cw = Hy >> ss_ver, Wy >> ss_hor
+        u, v = planes[1], planes[2]
+        yo, uo, vo = cdef_frame_plain(y[:Hy, :Wy], u[:ch, :cw],
+                                      v[:ch, :cw], maps, layout, bd,
+                                      damping, True, proj)
+        out = [y.clone(), u.clone(), v.clone()]
+        out[0][:Hy, :Wy] = yo
+        out[1][:ch, :cw] = uo
+        out[2][:ch, :cw] = vo
+        return out
+    yo, _, _ = cdef_frame_plain(y[:Hy, :Wy], None, None, maps, layout, bd,
+                                damping, False, proj)
+    out = y.clone()
+    out[:Hy, :Wy] = yo
+    return [out]
+
+
+_LIB = []
+
+
+def _lib():
+    if not _LIB:
+        from .cuda_build import load_library
+        lib = load_library("cdef")
+        lib.cdef_set_tables.restype = ct.c_int
+        lib.cdef_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
+        dirs = np.ascontiguousarray(cdef_dirs(), np.int32)
+        uv = np.ascontiguousarray(UV_DIRS, np.int32)
+        if dirs.shape != (12, 2, 2) or uv.shape != (2, 8):
+            raise ValueError(f"CDEF tables of shapes {dirs.shape}, "
+                             f"{uv.shape}")
+        rc = lib.cdef_set_tables(dirs.ctypes.data, uv.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"cdef: table upload failed: CUDA error {rc}")
+        lib.cdef_frame.restype = ct.c_int
+        lib.cdef_frame.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
+                                   ct.c_void_p]
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def check_args(planes, maps, Hy, Wy, layout, bd):
+    """Raise unless the arguments are ones csrc/cdef.cu takes: 1 or 3
+    contiguous int32 planes on one CUDA device (u and v of one shape),
+    a crop of whole 8x8 luma blocks inside them, (6, Hy/8, Wy/8) int32
+    maps on that device, bd 8/10/12 and a layout 1..3 with chroma."""
+    from .cuda_build import check_tensor
+    if len(planes) not in (1, 3):
+        raise ValueError(f"{len(planes)} planes, expected 1 or 3")
+    if bd not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bd}")
+    if len(planes) == 3 and layout not in (1, 2, 3):
+        raise ValueError(f"layout {layout} with chroma planes")
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError("cdef_cuda needs CUDA tensors")
+    if Hy % 8 or Wy % 8 or Hy <= 0 or Wy <= 0:
+        raise ValueError(f"crop {(Hy, Wy)} not whole 8x8 blocks")
+    ss_ver, ss_hor = int(layout == 1), int(layout != 3)
+    for i, p in enumerate(planes):
+        check_tensor(p, f"plane {i}", torch.int32, dev)
+        ch, cw = (Hy, Wy) if i == 0 else (Hy >> ss_ver, Wy >> ss_hor)
+        if p.shape[0] < ch or p.shape[1] < cw:
+            raise ValueError(f"plane {i} of shape {tuple(p.shape)} "
+                             f"smaller than its crop {(ch, cw)}")
+    if len(planes) == 3 and planes[1].shape != planes[2].shape:
+        raise ValueError("u and v planes of different shapes")
+    check_tensor(maps, "maps", torch.int32, dev,
+                 (len(MAPS), Hy // 8, Wy // 8), ndim=3)
+
+
+def cdef_cuda(planes, maps, Hy, Wy, layout, bd, damping):
+    """cdef_planes_plain's contract with one launch of csrc/cdef.cu for
+    every plane; CUDA tensors only, pixels in [0, 2^bd) (the kernel
+    stages them as int16). Each output is a fresh tensor, written whole
+    by the kernel. Launches on the current stream and does not
+    synchronise."""
+    check_args(planes, maps, Hy, Wy, layout, bd)
+    outs = [torch.empty_like(p) for p in planes]
+    ptrs = [0] * 7
+    dims = [0] * 13
+    for i, (p, o) in enumerate(zip(planes, outs)):
+        ptrs[i], ptrs[3 + i] = p.data_ptr(), o.data_ptr()
+        dims[2 * i:2 * i + 2] = p.shape
+    ptrs[6] = maps.data_ptr()
+    dims[6:] = (Hy, Wy, Hy // 8, Wy // 8, layout if len(planes) > 1 else 0,
+                bd, damping)
+    dev = planes[0].device
+    rc = _lib().cdef_frame((ct.c_void_p * 7)(*ptrs),
+                           (ct.c_int * 13)(*dims), len(planes),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cdef kernel launch failed: CUDA error {rc}")
+    LAUNCHES["cdef"] += 1
+    return outs
+
+
+def cdef_planes(planes, maps, Hy, Wy, layout, bd, damping):
+    """CDEF of a frame's planes (cdef_cuda's contract): one launch of the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if planes[0].is_cuda:
+        return cdef_cuda(planes, maps, Hy, Wy, layout, bd, damping)
+    from .device import device_tables
+    from .mc import _cpu_only
+    _cpu_only(planes[0])
+    return cdef_planes_plain(planes, maps, Hy, Wy, layout, bd, damping,
+                             device_tables(planes[0].device)["cdef_proj"])
+
+
 def _block_maps(plan, bd):
-    """Host-side per-8x8-block parameter maps from the frame plan."""
+    """Host-side per-8x8-block parameter maps from the frame plan: one
+    (6, nby, nbx) int32 array, rows in MAPS order."""
     f = plan.f
     cd = f.frame_hdr.cdef
     bdm8 = bd - 8
@@ -243,39 +387,17 @@ def _block_maps(plan, bd):
     base = valid & blk_nsk & ((y_lvl != 0) | (uv_lvl != 0))
     y_apply = (base & (y_lvl != 0)).astype(np.int32)
     uv_apply = (base & (uv_lvl != 0)).astype(np.int32)
-    return (y_pri.astype(np.int32), y_sec.astype(np.int32),
-            uv_pri.astype(np.int32), uv_sec.astype(np.int32),
-            y_apply, uv_apply)
+    return np.stack([y_pri, y_sec, uv_pri, uv_sec, y_apply,
+                     uv_apply]).astype(np.int32)
 
 
 def cdef_planes_device(planes, plan, bd):
     """CDEF over int32 plane tensors (full padded pictures); filtering
-    covers the b4 grid region. Returns new tensors; the inputs stay as
-    they are (LR reads the pre-CDEF planes)."""
-    from .device import device_tables
+    covers the b4 grid region. The block maps cross to the device in one
+    copy; on CUDA one kernel launch filters every plane. Returns new
+    tensors; the inputs stay as they are (LR reads the pre-CDEF
+    planes)."""
     f = plan.f
-    cd = f.frame_hdr.cdef
-    dev = planes[0].device
-    maps = [torch.from_numpy(np.ascontiguousarray(m)).to(dev)
-            for m in _block_maps(plan, bd)]
-    has_chroma = len(planes) > 1
-    proj = device_tables(dev)["cdef_proj"]
-    damping = cd.damping + (bd - 8)
-    Hy, Wy = f.bh * 4, f.bw * 4
-    y = planes[0]
-    if has_chroma:
-        ch, cw = Hy >> f.ss_ver, Wy >> f.ss_hor
-        u, v = planes[1], planes[2]
-        yo, uo, vo = cdef_frame(y[:Hy, :Wy], u[:ch, :cw], v[:ch, :cw],
-                                maps, int(f.layout), bd, damping, True,
-                                proj)
-        out = [y.clone(), u.clone(), v.clone()]
-        out[0][:Hy, :Wy] = yo
-        out[1][:ch, :cw] = uo
-        out[2][:ch, :cw] = vo
-        return out
-    yo, _, _ = cdef_frame(y[:Hy, :Wy], None, None, maps, int(f.layout), bd,
-                          damping, False, proj)
-    out = y.clone()
-    out[:Hy, :Wy] = yo
-    return [out]
+    maps = torch.from_numpy(_block_maps(plan, bd)).to(planes[0].device)
+    return cdef_planes(planes, maps, f.bh * 4, f.bw * 4, int(f.layout), bd,
+                       f.frame_hdr.cdef.damping + (bd - 8))

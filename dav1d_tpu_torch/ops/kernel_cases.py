@@ -452,3 +452,207 @@ def case_planes(case, device):
         out.append(([torch.from_numpy(r).to(device) for r in p["refs"]],
                     dst, p["rh"], p["rw"]))
     return out
+
+
+# CDEF: layouts (0 monochrome, 1 4:2:0, 2 4:2:2, 3 4:4:4) and the
+# geometries (frame height, width, padded luma plane rows, columns) of
+# the cases: the 70x50 frame, whose 4x4 grid (56 x 72) ends inside the
+# 64x64 tiles and inside the padded plane, and a frame of several tiles
+# that end ragged
+CDEF_LAYOUTS = (0, 1, 2, 3)
+CDEF_GEOMETRIES = ((50, 70, 96, 128), (130, 196, 160, 256))
+
+
+def _cdef_blocks(rng, h, w, bd, kinds):
+    """An (h, w) plane of 8x8 blocks, each of one kind in turn: random,
+    smooth (a level with small noise, which the filter changes most),
+    flat 0, flat 2^bd - 1, a checkerboard of the two values at -128 and
+    +127 around the direction search's bias, a checkerboard of 0 and
+    2^bd - 1, lines in the 8 directions
+    (the largest costs of each), a random edge."""
+    top = (1 << bd) - 1
+    hi = 255 << (bd - 8)
+    yy, xx = np.mgrid[0:8, 0:8]
+    lines = [(xx + 2 * yy) % 4, (xx + yy) % 3, (2 * xx + yy) % 4, xx % 2,
+             (2 * xx - yy) % 4, (xx - yy) % 3, (xx - 2 * yy) % 4, yy % 2]
+    out = np.empty((h, w), np.int32)
+    k = 0
+    for by in range(0, h, 8):
+        for bx in range(0, w, 8):
+            kind = kinds[k % len(kinds)]
+            k += 1
+            if kind == "random":
+                b = rng.integers(0, top + 1, (8, 8))
+            elif kind == "smooth":
+                amp = 1 << (bd - 5)
+                b = np.clip(int(rng.integers(0, top + 1)) +
+                            rng.integers(-amp, amp + 1, (8, 8)), 0, top)
+            elif kind == "zero":
+                b = np.zeros((8, 8), np.int64)
+            elif kind == "max":
+                b = np.full((8, 8), top)
+            elif kind == "checker":
+                b = np.where((yy + xx) % 2, hi, 0)
+            elif kind == "alt":
+                b = np.where((yy + xx) % 2, top, 0)
+            elif kind == "edge":
+                b = np.where(xx * int(rng.integers(-3, 4)) +
+                             yy * int(rng.integers(-3, 4)) > 0,
+                             int(rng.integers(0, top + 1)),
+                             int(rng.integers(0, top + 1)))
+            else:
+                b = np.where(lines[int(kind[4:])] == 0, hi, 0)
+            out[by:by + 8, bx:bx + 8] = b[:h - by, :w - bx]
+    return out
+
+
+def cdef_case(bd, seed, layout, geometry=CDEF_GEOMETRIES[0]):
+    """CDEF of one frame: the 8x8 block kinds of _cdef_blocks on every
+    plane (the padding too), random per-block maps over every primary
+    strength 0..15 and secondary 0..4 (<< bd - 8) of both planes, blocks
+    with apply off, damping in 3..6 (+ bd - 8). Returns {planes: the
+    full padded int32 planes (1 or 3), maps (6, nby, nbx) int32, Hy, Wy
+    (the crop: the frame's 4x4 grid), layout, bd, damping}, the
+    arguments of ops/cdef.py cdef_planes."""
+    rng = np.random.default_rng(seed)
+    fh, fw, ph, pw = geometry
+    Hy, Wy = ((fh + 7) >> 3) << 3, ((fw + 7) >> 3) << 3
+    kinds = ["random", "smooth", "zero", "smooth", "max", "smooth",
+             "checker", "smooth", "edge", "smooth"] + \
+        [f"line{d}" for d in range(8)]
+    planes = [_cdef_blocks(rng, ph, pw, bd, kinds)]
+    if layout:
+        ss_ver, ss_hor = int(layout == 1), int(layout != 3)
+        planes += [_cdef_blocks(rng, ph >> ss_ver, pw >> ss_hor, bd,
+                                kinds[::-1]) for _ in range(2)]
+    nby, nbx = Hy // 8, Wy // 8
+    bdm8 = bd - 8
+    n = nby * nbx
+    maps = np.stack([
+        np.arange(n) % 16 << bdm8,
+        rng.integers(0, 5, n) << bdm8,
+        rng.permutation(np.arange(n) % 16) << bdm8,
+        rng.integers(0, 5, n) << bdm8,
+        rng.random(n) < 0.85,
+        rng.random(n) < 0.85]).reshape(6, nby, nbx).astype(np.int32)
+    return {"planes": planes, "maps": maps, "Hy": Hy, "Wy": Wy,
+            "layout": layout, "bd": bd,
+            "damping": int(rng.integers(3, 7)) + bdm8}
+
+
+def cdef_case_at(bd, layout, g):
+    """The CDEF case of bit depth bd, layout and geometry index g."""
+    return cdef_case(bd, 10 * bd + layout + 5 * g, layout,
+                     CDEF_GEOMETRIES[g])
+
+
+def cdef_cases():
+    """Every CDEF case the kernel tests run: each layout and bit depth
+    on both geometries."""
+    return [cdef_case_at(bd, layout, g) for bd in (8, 10, 12)
+            for layout in CDEF_LAYOUTS
+            for g in range(len(CDEF_GEOMETRIES))]
+
+
+def cdef_args(case, device):
+    """cdef_planes' arguments of a cdef_case, with tensors on device."""
+    import torch
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return ([T(p) for p in case["planes"]], T(case["maps"]), case["Hy"],
+            case["Wy"], case["layout"], case["bd"], case["damping"])
+
+
+# loop restoration: Wiener tap ranges (coefficients 0..2 of a 7-tap
+# filter, AV1 spec 5.11.58), unit sizes (log2; wmax = 1.5 units: 48, 96,
+# 192, 384), stripe heights as _collect_items emits them per hmax (the
+# first stripe 8 >> ss_ver short, full stripes, the frame's last stripe
+# of any height, odd ones included)
+WIENER_TAPS = ((-5, 10), (-23, 8), (-17, 46))
+LR_UNIT_LOG2 = (5, 6, 7, 8)
+LR_STRIPES = {64: (56, 64, 37, 1, 64, 12, 63, 2),
+              32: (28, 32, 17, 1, 32, 6, 31, 2)}
+LR_KINDS = ("random", "smooth", "alt", "max", "zero", "checker", "smooth",
+            "edge")
+
+
+def _wiener_taps(rng, k):
+    """Taps 0..2 of item k: every combination of the coefficients' ends
+    in turn, then random ones."""
+    if k < 8:
+        return [WIENER_TAPS[i][(k >> i) & 1] for i in range(3)]
+    return [int(rng.integers(lo, hi + 1)) for lo, hi in WIENER_TAPS]
+
+
+def lr_case(bd, seed, kind, us_log2, hmax):
+    """One plane's Wiener or SGR items: a row of units (full units and a
+    last one of up to 1.5 units) over stripes of every height of
+    LR_STRIPES[hmax]; the items take the 16 edge-flag combinations in
+    turn. Wiener: taps at every combination of their ends, then random;
+    SGR: the 16 rows of dav1d_sgr_params in turn (s0 = 0 and s1 = 0 among
+    them), weights at their ends (w0 in -96..31, w1 in -32..95) and
+    random. The pre-LR and pre-CDEF planes hold 8x8 blocks of the
+    _cdef_blocks kinds, the checkerboard of 0 and 2^bd - 1 (SGR's
+    largest box3 variance) and flat 2^bd - 1 (its largest box5 sums)
+    among them. Returns {cur, pre (Hp, Wp) int32, w (the plane's valid
+    columns), items (_collect_items tuples), kind, hmax, wmax, bd}."""
+    rng = np.random.default_rng(seed)
+    us = 1 << us_log2
+    wmax = us + us // 2
+    last = wmax if seed % 2 else us // 2 + 1 + int(rng.integers(0, us))
+    units = [us] * (1 if us_log2 == 8 else 2) + [last]
+    w = sum(units)
+    heights = LR_STRIPES[hmax]
+    Hp, Wp = sum(heights) + 8, w + 16
+    cur = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS)
+    pre = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS[::-1])
+    items = []
+    y = 0
+    for h in heights:
+        x = 0
+        for uw in units:
+            k = len(items)
+            if kind == "wiener":
+                u = {"type": 2, "filter_h": _wiener_taps(rng, k),
+                     "filter_v": _wiener_taps(rng, k + 3)}
+            else:
+                sw = ([-96, 31][k & 1], [-32, 95][(k >> 1) & 1]) \
+                    if k < 8 else (int(rng.integers(-96, 32)),
+                                   int(rng.integers(-32, 96)))
+                u = {"type": 3 + k % 16, "sgr_weights": sw}
+            items.append((y, x, uw, h, k % 16, u))
+            x += uw
+        y += h
+    return {"cur": cur, "pre": pre, "w": w, "items": items, "kind": kind,
+            "hmax": hmax, "wmax": wmax, "bd": bd}
+
+
+def lr_case_at(bd, kind, us_log2, hmax):
+    """The LR case of bit depth bd, filter kind, unit size and hmax."""
+    seed = 100 * bd + 10 * us_log2 + (hmax == 32) + 2 * (kind == "sgr")
+    return lr_case(bd, seed, kind, us_log2, hmax)
+
+
+def lr_cases(bds=(8, 10, 12)):
+    """Every LR case the kernel tests run: both filters, every unit size
+    and both stripe heights (luma 64, 4:2:0 chroma 32) at each bit
+    depth."""
+    return [lr_case_at(bd, kind, u, hmax) for bd in bds
+            for kind in ("wiener", "sgr") for u in LR_UNIT_LOG2
+            for hmax in (64, 32)]
+
+
+def lr_args(case, device):
+    """The arguments of ops/lr.py wiener_items / sgr_items (SGR: without
+    the x_by_x table) of an lr_case on device: the edge-padded sources,
+    a fresh destination (a copy of cur) and the int32 item tables, built
+    by the decoder's own lr.item_tables / plane_sources."""
+    import torch
+    from . import lr
+    from .restore_ref import _sgr_params_tbl
+    cur = torch.from_numpy(case["cur"]).to(device)
+    pre = torch.from_numpy(case["pre"]).to(device)
+    curp, prep = lr.plane_sources(cur, pre, case["w"], case["wmax"])
+    tbl = lr.item_tables(case["kind"], case["items"], _sgr_params_tbl(),
+                         case["hmax"], cur.shape[0])
+    return (curp, prep, cur.clone(), *lr.upload_tables(tbl, device),
+            case["hmax"], case["wmax"], case["bd"])

@@ -1,18 +1,29 @@
-"""Loop restoration on the device, in plain torch.
+"""Loop restoration on the device.
 
 Port of dav1d_tpu's ops/lr.py (reference src/looprestoration_tmpl.c:
 44-1270, lr_apply_tmpl.c:107-215): every (restoration unit x stripe)
-work item of a frame is one row of a dense batch. The host builds per
-item the row table that bakes in the reference's streaming-edge
-semantics (stripe-boundary rows redirected to the pre-CDEF plane,
-top/bottom replication, the SGR row clamp); the columns come from
-horizontally edge-padded sources, so each item's column window is
-linear. The device gathers the (n, hmax+6, wmax+6) padded sources,
-runs the Wiener or SGR math over the batch, and writes the results back
-under the per-item size mask. SGR keeps its intermediates in int64.
-Hand-written kernels are later work.
+work item of a frame's plane is one row of a dense batch. The host
+builds per item the row table that bakes in the reference's
+streaming-edge semantics (stripe-boundary rows redirected to the
+pre-CDEF plane, top/bottom replication, the SGR row clamp); the columns
+come from horizontally edge-padded sources, so each item's column
+window is linear. All tables are int32. Two implementations of each
+filter:
+
+- the plain torch version (`wiener_items_plain`, `sgr_items_plain`):
+  gathers the (n, hmax+6, wmax+6) padded sources from [src; pre], runs
+  the Wiener or SGR math over the batch (SGR in int64) and writes the
+  results back under the per-item size mask; CPU tensors only;
+- the hand-written CUDA kernels csrc/lr_wiener.cu and csrc/lr_sgr.cu
+  (`wiener_cuda`, `sgr_cuda`): one launch per plane and filter, one
+  block per (item, column tile), reading `src` and `pre` through the
+  same tables; every CUDA tensor.
+
+`wiener_items` and `sgr_items` dispatch between the two.
 """
 from __future__ import annotations
+
+import ctypes as ct
 
 import numpy as np
 import torch
@@ -20,6 +31,8 @@ import torch
 from .restore_ref import (LR_HAVE_LEFT, LR_HAVE_RIGHT, LR_HAVE_TOP,
                           LR_HAVE_BOTTOM, _sgr_params_tbl)
 
+# kernel launches per name (counted where the CUDA kernel is launched)
+LAUNCHES = {"lr_wiener": 0, "lr_sgr": 0}
 PAD = 3
 LR_BS = 32
 
@@ -45,8 +58,8 @@ def _write_back(dst, vals, oy, ox, ohs, ows):
     dst[ridx[valid], cidx[valid]] = vals[valid]
 
 
-def wiener_items(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
-                 hmax, wmax, bd):
+def wiener_items_plain(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs,
+                       ows, hmax, wmax, bd):
     """Batched Wiener pass (dav1d_tpu lr._wiener_fn): gathers from
     [src; pre] (the pre-LR pixels) and writes into dst in place."""
     round_bits_h = 3 + (bd == 12) * 2
@@ -71,8 +84,8 @@ def wiener_items(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
     _write_back(dst, vals, oy, ox, ohs, ows)
 
 
-def sgr_items(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
-              ows, hmax, wmax, bd, xbyx):
+def sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox,
+                    ohs, ows, hmax, wmax, bd, xbyx):
     """Batched self-guided restoration (dav1d_tpu lr._sgr_fn). The row
     table pre-clamps rows -3..hmax+2 to the reference's [-2, h+1], so
     box sums use direct shifts. s0/s1/w0/w1: (n,) int32 (0 = branch
@@ -155,6 +168,117 @@ def sgr_items(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
     _write_back(dst, vals, oy, ox, ohs, ows)
 
 
+_LIBS = {}
+
+
+def _lib(name):
+    lib = _LIBS.get(name)
+    if lib is None:
+        from .cuda_build import load_library
+        lib = load_library(name)
+        if name == "lr_sgr":
+            from .. import tables
+            xbyx = np.ascontiguousarray(tables.get("dav1d_sgr_x_by_x"),
+                                        np.int32)
+            if xbyx.shape != (256,):
+                raise ValueError(f"sgr_x_by_x of shape {xbyx.shape}")
+            lib.lr_sgr_set_table.restype = ct.c_int
+            lib.lr_sgr_set_table.argtypes = [ct.c_void_p]
+            rc = lib.lr_sgr_set_table(xbyx.ctypes.data)
+            if rc != 0:
+                raise RuntimeError(f"lr_sgr: table upload failed: CUDA "
+                                   f"error {rc}")
+        fn = getattr(lib, name)
+        fn.restype = ct.c_int
+        fn.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_void_p]
+        _LIBS[name] = lib
+    return lib
+
+
+def _launch(name, src, pre, dst, rowt, vecs, hmax, wmax, bd):
+    """Check and launch csrc/<name>.cu over one plane's items: src / pre
+    (Hp, Ws) and dst 2-D int32, rowt (n, hmax + 6) int32, vecs the
+    kernel's per-item int32 tables in its order (the taps fhc, fvc
+    (n, 7), the others (n,)); all contiguous on one CUDA device."""
+    from .cuda_build import check_tensor
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors")
+    if bd not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bd}")
+    if not (0 < hmax <= 64 and hmax % 2 == 0) or wmax < 1:
+        raise ValueError(f"item bounds {(hmax, wmax)}")
+    check_tensor(src, "src", torch.int32, dev)
+    check_tensor(pre, "pre", torch.int32, dev, src.shape)
+    check_tensor(dst, "dst", torch.int32, dev)
+    n = rowt.shape[0] if rowt.dim() == 2 else -1
+    check_tensor(rowt, "rowt", torch.int32, dev, (n, hmax + 6))
+    for k, v in vecs.items():
+        taps = k in ("fhc", "fvc")
+        check_tensor(v, k, torch.int32, dev, (n, 7) if taps else (n,),
+                     ndim=2 if taps else 1)
+    ptrs = [src.data_ptr(), pre.data_ptr(), dst.data_ptr(),
+            rowt.data_ptr(), *(v.data_ptr() for v in vecs.values())]
+    dims = [src.shape[0], src.shape[1], dst.shape[1], n, hmax, wmax, bd]
+    rc = getattr(_lib(name), name)(
+        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return dst
+
+
+def wiener_cuda(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
+                hmax, wmax, bd):
+    """wiener_items_plain's contract with one launch of
+    csrc/lr_wiener.cu; CUDA int32 tensors only (the tables too), the
+    items' outputs inside dst. Launches on the current stream and does
+    not synchronise."""
+    return _launch("lr_wiener", src, pre, dst, rowt,
+                   {"colbase": colbase, "fhc": fhc, "fvc": fvc, "oy": oy,
+                    "ox": ox, "ohs": ohs, "ows": ows}, hmax, wmax, bd)
+
+
+def sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
+             ows, hmax, wmax, bd):
+    """sgr_items_plain's contract with one launch of csrc/lr_sgr.cu (its
+    own copy of dav1d_sgr_x_by_x); CUDA int32 tensors only, the items'
+    outputs inside dst. Launches on the current stream and does not
+    synchronise."""
+    return _launch("lr_sgr", src, pre, dst, rowt,
+                   {"colbase": colbase, "s0": s0, "s1": s1, "w0": w0,
+                    "w1": w1, "oy": oy, "ox": ox, "ohs": ohs, "ows": ows},
+                   hmax, wmax, bd)
+
+
+def wiener_items(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
+                 hmax, wmax, bd):
+    """Wiener pass over one plane's items into dst in place: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if src.is_cuda:
+        return wiener_cuda(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox,
+                           ohs, ows, hmax, wmax, bd)
+    from .mc import _cpu_only
+    _cpu_only(src)
+    return wiener_items_plain(src, pre, dst, rowt, colbase, fhc, fvc, oy,
+                              ox, ohs, ows, hmax, wmax, bd)
+
+
+def sgr_items(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
+              ows, hmax, wmax, bd, xbyx):
+    """Self-guided restoration of one plane's items into dst in place:
+    the CUDA kernel for CUDA tensors (xbyx unused: the library holds the
+    table), the plain version for CPU tensors."""
+    if src.is_cuda:
+        return sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy,
+                        ox, ohs, ows, hmax, wmax, bd)
+    from .mc import _cpu_only
+    _cpu_only(src)
+    return sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1,
+                           oy, ox, ohs, ows, hmax, wmax, bd, xbyx)
+
+
 def _collect_items(plan, plane, w, h, us_log2, ss_ver, ss_hor, sb_log2,
                    sgrp):
     """Enumerate (unit x stripe) work items for one plane (the loop
@@ -208,18 +332,107 @@ def _edge_pad(a, w, left, total):
     return torch.cat([lcol, body, rcol], dim=1).contiguous()
 
 
-def lr_planes_device(planes, pre_cdef, plan, bd):
-    """Loop restoration over int32 plane tensors. planes: full padded
-    post-CDEF planes; pre_cdef: the post-deblock (lpf) planes. The
-    inputs stay as they are; returns the restored plane list."""
-    from .device import device_tables
+def item_tables(kind, sel, sgrp, hmax, Hp):
+    """The int32 tables of one plane's Wiener or SGR items (`sel`:
+    _collect_items tuples of that kind) in the filters' argument order:
+    rowt (n, hmax + 6), colbase, then fhc, fvc (n, 7) for Wiener or s0,
+    s1, w0, w1 for SGR, then oy, ox, ohs, ows. Hp: the plane's rows."""
+    oy = np.array([it[0] for it in sel], np.int64)
+    ox = np.array([it[1] for it in sel], np.int64)
+    ows = np.array([it[2] for it in sel], np.int64)
+    ohs = np.array([it[3] for it in sel], np.int64)
+    ev = np.array([it[4] for it in sel], np.int64)
+    if kind == "wiener":
+        fhc = np.zeros((len(sel), 7), np.int32)
+        fvc = np.zeros((len(sel), 7), np.int32)
+        for i, (_y, _x, _uw, _sh, _e, u) in enumerate(sel):
+            fl = u["filter_h"]
+            fhc[i] = (fl[0], fl[1], fl[2],
+                      128 - 2 * (fl[0] + fl[1] + fl[2]),
+                      fl[2], fl[1], fl[0])
+            fl = u["filter_v"]
+            fvc[i] = (fl[0], fl[1], fl[2],
+                      128 - 2 * (fl[0] + fl[1] + fl[2]),
+                      fl[2], fl[1], fl[0])
+        bmin = np.where(ev & LR_HAVE_TOP, 4, 6)
+        params = [fhc, fvc]
+    else:
+        idx = np.array([it[5]["type"] - 3 for it in sel])
+        s0 = sgrp[idx, 0].astype(np.int32)
+        s1 = sgrp[idx, 1].astype(np.int32)
+        sw = np.array([it[5]["sgr_weights"] for it in sel], np.int32)
+        w0 = np.where(s0 != 0, sw[:, 0], 0).astype(np.int32)
+        w1 = np.where(s1 != 0, 128 - (sw[:, 0] + sw[:, 1]),
+                      0).astype(np.int32)
+        bmin = np.where(
+            s0 != 0,
+            np.where(ohs % 2, ohs + 1,
+                     np.where(ev & LR_HAVE_TOP, 3, 5)),
+            3)
+        params = [s0, s1, w0, w1]
+
+    # row tables, batched (the reference's stripe-edge rows + row
+    # clamp: padded rows -3..hmax+2; SGR clamps to [-2, h+1], Wiener
+    # replicates the tail)
+    rr = np.arange(-3, hmax + 3)[None, :]
+    if kind == "sgr":
+        j = 3 + np.clip(rr, -2, ohs[:, None] + 1)
+    else:
+        j = np.minimum(3 + rr, ohs[:, None] + 5)
+    have_top = (ev[:, None] & LR_HAVE_TOP) != 0
+    use_b = (((ev & LR_HAVE_BOTTOM) != 0) &
+             (ohs >= bmin))[:, None]
+    yc = oy[:, None]
+    hc = ohs[:, None]
+    mid = yc + (j - 3)
+    top_val = np.where(have_top,
+                       np.where(j <= 1, yc - 2, yc - 1), yc)
+    bot_val = np.where(use_b,
+                       np.where(j == hc + 3, yc + hc,
+                                yc + hc + 1),
+                       yc + hc - 1)
+    val = np.where(j < 3, top_val,
+                   np.where(j < hc + 3, mid, bot_val))
+    from_lpf = np.where(j < 3, have_top,
+                        np.where(j < hc + 3, False, use_b))
+    np.clip(val, 0, Hp - 1, out=val)
+    rowt = val + np.where(from_lpf, Hp, 0)
+    # column window bases into the edge-padded sources
+    colbase = ox - PAD + LR_BS
+    return [a.astype(np.int32) for a in
+            [rowt, colbase, *params, oy, ox, ohs, ows]]
+
+
+def plane_sources(cur, pre, w, wmax):
+    """The horizontally edge-padded gather sources of a plane (its pre-LR
+    and pre-CDEF planes, columns [0, w) valid): column windows are
+    linear; LR_BS columns on the left cover the -3 left reach, the right
+    pad the widest window tail."""
+    Wpad = -(-(w + LR_BS + wmax + 8) // LR_BS) * LR_BS
+    return _edge_pad(cur, w, LR_BS, Wpad), _edge_pad(pre, w, LR_BS, Wpad)
+
+
+def upload_tables(tbl, device):
+    """item_tables' arrays as int32 tensors on `device`: views of one
+    buffer that crosses in a single host-to-device copy."""
+    buf = torch.from_numpy(np.concatenate(
+        [a.reshape(-1) for a in tbl])).to(device)
+    views, pos = [], 0
+    for a in tbl:
+        views.append(buf[pos:pos + a.size].view(a.shape))
+        pos += a.size
+    return views
+
+
+def plane_items(plan):
+    """The host's item walk of a frame (_collect_items per restored
+    plane), split by filter: [(plane index, w (its valid columns),
+    hmax, wmax, {"wiener": items, "sgr": items})]."""
     f = plan.f
     fh = f.frame_hdr
     rst = fh.restoration
     sgrp = _sgr_params_tbl()
-    out = list(planes)
-    dev = planes[0].device
-
+    out = []
     for plane in range(3):
         if rst.type[plane] == 0 or (plane and f.layout == 0):
             continue
@@ -231,97 +444,37 @@ def lr_planes_device(planes, pre_cdef, plan, bd):
         sb_log2 = 6 - ss_ver + f.sb128
         items = _collect_items(plan, plane, w, h, us_log2, ss_ver,
                                ss_hor, sb_log2, sgrp)
-        if not items:
-            continue
-        cur = planes[plane]
-        Hp, Wp = cur.shape
-        pre = pre_cdef[plane][:Hp]
-        hmax = 64 >> ss_ver
-        wmax = (1 << us_log2) + (1 << (us_log2 - 1))
-        res = cur.clone()
-        # horizontally edge-padded gather sources: column windows are
-        # linear; PADL covers the -3 left reach, the right pad the
-        # widest window tail
-        PADL = LR_BS
-        Wpad = -(-(w + PADL + wmax + 8) // LR_BS) * LR_BS
-        curp = _edge_pad(cur, w, PADL, Wpad)
-        prep = _edge_pad(pre, w, PADL, Wpad)
+        if items:
+            out.append((plane, w, 64 >> ss_ver,
+                        (1 << us_log2) + (1 << (us_log2 - 1)),
+                        {k: [it for it in items
+                             if (it[5]["type"] == 2) == (k == "wiener")]
+                         for k in ("wiener", "sgr")}))
+    return out
 
-        for kind in ("wiener", "sgr"):
-            sel = [it for it in items
-                   if (it[5]["type"] == 2) == (kind == "wiener")]
+
+def lr_planes_device(planes, pre_cdef, plan, bd):
+    """Loop restoration over int32 plane tensors. planes: full padded
+    post-CDEF planes; pre_cdef: the post-deblock (lpf) planes. The
+    inputs stay as they are; returns the restored plane list."""
+    from .device import device_tables
+    sgrp = _sgr_params_tbl()
+    out = list(planes)
+    dev = planes[0].device
+    for plane, w, hmax, wmax, kinds in plane_items(plan):
+        cur = planes[plane]
+        Hp = cur.shape[0]
+        res = cur.clone()
+        curp, prep = plane_sources(cur, pre_cdef[plane][:Hp], w, wmax)
+        for kind, sel in kinds.items():
             if not sel:
                 continue
-            oy = np.array([it[0] for it in sel], np.int64)
-            ox = np.array([it[1] for it in sel], np.int64)
-            ows = np.array([it[2] for it in sel], np.int64)
-            ohs = np.array([it[3] for it in sel], np.int64)
-            ev = np.array([it[4] for it in sel], np.int64)
+            views = upload_tables(item_tables(kind, sel, sgrp, hmax, Hp),
+                                  dev)
             if kind == "wiener":
-                fhc = np.zeros((len(sel), 7), np.int32)
-                fvc = np.zeros((len(sel), 7), np.int32)
-                for i, (_y, _x, _uw, _sh, _e, u) in enumerate(sel):
-                    fl = u["filter_h"]
-                    fhc[i] = (fl[0], fl[1], fl[2],
-                              128 - 2 * (fl[0] + fl[1] + fl[2]),
-                              fl[2], fl[1], fl[0])
-                    fl = u["filter_v"]
-                    fvc[i] = (fl[0], fl[1], fl[2],
-                              128 - 2 * (fl[0] + fl[1] + fl[2]),
-                              fl[2], fl[1], fl[0])
-                bmin = np.where(ev & LR_HAVE_TOP, 4, 6)
+                wiener_items(curp, prep, res, *views, hmax, wmax, bd)
             else:
-                idx = np.array([it[5]["type"] - 3 for it in sel])
-                s0 = sgrp[idx, 0].astype(np.int32)
-                s1 = sgrp[idx, 1].astype(np.int32)
-                sw = np.array([it[5]["sgr_weights"] for it in sel],
-                              np.int32)
-                w0 = np.where(s0 != 0, sw[:, 0], 0).astype(np.int32)
-                w1 = np.where(s1 != 0, 128 - (sw[:, 0] + sw[:, 1]),
-                              0).astype(np.int32)
-                bmin = np.where(
-                    s0 != 0,
-                    np.where(ohs % 2, ohs + 1,
-                             np.where(ev & LR_HAVE_TOP, 3, 5)),
-                    3)
-
-            # row tables, batched (the reference's stripe-edge rows +
-            # row clamp: padded rows -3..hmax+2; SGR clamps to [-2, h+1],
-            # Wiener replicates the tail)
-            rr = np.arange(-3, hmax + 3)[None, :]
-            if kind == "sgr":
-                j = 3 + np.clip(rr, -2, ohs[:, None] + 1)
-            else:
-                j = np.minimum(3 + rr, ohs[:, None] + 5)
-            have_top = (ev[:, None] & LR_HAVE_TOP) != 0
-            use_b = (((ev & LR_HAVE_BOTTOM) != 0) &
-                     (ohs >= bmin))[:, None]
-            yc = oy[:, None]
-            hc = ohs[:, None]
-            mid = yc + (j - 3)
-            top_val = np.where(have_top,
-                               np.where(j <= 1, yc - 2, yc - 1), yc)
-            bot_val = np.where(use_b,
-                               np.where(j == hc + 3, yc + hc,
-                                        yc + hc + 1),
-                               yc + hc - 1)
-            val = np.where(j < 3, top_val,
-                           np.where(j < hc + 3, mid, bot_val))
-            from_lpf = np.where(j < 3, have_top,
-                                np.where(j < hc + 3, False, use_b))
-            np.clip(val, 0, Hp - 1, out=val)
-            rowt = val + np.where(from_lpf, Hp, 0)
-            # column window bases into the edge-padded sources
-            colbase = ox - PAD + PADL
-
-            T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            geo = (T(oy), T(ox), T(ohs), T(ows))
-            if kind == "wiener":
-                wiener_items(curp, prep, res, T(rowt), T(colbase), T(fhc),
-                             T(fvc), *geo, hmax, wmax, bd)
-            else:
-                sgr_items(curp, prep, res, T(rowt), T(colbase), T(s0),
-                          T(s1), T(w0), T(w1), *geo, hmax, wmax, bd,
+                sgr_items(curp, prep, res, *views, hmax, wmax, bd,
                           device_tables(dev)["sgr_x_by_x"])
         out[plane] = res
     return out

@@ -9,7 +9,8 @@ and compound tables whose classes end in ragged kernel blocks or split
 into 32-wide tiles; the warp and OBMC kernels on their seeded cases
 (every plane in one launch, 4:2:0, 4:2:2 and 4:4:4, bd 8/10/12,
 extreme shears, every lap geometry, laps cut at the plane edges, top
-before left). Marked
+before left); the CDEF, Wiener and SGR kernels on their seeded cases
+(bd 8/10/12, every layout, every unit size and stripe height). Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -394,3 +395,89 @@ def test_warp_obmc_wrapper_checks(cuda):
     with pytest.raises(ValueError):
         mc_obmc.obmc_cuda(planes, torch.zeros(
             (1, 13), dtype=torch.int32, device=cuda), 9, 1)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3],
+                         ids=["400", "420", "422", "444"])
+@pytest.mark.parametrize("geo", [0, 1], ids=["70x50", "196x130"])
+def test_cdef_kernel_vs_plain(cuda, bd, layout, geo):
+    # every plane in one launch: block kinds at the direction search's
+    # extremes, every strength, blocks off, the crop ending inside the
+    # tiles and the padded planes (copied through outside it)
+    from dav1d_tpu_torch.ops import cdef
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops.device import device_tables
+    args = kc.cdef_args(kc.cdef_case_at(bd, layout, geo), cuda)
+    before = cdef.LAUNCHES["cdef"]
+    got = cdef.cdef_cuda(*args)
+    assert cdef.LAUNCHES["cdef"] == before + 1
+    want = cdef.cdef_planes_plain(*args, device_tables(cuda)["cdef_proj"])
+    torch.cuda.synchronize()
+    for p, g, w in zip(args[0], got, want):
+        assert not torch.equal(w, p)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("kind", ["wiener", "sgr"])
+@pytest.mark.parametrize("us_log2", [5, 6, 7, 8],
+                         ids=["wmax48", "wmax96", "wmax192", "wmax384"])
+@pytest.mark.parametrize("hmax", [64, 32])
+def test_lr_kernel_vs_plain(cuda, bd, kind, us_log2, hmax):
+    # one launch over a plane's items: all 16 edge-flag combinations,
+    # every stripe height, Wiener taps at their limits, every SGR
+    # parameter row (s0 = 0 and s1 = 0 among them), SGR's int32
+    # overflows at 12 bit
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import lr
+    from dav1d_tpu_torch.ops.device import device_tables
+    args = kc.lr_args(kc.lr_case_at(bd, kind, us_log2, hmax), cuda)
+    want = args[2].clone()
+    name = "lr_" + kind
+    before = lr.LAUNCHES[name]
+    if kind == "wiener":
+        lr.wiener_cuda(*args)
+        lr.wiener_items_plain(*args[:2], want, *args[3:])
+    else:
+        lr.sgr_cuda(*args)
+        lr.sgr_items_plain(*args[:2], want, *args[3:],
+                           device_tables(cuda)["sgr_x_by_x"])
+    assert lr.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    assert not torch.equal(want, kc.lr_args(kc.lr_case_at(
+        bd, kind, us_log2, hmax), cuda)[2])
+    assert torch.equal(args[2], want)
+
+
+def test_filter_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import cdef, lr
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    planes, maps, Hy, Wy, layout, bd, damping = kc.cdef_args(
+        kc.cdef_case_at(8, 1, 0), cuda)
+    with pytest.raises(TypeError):
+        cdef.cdef_cuda([p.long() for p in planes], maps, Hy, Wy, layout, bd,
+                       damping)
+    with pytest.raises(ValueError):
+        cdef.cdef_cuda([p.cpu() for p in planes], maps, Hy, Wy, layout, bd,
+                       damping)
+    with pytest.raises(ValueError):
+        cdef.cdef_cuda(planes, maps[:, :-1], Hy, Wy, layout, bd, damping)
+    with pytest.raises(ValueError):
+        cdef.cdef_cuda(planes[:2], maps, Hy, Wy, layout, bd, damping)
+    with pytest.raises(ValueError):
+        cdef.cdef_cuda(planes, maps, Hy + 4, Wy, layout, bd, damping)
+    args = kc.lr_args(kc.lr_case_at(8, "wiener", 5, 64), cuda)
+    with pytest.raises(TypeError):
+        lr.wiener_cuda(*args[:3], args[3].long(), *args[4:])
+    with pytest.raises(ValueError):
+        lr.wiener_cuda(args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError):
+        lr.wiener_cuda(*args[:3], args[3][:, :-1].contiguous(), *args[4:])
+    with pytest.raises(ValueError):
+        lr.wiener_cuda(*args[:-3], 128, *args[-2:])
+    args = kc.lr_args(kc.lr_case_at(8, "sgr", 5, 32), cuda)
+    with pytest.raises(ValueError):
+        lr.sgr_cuda(*args[:4], args[4][:-1], *args[5:])
+    with pytest.raises(ValueError):
+        lr.sgr_cuda(*args[:-1], 9)

@@ -8,7 +8,8 @@ distance-weighted and masked (wedge, seg) compounds, 10-bit, 4:2:2 and
 4:4:4, two tile columns, lossless (WHT), OBMC and local warp (8- and
 10-bit, 4:2:0, 4:2:2, 4:4:4, an odd frame size whose laps cross the
 plane's right and bottom edges) and global-motion warp, each stream
-showing that its warp / OBMC jobs ran. Non-intra leftovers
+showing that its warp / OBMC jobs ran; monochrome and 12-bit 4:2:0
+streams with every in-loop filter on. Non-intra leftovers
 (interintra) and a missing native job emitter raise DecodeError naming
 their ROADMAP item. Every pass's jobs write disjoint pixels (the
 kernels rely on it): puts, warp tiles, compounds, each direction's OBMC
@@ -74,6 +75,18 @@ STREAMS = {
 WARP_OBMC = {"obmc": ("obmc",), "gmv": ("warps",),
              **{k: ("warps", "obmc") for k in STREAMS
                 if k.startswith("warp")}}
+# two tests/test_e2e_layouts.py configs with their own filter sets:
+# monochrome and 12-bit 4:2:0 inter streams, every in-loop filter on
+LAYOUT_STREAMS = {
+    "mono-filters": dict(w=96, h=96, n_frames=3, seed=322, monochrome=1,
+                         lf_levels=(20, 18, 0, 0),
+                         cdef_params=(2, 1, [9, 5], [0, 0]),
+                         lr_types=(2, 0, 0)),
+    "i420-12b-filters": dict(w=96, h=96, n_frames=3, seed=332, hbd=2,
+                             lf_levels=(20, 18, 12, 10),
+                             cdef_params=(2, 1, [9, 5], [3, 2]),
+                             lr_types=(2, 2, 2)),
+}
 RAISES = {
     "interintra": (dict(w=96, h=96, n_frames=5, seed=25, inter_intra=1,
                         **PYR), "ROADMAP item 5"),
@@ -153,6 +166,26 @@ def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen):
         # planes' allocated padding
         frame = [(50, 70), (25, 35), (25, 35)]
         assert any(_laps_past_edge(j, frame) for j, _ in jobs_seen)
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_STREAMS))
+def test_layout_stream_md5s_match_golden(name, monkeypatch):
+    from dav1d_tpu_torch.ops import cdef, lr
+    cfg = dict(LAYOUT_STREAMS[name])
+    w, h = cfg.pop("w"), cfg.pop("h")
+    data, _ = generate_stream(w, h, **cfg)
+    ran = []
+    for mod, fn in ((cdef, "cdef_planes_device"), (lr, "lr_planes_device")):
+        def spy(*a, _run=getattr(mod, fn), _fn=fn):
+            ran.append(_fn)
+            return _run(*a)
+        monkeypatch.setattr(mod, fn, spy)
+    got = _port_md5s(data)
+    assert set(ran) == {"cdef_planes_device", "lr_planes_device"}
+    monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
+    want = _jax_md5s(data)
+    assert len(want) == cfg["n_frames"]
+    assert got == want
 
 
 def _laps_past_edge(jobs, shapes):

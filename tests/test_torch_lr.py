@@ -1,13 +1,20 @@
 """Loop-restoration parity: the port's lr_planes_device (plain torch on
 the CPU) against dav1d_tpu's (XLA on the CPU) on the CDEF output and
 pre-CDEF planes of small decoded intra streams, Wiener and SGR units
-both. Tolerance 0: bit-exact."""
+both (4:2:0 at 8/10/12 bit, 4:2:2, 4:4:4, monochrome); the plain
+Wiener and SGR against dav1d_tpu's _wiener_fn / _sgr_fn on the CUDA
+kernels' seeded cases; the kernels' column tiling, in plain torch.
+Tolerance 0: bit-exact."""
 import numpy as np
 import pytest
 import torch
 
 from dav1d_tpu.ops.cdef import cdef_planes_device as jax_cdef
+from dav1d_tpu.ops.lr import _sgr_fn, _wiener_fn
 from dav1d_tpu.ops.lr import lr_planes_device as jax_lr
+from dav1d_tpu_torch.ops import kernel_cases as kc
+from dav1d_tpu_torch.ops import lr
+from dav1d_tpu_torch.ops.device import device_tables
 from dav1d_tpu_torch.ops.lr import lr_planes_device
 
 from torch_port_cases import STREAMS, frame_planes
@@ -33,3 +40,122 @@ def test_lr_matches_dav1d_tpu(name):
             assert np.array_equal(g.numpy(), np.asarray(r, np.int32)), \
                 f"plane {i}"
     assert kinds == {"wiener", "sgr"}
+
+
+# --- the kernel cases and the CUDA kernels' tiling, on the CPU ----------
+
+def _xbyx():
+    return device_tables("cpu")["sgr_x_by_x"]
+
+
+def _plain(kind, args, dst=None):
+    """The plain filter over an lr_args tuple, into dst (a fresh copy of
+    its destination by default); returns dst."""
+    dst = args[2].clone() if dst is None else dst
+    if kind == "wiener":
+        lr.wiener_items_plain(*args[:2], dst, *args[3:])
+    else:
+        lr.sgr_items_plain(*args[:2], dst, *args[3:], _xbyx())
+    return dst
+
+
+@pytest.mark.parametrize("bd", [8, 12])
+@pytest.mark.parametrize("kind", ["wiener", "sgr"])
+def test_lr_plain_matches_dav1d_tpu_on_kernel_cases(bd, kind):
+    """wiener_items_plain / sgr_items_plain, which the CUDA kernels are
+    held to on the card, against dav1d_tpu's _wiener_fn / _sgr_fn on the
+    kernel cases of the smallest and the largest unit (wmax 48, 384),
+    luma and 4:2:0 chroma stripes (10 bit: test_lr_matches_dav1d_tpu's
+    10bit-420 stream): every edge-flag combination, Wiener taps at their
+    limits, every SGR parameter row."""
+    fns = {"wiener": _wiener_fn, "sgr": _sgr_fn}
+    for us_log2 in (5, 8):
+        for hmax in (64, 32):
+            args = kc.lr_args(kc.lr_case_at(bd, kind, us_log2, hmax), "cpu")
+            got = _plain(kind, args)
+            n = args[3].shape[0]
+            ref = fns[kind](n, *args[-3:])(
+                *(a.numpy() for a in args[:-3]))
+            assert np.array_equal(got.numpy(), np.asarray(ref))
+            assert not torch.equal(got, args[2])
+
+
+def _column_tiles(kind, args, tw):
+    """The items of an lr_args tuple cut into tiles of tw output columns
+    (each its own item: colbase and ox moved by the tile's first column,
+    ows cut), as csrc/lr_wiener.cu and csrc/lr_sgr.cu cut them."""
+    n_par = 2 if kind == "wiener" else 4
+    rowt, colbase = args[3], args[4]
+    par = args[5:5 + n_par]
+    oy, ox, ohs, ows = args[5 + n_par:9 + n_par]
+    rows = []
+    for i in range(rowt.shape[0]):
+        for c0 in range(0, int(ows[i]), tw):
+            rows.append((i, c0, min(tw, int(ows[i]) - c0)))
+    idx = torch.tensor([r[0] for r in rows])
+    c0 = torch.tensor([r[1] for r in rows], dtype=torch.int32)
+    cw = torch.tensor([r[2] for r in rows], dtype=torch.int32)
+    return (*args[:3], rowt[idx], colbase[idx] + c0, *(p[idx] for p in par),
+            oy[idx], ox[idx] + c0, ohs[idx], cw, args[-3], tw, args[-1])
+
+
+@pytest.mark.parametrize("kind,tw", [("wiener", 64), ("sgr", 32)])
+@pytest.mark.parametrize("us_log2", kc.LR_UNIT_LOG2,
+                         ids=["wmax48", "wmax96", "wmax192", "wmax384"])
+def test_lr_column_tiles_equal_the_whole_item(kind, tw, us_log2):
+    """The kernels run one block per (item, tile of tw output columns):
+    each tile, filtered as an item of its own from the same row table
+    and its column window, equals its columns of the whole item (bd 12,
+    luma and chroma stripes)."""
+    for hmax in (64, 32):
+        args = kc.lr_args(kc.lr_case_at(12, kind, us_log2, hmax), "cpu")
+        want = _plain(kind, args)
+        got = _plain(kind, _column_tiles(kind, args, tw))
+        assert torch.equal(got, want)
+
+
+def test_sgr_cases_leave_int32():
+    """At 12 bit the SGR cases reach both products the kernel computes
+    in int64, each above 2^31 - 1 (and below 2^32): p * s1 of a box3
+    and x * sum * one_by_x of a box5, over the boxes the kernel computes
+    for each item (box3 at output rows -1..ohs, box5 at rows -1, 1, ..,
+    columns -1..ows), with the item's own strengths and weights."""
+    xbyx = _xbyx().numpy()
+    ps = xs = 0
+    for hmax in (64, 32):
+        args = kc.lr_args(kc.lr_case_at(12, "sgr", 8, hmax), "cpu")
+        S = lr._gather(torch.cat(args[:2]), args[3], args[4],
+                       args[-2] + 6).long().numpy()
+        s0, s1, w0, w1, ohs, ows = (args[k].numpy()
+                                    for k in (5, 6, 7, 8, 11, 12))
+        for i in range(len(S)):
+            for r, n, s, w in ((1, 9, s1[i], w1[i]), (2, 25, s0[i], w0[i])):
+                if not w:       # the kernel skips a branch of weight 0
+                    continue
+                k = 2 * r + 1
+                # boxes by top-left corner: box3 rows / columns 1..ohs + 2
+                # / ows + 2; box5 rows 0, 2, .., columns 0..ows + 1
+                rows = slice(1, ohs[i] + 3) if r == 1 else \
+                    slice(0, 2 * ((ohs[i] + 1) // 2) + 1, 2)
+                win = np.lib.stride_tricks.sliding_window_view(
+                    S[i], (k, k))[rows, 2 - r:ows[i] + 4 - r]
+                ssum = win.sum(axis=(-1, -2))
+                sq = (win * win).sum(axis=(-1, -2))
+                p = np.maximum(((sq + (1 << 7)) >> 8) * n -
+                               ((ssum + (1 << 3)) >> 4) ** 2, 0)
+                if r == 1:
+                    ps = max(ps, int(p.max()) * int(s))
+                else:
+                    x = xbyx[np.minimum((p * int(s) + (1 << 19)) >> 20,
+                                        255)]
+                    xs = max(xs, int((x * ssum).max()) * 164)
+    assert 2 ** 31 <= ps < 2 ** 32 and 2 ** 31 <= xs < 2 ** 32
+
+
+def test_lr_on_cpu_launches_no_kernel():
+    args = kc.lr_args(kc.lr_case_at(8, "wiener", 5, 64), "cpu")
+    before = dict(lr.LAUNCHES)
+    lr.wiener_items(*args)
+    assert lr.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        lr.wiener_cuda(*args)

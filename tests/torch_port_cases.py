@@ -1,5 +1,7 @@
 """Shared inputs of the PyTorch-port parity tests: small synthetic intra
-streams with every in-loop filter on, parsed by both packages."""
+streams with every in-loop filter on (4:2:0 at 8, 10 and 12 bit, 4:2:2,
+4:4:4 and monochrome), parsed by both packages; and the kernels'
+decompositions (deblock and CDEF tiles) in plain torch."""
 import numpy as np
 
 from tools.streamgen.gen import generate_intra_stream
@@ -14,6 +16,9 @@ STREAMS = {
     "10bit-420": dict(w=128, h=96, n_frames=2, seed=32, hbd=1),
     "8bit-444-tiles": dict(w=192, h=128, n_frames=2, seed=33, layout=3,
                            tile_log2_cols=1),
+    "8bit-422": dict(w=96, h=64, n_frames=2, seed=34, layout=2),
+    "12bit-420": dict(w=96, h=64, n_frames=2, seed=35, hbd=2),
+    "8bit-mono": dict(w=96, h=64, n_frames=2, seed=36, monochrome=1),
 }
 
 
@@ -83,4 +88,64 @@ def deblock_tiled_plain(entries, lut_e, lut_i, bd, tile=64, halo=12):
                 res[r0:r0 + ih, c0:c0 + iw] = got[halo:halo + ih,
                                                   halo:halo + iw]
         out.append(res)
+    return out
+
+
+
+def cdef_tiled_plain(planes, maps, Hy, Wy, layout, bd, damping, proj,
+                     tile=64, apron=2, seed=0):
+    """csrc/cdef.cu's decomposition of a frame's CDEF, in plain torch:
+    per tile x tile luma tile (and its co-located chroma tiles), the
+    8x8 blocks' directions searched in the tile alone
+    (ops/cdef.py block_params_plain), and each plane's tile filtered
+    (filter_plane_plain) from a window that holds the plane only within
+    `apron` pixels of the tile (FILL outside the crop, as the kernel
+    stages it), and random pixels and block parameters beyond; the
+    crop's pixels kept, the rest copied through. Equal to
+    cdef_planes_plain exactly when no tap of a tile's pixels reaches
+    past the apron and no pixel depends on another tile's directions."""
+    import torch
+    from dav1d_tpu_torch.ops.cdef import (FILL, block_params_plain,
+                                          filter_plane_plain)
+    rng = np.random.default_rng(seed)
+    ss_ver, ss_hor = int(layout == 1), int(layout != 3)
+    out = [p.clone() for p in planes]
+    for ty in range(0, Hy, tile):
+        for tx in range(0, Wy, tile):
+            by0, bx0 = ty // 8, tx // 8
+            by1, bx1 = min(Hy, ty + tile) // 8, min(Wy, tx + tile) // 8
+            sub = maps[:, by0:by1, bx0:bx1]
+            adj, y_dir, uv_dir = block_params_plain(
+                planes[0][ty:by1 * 8, tx:bx1 * 8], sub, layout, bd, proj)
+            for p, plane in enumerate(planes):
+                sv, sh = (ss_ver, ss_hor) if p else (0, 0)
+                bv, bh = 8 >> sv, 8 >> sh
+                ch, cw = Hy >> sv, Wy >> sh
+                th, tw = (by1 - by0) * bv, (bx1 - bx0) * bh
+                y0, x0 = ty >> sv, tx >> sh
+                # the window: one block of junk around the tile, the plane
+                # (or FILL outside the crop) within the apron
+                wh, ww = th + 2 * bv, tw + 2 * bh
+                win = rng.integers(0, 1 << bd, (wh, ww)).astype(np.int32)
+                yy = np.arange(y0 - apron, y0 + th + apron)[:, None]
+                xx = np.arange(x0 - apron, x0 + tw + apron)[None, :]
+                inside = (yy >= 0) & (yy < ch) & (xx >= 0) & (xx < cw)
+                src = plane.numpy()[np.clip(yy, 0, ch - 1),
+                                    np.clip(xx, 0, cw - 1)]
+                win[bv - apron:bv + th + apron, bh - apron:bh + tw + apron] = \
+                    np.where(inside, src, FILL)
+                own = (adj, sub[1], y_dir, sub[4]) if p == 0 else \
+                    (sub[2], sub[3], uv_dir, sub[5])
+                grid = []
+                for m in own:
+                    g = torch.from_numpy(rng.integers(
+                        0, 8, (by1 - by0 + 2, bx1 - bx0 + 2)).astype(
+                            np.int32))
+                    g[1:-1, 1:-1] = m
+                    grid.append(g)
+                got = filter_plane_plain(torch.from_numpy(win), grid[0],
+                                         grid[1], grid[2],
+                                         damping - (p > 0), wh, ww, bv, bh,
+                                         grid[3], bd)
+                out[p][y0:y0 + th, x0:x0 + tw] = got[bv:bv + th, bh:bh + tw]
     return out

@@ -16,7 +16,15 @@ wrapper on the s7 stream's first inter frame
   binning); ops/lf.py `frame_maps` (the host map build) and, with a
   GPU, `upload_maps` (every plane's maps in one copy) beside twelve
   copies of one map each (how the maps crossed before the one-launch
-  deblock), each synchronized.
+  deblock), each synchronized;
+- the host parts of CDEF and loop restoration on that frame, median of
+  20 calls each: ops/cdef.py `_block_maps` (the (6, nby, nbx) map pack)
+  and, with a GPU, its upload; where the checkout has them, ops/lr.py
+  `plane_items` (the Python item walk) and `item_tables` (the numpy
+  row and parameter tables), with a GPU `upload_tables` and
+  `plane_sources` (the edge-padded sources); and with a GPU the whole
+  `cdef_planes_device` and `lr_planes_device` calls, synchronized (what a frame's CDEF and LR hold the Stage-B
+  thread).
 
 Without a GPU the stream decodes with device="cpu" and the numbers
 that need one are left out. Prints one JSON line.
@@ -41,7 +49,7 @@ import torch  # noqa: E402
 
 from dav1d_tpu_torch.api import Decoder, Settings  # noqa: E402
 from dav1d_tpu_torch.bitstream.ivf import IvfReader  # noqa: E402
-from dav1d_tpu_torch.ops import lf, mc_fused  # noqa: E402
+from dav1d_tpu_torch.ops import cdef, lf, lr, mc_fused  # noqa: E402
 from dav1d_tpu_torch.utils.muxers import Md5Muxer  # noqa: E402
 
 PATH = os.path.join(root, "bench_streams", "1920x1080_8b_flt_s7.ivf")
@@ -82,11 +90,56 @@ def ms(fn, n=20, sync=False):
     return median(times) * 1e3
 
 
+def filter_host_ms(filters, device):
+    """Median ms of the host parts of the frame's CDEF and LR, and with
+    a GPU of the whole calls (module docstring)."""
+    cuda = device == "cuda"
+    out = {}
+    planes, plan, bd = filters["cdef"]
+    out["cdef_block_maps_ms_median"] = ms(lambda: cdef._block_maps(plan, bd))
+    if cuda:
+        maps = cdef._block_maps(plan, bd)
+        if isinstance(maps, tuple):         # a checkout of six maps
+            out["cdef_maps_upload_ms_median"] = ms(
+                lambda: [torch.from_numpy(m).to(device) for m in maps],
+                sync=True)
+        else:
+            out["cdef_maps_upload_ms_median"] = ms(
+                lambda: torch.from_numpy(maps).to(device), sync=True)
+        out["cdef_planes_device_ms_median"] = ms(
+            lambda: cdef.cdef_planes_device(planes, plan, bd), sync=True)
+    cur, pre, plan, bd = filters["lr"]
+    if hasattr(lr, "plane_items"):
+        sgrp = lr._sgr_params_tbl()
+        out["lr_plane_items_ms_median"] = ms(lambda: lr.plane_items(plan))
+        jobs = [(kind, sel, hmax, cur[pi], pre[pi], w, wmax)
+                for pi, w, hmax, wmax, kinds in lr.plane_items(plan)
+                for kind, sel in kinds.items() if sel]
+
+        def tables():
+            return [lr.item_tables(k, sel, sgrp, hmax, c.shape[0])
+                    for k, sel, hmax, c, _, _, _ in jobs]
+        out["lr_item_tables_ms_median"] = ms(tables)
+        if cuda:
+            tbls = tables()
+            out["lr_upload_tables_ms_median"] = ms(
+                lambda: [lr.upload_tables(t, device) for t in tbls],
+                sync=True)
+            out["lr_plane_sources_ms_median"] = ms(
+                lambda: [lr.plane_sources(c, p[:c.shape[0]], w, wmax)
+                         for _, _, _, c, p, w, wmax in jobs], sync=True)
+    if cuda:
+        out["lr_planes_device_ms_median"] = ms(
+            lambda: lr.lr_planes_device(cur, pre, plan, bd), sync=True)
+    return out
+
+
 def main():
     cuda = torch.cuda.is_available()
     device = "cuda" if cuda else "cpu"
-    tables, deblocks = [], []
+    tables, deblocks, filters = [], [], {}
     orig = mc_fused._plane_tables, lf.deblock_planes_device
+    orig_f = cdef.cdef_planes_device, lr.lr_planes_device
 
     def plane_tables(*args):
         tables.append(args)
@@ -96,12 +149,24 @@ def main():
         deblocks.append(([p.clone() for p in planes], plan, bd))
         return orig[1](planes, plan, bd)
 
+    def cdef_planes_device(planes, plan, bd):
+        filters["cdef"] = ([p.clone() for p in planes], plan, bd)
+        return orig_f[0](planes, plan, bd)
+
+    def lr_planes_device(planes, pre, plan, bd):
+        filters["lr"] = ([p.clone() for p in planes],
+                         [p.clone() for p in pre], plan, bd)
+        return orig_f[1](planes, pre, plan, bd)
+
     mc_fused._plane_tables = plane_tables
     lf.deblock_planes_device = deblock_planes_device
+    cdef.cdef_planes_device, lr.lr_planes_device = (cdef_planes_device,
+                                                    lr_planes_device)
     try:
         decode(device, n_tu=2)
     finally:
         mc_fused._plane_tables, lf.deblock_planes_device = orig
+        cdef.cdef_planes_device, lr.lr_planes_device = orig_f
     out = {"checkout": root, "device": device,
            "plane_tables_ms_median": ms(lambda: orig[0](*tables[0]), 50)}
     from dav1d_tpu_torch.ops import mc
@@ -120,6 +185,7 @@ def main():
             out["upload_per_map_ms_median"] = ms(
                 lambda: [torch.from_numpy(a).to(device) for _, _, vm, hm in
                          maps for a in (*vm, *hm)], sync=True)
+    out.update(filter_host_ms(filters, device))
     if cuda:
         planes, plan, bd = deblocks[-1]
         orig[1](planes, plan, bd)
