@@ -45,12 +45,16 @@ exits nonzero and prints no "ok" line:
                 blocks, laps cut at the plane's right and bottom edges
 7. kernel_filters - the CDEF, Wiener and SGR kernels against their
                 plain versions (torch.equal) on every case of
-                ops/kernel_cases.py cdef_cases and lr_cases: bd 8/10/12,
-                monochrome, 4:2:0, 4:2:2 and 4:4:4, direction-search
-                extremes, every strength, crops that end inside the
-                padded planes; every unit size and stripe height, the 16
-                edge-flag combinations, Wiener taps at their limits,
-                every SGR parameter row, SGR's int32 overflows at 12 bit
+                ops/kernel_cases.py cdef_cases, lr_cases and
+                wiener_frame_cases: bd 8/10/12, monochrome, 4:2:0, 4:2:2
+                and 4:4:4, direction-search extremes and exact cost ties,
+                every strength, crops that end inside the padded planes,
+                tiles wholly outside the crop; every unit size and stripe
+                height, the 16 edge-flag combinations, Wiener taps at
+                their limits, every SGR parameter row, SGR's int32
+                overflows at 12 bit; the one-launch Wiener of a frame's
+                planes of different shapes, every edge flag at both plane
+                edges
 8. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s31 stream, decoded on cuda with every launch of the
                 inter frame checked against the plain version on the
@@ -613,10 +617,17 @@ def phase_kernel_warp_obmc(torch, card):
 
 def _filter_plain(torch, name, args):
     """The plain version of a CDEF / Wiener / SGR launch on `args` (the
-    kernel wrapper's arguments): CDEF returns new planes, Wiener and SGR
-    a fresh copy of their destination, filtered."""
+    kernel wrapper's arguments; lr_wiener_frame: wiener_frame's): CDEF
+    returns new planes, Wiener and SGR a fresh copy of their destination
+    (a frame's Wiener call a list of them), filtered."""
     from dav1d_tpu_torch.ops import cdef, lr
     from dav1d_tpu_torch.ops.device import device_tables
+    if name == "lr_wiener_frame":
+        planes, tables, bd = args
+        dsts = [p[2].clone() for p in planes]
+        lr.wiener_frame_plain([(s, q, d, w, h) for (s, q, _, w, h), d
+                               in zip(planes, dsts)], tables, bd)
+        return dsts
     tb = device_tables(args[0].device if name != "cdef" else
                        args[0][0].device)
     if name == "cdef":
@@ -631,10 +642,17 @@ def _filter_plain(torch, name, args):
 
 def _filter_cuda(name, args, dst=None):
     """The kernel launch of a CDEF / Wiener / SGR call on `args`; Wiener
-    and SGR write into dst (args' own destination by default)."""
+    and SGR write into dst (args' own destination by default; a list of
+    them for a frame's Wiener call, lr_wiener_frame)."""
     from dav1d_tpu_torch.ops import cdef, lr
     if name == "cdef":
         return cdef.cdef_cuda(*args)
+    if name == "lr_wiener_frame":
+        planes, tables, bd = args
+        dsts = [p[2] for p in planes] if dst is None else dst
+        lr.wiener_frame_cuda([(s, q, d, w, h) for (s, q, _, w, h), d
+                              in zip(planes, dsts)], tables, bd)
+        return dsts
     a = list(args)
     if dst is not None:
         a[2] = dst
@@ -647,9 +665,10 @@ def _filter_check(torch, name, args, what):
     the max abs error (0)."""
     want = _filter_plain(torch, name, args)
     got = _filter_cuda(name, args, None if name == "cdef" else
-                       args[2].clone())
+                       [p[2].clone() for p in args[0]]
+                       if name == "lr_wiener_frame" else args[2].clone())
     torch.cuda.synchronize()
-    if name == "cdef":
+    if name in ("cdef", "lr_wiener_frame"):
         return max(_check_equal(torch, g, w, f"{what} plane {i}")
                    for i, (g, w) in enumerate(zip(got, want)))
     return _check_equal(torch, got, want, what)
@@ -675,8 +694,18 @@ def phase_kernel_filters(torch, card):
             f"{name} bd={case['bd']} wmax={case['wmax']} "
             f"hmax={case['hmax']}"))
         n[name] += len(case["items"])
+    # the one-launch Wiener of a frame: planes of different shapes
+    n_frames = n_frame_items = 0
+    for case in kc.wiener_frame_cases():
+        args = kc.wiener_frame_args(case, dev)
+        errs["lr_wiener"] = max(errs["lr_wiener"], _filter_check(
+            torch, "lr_wiener_frame", args,
+            f"lr_wiener frame bd={case['bd']} layout={case['layout']}"))
+        n_frames += 1
+        n_frame_items += len(args[1][0])
     emit({"phase": "kernel_filters", "card": card, "cdef_frames": n["cdef"],
-          "wiener_items": n["lr_wiener"], "sgr_items": n["lr_sgr"],
+          "wiener_items": n["lr_wiener"], "wiener_frames": n_frames,
+          "wiener_frame_items": n_frame_items, "sgr_items": n["lr_sgr"],
           "max_abs_err": errs, "equal": True})
     return errs
 
@@ -704,17 +733,26 @@ def _cdef_work(torch, planes, maps, Hy, Wy, layout, bd, damping):
 
 
 def _lr_work(name, args):
-    """(bytes, ops) of a Wiener / SGR call: each restored pixel read and
-    written once as int32 and its tables read once (as _stage_device
-    counts them), and WIENER_OPS_PER_PX / SGR_OPS_PER_PX per restored
-    pixel."""
+    """(bytes, ops) of a frame's Wiener call (lr_wiener: wiener_frame's
+    arguments) or a plane's SGR call (lr_sgr: sgr_items'): each restored
+    pixel read and written once as int32 and its tables read once (as
+    _stage_device counts them), and WIENER_OPS_PER_PX / SGR_OPS_PER_PX
+    per restored pixel. Wiener's tables count as one plane's call per
+    plane had them, whatever the kernel's grouping: per item its row
+    table of the plane's hmax + 6 entries, colbase, 14 taps and oy, ox,
+    ohs, ows, int32."""
+    import numpy as np
     import torch
-    k = 9 if name == "lr_wiener" else 11
-    px = int((args[k].long() * args[k + 1].long()).sum())
+    if name == "lr_wiener":
+        planes, (items, _), _ = args
+        hmax = np.array([p[4] for p in planes], np.int64)[items[:, 0]]
+        px = int((items[:, 4].astype(np.int64) * items[:, 5]).sum())
+        return 8 * px + 4 * int((hmax + 6 + 19).sum()), \
+            px * WIENER_OPS_PER_PX
+    px = int((args[11].long() * args[12].long()).sum())
     tables = sum(t.numel() * t.element_size() for t in args[3:]
                  if isinstance(t, torch.Tensor))
-    return 8 * px + tables, px * (WIENER_OPS_PER_PX if name == "lr_wiener"
-                                  else SGR_OPS_PER_PX)
+    return 8 * px + tables, px * SGR_OPS_PER_PX
 
 
 def _warp_work(jobs, n_refs, ref_shape, rh, rw):
@@ -887,7 +925,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             "obmc_planes": mc_obmc.obmc_planes,
             "deblock_frame": lf.deblock_frame,
             "cdef_planes": cdef.cdef_planes,
-            "wiener_items": lr.wiener_items, "sgr_items": lr.sgr_items}
+            "wiener_frame": lr.wiener_frame, "sgr_items": lr.sgr_items}
     label = os.path.basename(stream)
 
     def planes_plain(name, planes, jobs, bd, arg):
@@ -955,14 +993,18 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
 
     # the filter launches, by frame (the deblock's count when they ran):
     # CDEF's arguments, and Wiener's and SGR's with a copy of their
-    # destination as it was before the launch
+    # destinations as they were before the launch
     filt = []
 
     def filter_spy(name, run):
         def spy(*a):
-            rec = a if name == "cdef" else (*a[:2], a[2].clone(), *a[3:])
-            if name == "lr_sgr":
-                rec = rec[:-1]      # the kernel holds its own x_by_x
+            if name == "cdef":
+                rec = a
+            elif name == "lr_wiener":
+                rec = ([(s, q, d.clone(), w, h) for s, q, d, w, h in a[0]],
+                       *a[1:])
+            else:       # SGR: the kernel holds its own x_by_x
+                rec = (*a[:2], a[2].clone(), *a[3:-1])
             filt.append((len(frames), name, rec))
             return run(*a)
         return spy
@@ -973,7 +1015,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     mc.comp, itx.itx_add = comp, itx_add
     lf.deblock_frame = deblock_frame
     cdef.cdef_planes = filter_spy("cdef", orig["cdef_planes"])
-    lr.wiener_items = filter_spy("lr_wiener", orig["wiener_items"])
+    lr.wiener_frame = filter_spy("lr_wiener", orig["wiener_frame"])
     lr.sgr_items = filter_spy("lr_sgr", orig["sgr_items"])
     try:
         _, digest, _, _, md5s = _decode(stream, timed=False, n_tu=2)
@@ -984,7 +1026,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         mc_obmc.obmc_planes = orig["obmc_planes"]
         lf.deblock_frame = orig["deblock_frame"]
         cdef.cdef_planes = orig["cdef_planes"]
-        lr.wiener_items, lr.sgr_items = orig["wiener_items"], \
+        lr.wiener_frame, lr.sgr_items = orig["wiener_frame"], \
             orig["sgr_items"]
     if md5s != md5s_want[:2]:
         raise AssertionError(f"kernel_real {label}: md5s {md5s}")
@@ -992,8 +1034,10 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     for f, name, rec in filt:
         if f == len(frames):
             calls[name].append(rec)
+            # the decoder's Wiener call is a frame's
+            kind = "lr_wiener_frame" if name == "lr_wiener" else name
             errs[name] = max(errs[name], _filter_check(
-                torch, name, rec, f"{name} on {label} frame 1"))
+                torch, kind, rec, f"{name} on {label} frame 1"))
     if not all(calls[k] for k in need):
         raise AssertionError(f"kernel_real {label}: a kernel had no "
                              f"launch: "
@@ -1007,9 +1051,16 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         out = []
         if name in FILTER_KERNELS:
             # CDEF writes fresh planes; Wiener and SGR into their
-            # destination, given a fresh copy of it
+            # destinations, given fresh copies of them
             for c in calls[name]:
-                if name == "cdef":
+                if name == "lr_wiener":
+                    def fn(p, s, c=c, plain=plain):
+                        a = ([(*q[:2], d, *q[3:]) for q, d in zip(c[0], p)],
+                             *c[1:])
+                        return _filter_plain(torch, "lr_wiener_frame", a) \
+                            if plain else _filter_cuda("lr_wiener_frame", a)
+                    out.append(([p[2] for p in c[0]], None, fn))
+                elif name == "cdef":
                     out.append((None, None, (
                         lambda p, s, c=c: _filter_plain(torch, "cdef", c))
                         if plain else (lambda p, s, c=c: _filter_cuda(
@@ -1134,11 +1185,14 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             extra = {"blocks_per_launch": [
                 -(-c[0][0].shape[0] // 64) * -(-c[0][0].shape[1] // 64)
                 for c in calls[name]]}
-        elif name in ("lr_wiener", "lr_sgr"):
-            # one block per item and tile of 64 (32) output columns
-            tw = 64 if name == "lr_wiener" else 32
+        elif name == "lr_wiener":
+            # one block per item and tile of 64 output columns
             extra = {"blocks_per_launch": [
-                c[3].shape[0] * -(-c[-2] // tw) for c in calls[name]]}
+                len(lr.wiener_blocks(c[1][0])) for c in calls[name]]}
+        elif name == "lr_sgr":
+            # one block per item and tile of 32 output columns
+            extra = {"blocks_per_launch": [
+                c[3].shape[0] * -(-c[-2] // 32) for c in calls[name]]}
         elif name in ("mc_warp", "mc_obmc"):
             # one kernel block per four tiles / per lap, no block table
             extra = {"blocks_per_launch": [
@@ -1185,6 +1239,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             # filters: 8x8 luma blocks (CDEF), items (Wiener, SGR)
             "jobs_per_frame": int(sum(
                 c[1].shape[1] * c[1].shape[2] if name == "cdef" else
+                len(c[1][0]) if name == "lr_wiener" else
                 c[3].shape[0] if name in FILTER_KERNELS else len(c[1])
                 for c in calls[name])),
             "max_abs_err": errs[name],
@@ -1299,7 +1354,7 @@ def _stage_device(torch, path, **kw):
     from torch.profiler import ProfilerActivity, profile, record_function
     from dav1d_tpu_torch.ops import lr
     from dav1d_tpu_torch.utils import timing
-    orig = {"phase": timing.phase, "wiener": lr.wiener_items,
+    orig = {"phase": timing.phase, "wiener": lr.wiener_frame,
             "sgr": lr.sgr_items}
     labels = set()
     lr_bytes = {"lr.wiener": 0, "lr.sgr": 0}
@@ -1311,20 +1366,18 @@ def _stage_device(torch, path, **kw):
             yield
             torch.cuda.synchronize()
 
-    def annotate(label, fn, ohs):
+    def annotate(label, fn, name):
         def run(*a, **k):
             labels.add(label)
-            lr_bytes[label] += 8 * int((a[ohs] * a[ohs + 1]).sum()) + sum(
-                t.numel() * t.element_size() for t in a[3:]
-                if isinstance(t, torch.Tensor))
+            lr_bytes[label] += _lr_work(name, a)[0]
             with record_function(label):
                 out = fn(*a, **k)
                 torch.cuda.synchronize()
                 return out
         return run
     timing.phase = phase
-    lr.wiener_items = annotate("lr.wiener", orig["wiener"], 9)
-    lr.sgr_items = annotate("lr.sgr", orig["sgr"], 11)
+    lr.wiener_frame = annotate("lr.wiener", orig["wiener"], "lr_wiener")
+    lr.sgr_items = annotate("lr.sgr", orig["sgr"], "lr_sgr")
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1332,7 +1385,7 @@ def _stage_device(torch, path, **kw):
                                          **kw)
     finally:
         timing.phase = orig["phase"]
-        lr.wiener_items, lr.sgr_items = orig["wiener"], orig["sgr"]
+        lr.wiener_frame, lr.sgr_items = orig["wiener"], orig["sgr"]
     import bisect
     # the device activity, without the spans that mirror the ranges on
     # the device timeline (they carry the ranges' names)

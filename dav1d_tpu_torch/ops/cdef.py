@@ -14,8 +14,9 @@ cdef_apply_tmpl.c:91-330). Two implementations:
   run on CUDA in torch, and fp32/TF32 would round). Used for CPU
   tensors only.
 - the hand-written CUDA kernel csrc/cdef.cu: every plane of a frame in
-  one launch, 64x64 luma tiles with a 2-pixel apron in shared memory
-  (`cdef_cuda`); used for every CUDA tensor.
+  one launch, 64x64 luma tiles with a 2-pixel apron in shared memory,
+  the direction search spread over the block's 8 warps, tiles outside
+  the crop copied through (`cdef_cuda`); used for every CUDA tensor.
 
 The per-8x8-block maps of a frame are one (6, nby, nbx) int32 array
 (`MAPS` names its rows), uploaded in one copy.
@@ -72,14 +73,14 @@ def _expand(m, bv, bh):
                                    bh, dim=1)
 
 
-def find_dirs_plain(y_plane, bd, proj):
-    """Per-8x8-block direction and variance of a cropped luma plane
-    (bh*4, bw*4) int32. proj: the (64, 90) float64 projection."""
+def dir_costs_plain(y_plane, bd, proj):
+    """The 8 direction costs of cdef_find_dir_c of every 8x8 block of a
+    cropped luma plane (bh*4, bw*4) int32: (nby * nbx, 8) int64, blocks
+    in raster order. proj: the (64, 90) float64 projection."""
     bdm8 = bd - 8
     H, W = y_plane.shape
-    nby, nbx = H // 8, W // 8
     px = (y_plane >> bdm8) - 128
-    B = px.reshape(nby, 8, nbx, 8).permute(0, 2, 1, 3).reshape(-1, 64)
+    B = px.reshape(H // 8, 8, W // 8, 8).permute(0, 2, 1, 3).reshape(-1, 64)
     P = torch.matmul(B.to(torch.float64), proj).to(torch.int64)
     hv = P[:, 0:16].reshape(-1, 2, 8)
     diag = P[:, 16:46].reshape(-1, 2, 15)
@@ -105,17 +106,25 @@ def find_dirs_plain(y_plane, bd, proj):
             d = _DIV_TABLE[2 * m + 1]
             c = c + (alt[:, n, m] ** 2 + alt[:, n, 10 - m] ** 2) * d
         cost[n * 2 + 1] = c
+    return torch.stack(cost, dim=1)
+
+
+def find_dirs_plain(y_plane, bd, proj):
+    """Per-8x8-block direction and variance of a cropped luma plane
+    (bh*4, bw*4) int32. proj: the (64, 90) float64 projection."""
+    H, W = y_plane.shape
+    costs = dir_costs_plain(y_plane, bd, proj)
     # first maximum wins, like argmax
-    best = torch.zeros_like(cost[0], dtype=torch.int32)
-    best_cost = cost[0]
+    best = torch.zeros(costs.shape[0], dtype=torch.int32,
+                       device=y_plane.device)
+    best_cost = costs[:, 0]
     for d in range(1, 8):
-        gt = cost[d] > best_cost
+        gt = costs[:, d] > best_cost
         best = torch.where(gt, d, best)
-        best_cost = torch.where(gt, cost[d], best_cost)
-    costs = torch.stack(cost, dim=1)
+        best_cost = torch.where(gt, costs[:, d], best_cost)
     alt_cost = torch.gather(costs, 1, (best ^ 4).to(torch.int64)[:, None])
     var = (best_cost - alt_cost[:, 0]) >> 10
-    return best.reshape(nby, nbx), var.reshape(nby, nbx)
+    return best.reshape(H // 8, W // 8), var.reshape(H // 8, W // 8)
 
 
 def filter_plane_plain(plane, pri, sec, dir_map, damp, valid_h, valid_w,
@@ -283,8 +292,10 @@ def _lib():
 def check_args(planes, maps, Hy, Wy, layout, bd):
     """Raise unless the arguments are ones csrc/cdef.cu takes: 1 or 3
     contiguous int32 planes on one CUDA device (u and v of one shape),
-    a crop of whole 8x8 luma blocks inside them, (6, Hy/8, Wy/8) int32
-    maps on that device, bd 8/10/12 and a layout 1..3 with chroma."""
+    a crop of whole 8x8 luma blocks inside them, rows of whole 16-byte
+    vectors (widths multiples of 4, data 16-byte aligned: the kernel
+    moves 4 pixels at a time), (6, Hy/8, Wy/8) int32 maps on that
+    device, bd 8/10/12 and a layout 1..3 with chroma."""
     from .cuda_build import check_tensor
     if len(planes) not in (1, 3):
         raise ValueError(f"{len(planes)} planes, expected 1 or 3")
@@ -304,6 +315,8 @@ def check_args(planes, maps, Hy, Wy, layout, bd):
         if p.shape[0] < ch or p.shape[1] < cw:
             raise ValueError(f"plane {i} of shape {tuple(p.shape)} "
                              f"smaller than its crop {(ch, cw)}")
+        if p.shape[1] % 4 or p.data_ptr() % 16:
+            raise ValueError(f"plane {i}: rows not whole 16-byte vectors")
     if len(planes) == 3 and planes[1].shape != planes[2].shape:
         raise ValueError("u and v planes of different shapes")
     check_tensor(maps, "maps", torch.int32, dev,

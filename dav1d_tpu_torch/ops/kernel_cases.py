@@ -457,10 +457,12 @@ def case_planes(case, device):
 # CDEF: layouts (0 monochrome, 1 4:2:0, 2 4:2:2, 3 4:4:4) and the
 # geometries (frame height, width, padded luma plane rows, columns) of
 # the cases: the 70x50 frame, whose 4x4 grid (56 x 72) ends inside the
-# 64x64 tiles and inside the padded plane, and a frame of several tiles
-# that end ragged
+# 64x64 tiles and inside the padded plane, a frame of several tiles
+# that end ragged, and a 100x60 frame in a plane padded far beyond it
+# (whole tiles below and right of its 64 x 104 crop, copied through)
 CDEF_LAYOUTS = (0, 1, 2, 3)
-CDEF_GEOMETRIES = ((50, 70, 96, 128), (130, 196, 160, 256))
+CDEF_GEOMETRIES = ((50, 70, 96, 128), (130, 196, 160, 256),
+                   (60, 100, 192, 256))
 
 
 def _cdef_blocks(rng, h, w, bd, kinds):
@@ -546,12 +548,79 @@ def cdef_case_at(bd, layout, g):
                      CDEF_GEOMETRIES[g])
 
 
+# the direction pairs that tie on blocks symmetric about the main
+# diagonal (2 = 6, 1 = 7, 3 = 5) or about the vertical axis (0 = 4,
+# 1 = 3, 5 = 7)
+TIE_PAIRS = ((2, 6), (1, 7), (3, 5), (0, 4), (1, 3), (5, 7))
+
+
+def _tie_blocks(rng, n, bd):
+    """(n, 8, 8) int32 blocks whose largest direction cost is held by
+    exactly one pair of TIE_PAIRS, each pair about as often: noise and
+    noise on ramps and stripes, made symmetric about the main diagonal
+    or the vertical axis, kept where a tied pair holds the maximum
+    (cdef.dir_costs_plain); none is flat."""
+    import torch
+    from .cdef import dir_costs_plain, proj_matrix
+    proj = torch.from_numpy(proj_matrix().astype(np.float64))
+    top = (1 << bd) - 1
+    yy, xx = np.mgrid[0:8, 0:8]
+    want = -(-n // len(TIE_PAIRS))
+    pools = {pair: [] for pair in TIE_PAIRS}
+    for _ in range(400):
+        if all(len(v) >= want for v in pools.values()):
+            break
+        m = 256
+        amp = rng.integers(0, 1 << (bd - 3), (m, 1, 1))
+        kind = np.arange(m)[:, None, None] % 3
+        pattern = np.where(kind == 1, yy - xx * rng.integers(-2, 3, (m, 1, 1)),
+                           ((yy * rng.integers(0, 3, (m, 1, 1)) +
+                             xx * rng.integers(0, 3, (m, 1, 1))) % 3) * 4)
+        R = np.clip(rng.integers(0, top + 1, (m, 8, 8)) // 4 +
+                    np.where(kind > 0, amp * pattern, 0) + (top + 1) // 4,
+                    0, top)
+        C = np.concatenate([np.triu(R) + np.triu(R, 1).transpose(0, 2, 1),
+                            np.concatenate([R[:, :, :4], R[:, :, 3::-1]],
+                                           axis=2)]).astype(np.int32)
+        costs = dir_costs_plain(torch.from_numpy(C.reshape(-1, 8)), bd,
+                                proj).numpy()
+        top_dirs = costs == costs.max(1, keepdims=True)
+        for pair in TIE_PAIRS:
+            mask = np.zeros(8, bool)
+            mask[list(pair)] = True
+            hit = (top_dirs == mask).all(1) & \
+                (C.reshape(len(C), -1).std(1) > 0)
+            pools[pair].extend(C[hit][:want - len(pools[pair])])
+    C = np.array([b for k in range(want) for v in pools.values()
+                  if k < len(v) for b in v[k:k + 1]], np.int32)
+    if len(C) < n:
+        raise RuntimeError(f"{len(C)} tie blocks, {n} wanted")
+    return C[:n]
+
+
+def cdef_tie_case(bd, layout):
+    """The 70x50 cdef_case (geometry 0) with every 8x8 block of its luma
+    crop replaced by a _tie_blocks block: the direction search meets
+    exact cost ties between directions on blocks that are not flat,
+    where the first maximum must win."""
+    case = cdef_case(bd, 1000 + 10 * bd + layout, layout)
+    rng = np.random.default_rng(2000 + 10 * bd + layout)
+    nby, nbx = case["Hy"] // 8, case["Wy"] // 8
+    blocks = _tie_blocks(rng, nby * nbx, bd)
+    y = case["planes"][0]
+    y[:nby * 8, :nbx * 8] = blocks.reshape(nby, nbx, 8, 8).transpose(
+        0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+    return case
+
+
 def cdef_cases():
     """Every CDEF case the kernel tests run: each layout and bit depth
-    on both geometries."""
+    on every geometry, and the tie case of each."""
     return [cdef_case_at(bd, layout, g) for bd in (8, 10, 12)
             for layout in CDEF_LAYOUTS
-            for g in range(len(CDEF_GEOMETRIES))]
+            for g in range(len(CDEF_GEOMETRIES))] + \
+        [cdef_tie_case(bd, layout) for bd in (8, 10, 12)
+         for layout in CDEF_LAYOUTS]
 
 
 def cdef_args(case, device):
@@ -656,3 +725,84 @@ def lr_args(case, device):
                          case["hmax"], cur.shape[0])
     return (curp, prep, cur.clone(), *lr.upload_tables(tbl, device),
             case["hmax"], case["wmax"], case["bd"])
+
+
+def wiener_frame_case(bd, layout):
+    """The Wiener items of every plane of one frame, for the one-launch
+    kernel: luma and (but for monochrome, layout 0) two chroma planes of
+    the layout's shape, each with its own valid width (columns beyond
+    it junk, which the clamped reads must not reach), stripe height
+    (luma 64, 4:2:0 chroma 32) and unit size (luma 64, chroma 32); units
+    across the whole width as _collect_items cuts them (the first at
+    ox = 0, the last ending at ox + ows = w) over 16 stripes of
+    LR_STRIPES heights, with edge flags (stripe + 5 unit) % 16, so
+    that every combination meets both plane edges; taps as lr_case.
+    Luma's second unit column is SGR (the chroma planes have Wiener
+    items and no SGR item). Returns {planes: [{cur, pre, w, hmax,
+    items}], layout, bd}."""
+    rng = np.random.default_rng(3000 + 10 * bd + layout)
+    ss_ver, ss_hor = int(layout == 1), int(layout != 3)
+    w_y = 3 * 64 + 90
+    planes = []
+    for p in range(3 if layout else 1):
+        sv, sh = (ss_ver, ss_hor) if p else (0, 0)
+        w = (w_y + sh) >> sh
+        hmax = 64 >> sv
+        us = 64 if p == 0 else 32
+        units, x = [], 0
+        while x < w:
+            units.append(w - x if x + us + us // 2 > w else us)
+            x += units[-1]
+        heights = LR_STRIPES[hmax] * 2
+        Hp, Wp = sum(heights) + 8, w + 16
+        cur = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS)
+        pre = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS[::-1])
+        items, y = [], 0
+        for s, h in enumerate(heights):
+            x = 0
+            for k, uw in enumerate(units):
+                if p == 0 and k == 1:
+                    u = {"type": 3 + s % 16,
+                         "sgr_weights": (int(rng.integers(-96, 32)),
+                                         int(rng.integers(-32, 96)))}
+                else:
+                    u = {"type": 2,
+                         "filter_h": _wiener_taps(rng, len(items)),
+                         "filter_v": _wiener_taps(rng, len(items) + 3)}
+                items.append((y, x, uw, h, (s + 5 * k) % 16, u))
+                x += uw
+            y += h
+        planes.append({"cur": cur, "pre": pre, "w": w, "hmax": hmax,
+                       "items": items})
+    return {"planes": planes, "layout": layout, "bd": bd}
+
+
+def wiener_frame_cases():
+    """Every Wiener frame case: each layout at bd 8/10/12."""
+    return [wiener_frame_case(bd, layout) for bd in (8, 10, 12)
+            for layout in CDEF_LAYOUTS]
+
+
+def lr_frame_case(case):
+    """An lr_case as a frame case of one plane."""
+    return {"planes": [{k: case[k] for k in ("cur", "pre", "w", "hmax",
+                                              "items")}],
+            "layout": None, "bd": case["bd"]}
+
+
+def wiener_frame_args(case, device):
+    """The arguments of ops/lr.py wiener_frame of a frame case on
+    device: [(src, pre, dst (a copy of src), w, hmax)] per plane and the
+    host tables of its Wiener items (lr.wiener_frame_tables), and bd."""
+    import torch
+    from . import lr
+    from .restore_ref import _sgr_params_tbl
+    planes, groups = [], []
+    for pl in case["planes"]:
+        cur = torch.from_numpy(pl["cur"]).to(device)
+        planes.append((cur, torch.from_numpy(pl["pre"]).to(device),
+                       cur.clone(), pl["w"], pl["hmax"]))
+        groups.append(([it for it in pl["items"] if it[5]["type"] == 2],
+                       pl["hmax"], cur.shape[0]))
+    return planes, lr.wiener_frame_tables(groups, _sgr_params_tbl()), \
+        case["bd"]

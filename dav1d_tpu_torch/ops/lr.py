@@ -5,21 +5,27 @@ Port of dav1d_tpu's ops/lr.py (reference src/looprestoration_tmpl.c:
 work item of a frame's plane is one row of a dense batch. The host
 builds per item the row table that bakes in the reference's
 streaming-edge semantics (stripe-boundary rows redirected to the
-pre-CDEF plane, top/bottom replication, the SGR row clamp); the columns
-come from horizontally edge-padded sources, so each item's column
-window is linear. All tables are int32. Two implementations of each
-filter:
+pre-CDEF plane, top/bottom replication, the SGR row clamp). The plain
+versions and SGR read columns from horizontally edge-padded sources,
+so each item's column window is linear; the Wiener kernel clamps the
+columns of the unpadded planes instead, which is the same edge
+replication. All tables are int32. Two implementations of each filter:
 
 - the plain torch version (`wiener_items_plain`, `sgr_items_plain`):
   gathers the (n, hmax+6, wmax+6) padded sources from [src; pre], runs
   the Wiener or SGR math over the batch (SGR in int64) and writes the
-  results back under the per-item size mask; CPU tensors only;
-- the hand-written CUDA kernels csrc/lr_wiener.cu and csrc/lr_sgr.cu
-  (`wiener_cuda`, `sgr_cuda`): one launch per plane and filter, one
-  block per (item, column tile), reading `src` and `pre` through the
-  same tables; every CUDA tensor.
+  results back under the per-item size mask; CPU tensors only.
+  `wiener_frame_plain` runs a frame's Wiener table through it plane by
+  plane;
+- the hand-written CUDA kernels csrc/lr_wiener.cu and csrc/lr_sgr.cu:
+  Wiener in one launch a frame over every plane's items
+  (`wiener_frame_cuda`; `wiener_cuda` takes one plane's padded
+  sources), SGR in one launch per plane (`sgr_cuda`); one block per
+  (item, column tile); every CUDA tensor.
 
-`wiener_items` and `sgr_items` dispatch between the two.
+`wiener_frame`, `wiener_items` and `sgr_items` dispatch between the
+two; `lr_planes_device` makes one `wiener_frame` call a frame, then one
+`sgr_items` call per plane with SGR items.
 """
 from __future__ import annotations
 
@@ -58,30 +64,35 @@ def _write_back(dst, vals, oy, ox, ohs, ows):
     dst[ridx[valid], cidx[valid]] = vals[valid]
 
 
-def wiener_items_plain(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs,
-                       ows, hmax, wmax, bd):
-    """Batched Wiener pass (dav1d_tpu lr._wiener_fn): gathers from
-    [src; pre] (the pre-LR pixels) and writes into dst in place."""
+def _wiener_math(S, fhc, fvc, hmax, wmax, bd):
+    """The Wiener filter of gathered (n, hmax + 6, wmax + 6) windows:
+    (n, hmax, wmax) int32 outputs."""
     round_bits_h = 3 + (bd == 12) * 2
     clip_limit = 1 << (bd + 1 + 7 - round_bits_h)
     round_bits_v = 11 - (bd == 12) * 2
     round_offset = 1 << (bd + round_bits_v - 1)
-    n = rowt.shape[0]
-    CP = torch.cat([src, pre], dim=0)
-    S = _gather(CP, rowt, colbase, wmax + 6)
+    n = S.shape[0]
     hsum = torch.full((n, hmax + 6, wmax), 1 << (bd + 6), dtype=torch.int32,
-                      device=src.device)
+                      device=S.device)
     for i in range(7):
         hsum = hsum + fhc[:, i, None, None] * S[:, :, i:i + wmax]
     hor = torch.clamp((hsum + (1 << (round_bits_h - 1))) >> round_bits_h,
                       0, clip_limit - 1)
     vsum = torch.full((n, hmax, wmax), -round_offset, dtype=torch.int32,
-                      device=src.device)
+                      device=S.device)
     for i in range(7):
         vsum = vsum + fvc[:, i, None, None] * hor[:, i:i + hmax]
-    vals = torch.clamp((vsum + (1 << (round_bits_v - 1))) >> round_bits_v,
+    return torch.clamp((vsum + (1 << (round_bits_v - 1))) >> round_bits_v,
                        0, (1 << bd) - 1)
-    _write_back(dst, vals, oy, ox, ohs, ows)
+
+
+def wiener_items_plain(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs,
+                       ows, hmax, wmax, bd):
+    """Batched Wiener pass (dav1d_tpu lr._wiener_fn): gathers from
+    [src; pre] (the pre-LR pixels) and writes into dst in place."""
+    S = _gather(torch.cat([src, pre], dim=0), rowt, colbase, wmax + 6)
+    _write_back(dst, _wiener_math(S, fhc, fvc, hmax, wmax, bd), oy, ox, ohs,
+                ows)
 
 
 def sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox,
@@ -195,11 +206,12 @@ def _lib(name):
     return lib
 
 
-def _launch(name, src, pre, dst, rowt, vecs, hmax, wmax, bd):
-    """Check and launch csrc/<name>.cu over one plane's items: src / pre
-    (Hp, Ws) and dst 2-D int32, rowt (n, hmax + 6) int32, vecs the
-    kernel's per-item int32 tables in its order (the taps fhc, fvc
-    (n, 7), the others (n,)); all contiguous on one CUDA device."""
+def _check_items(name, src, pre, dst, rowt, vecs, hmax, wmax, bd):
+    """Raise unless the arguments are one plane's items as the kernels
+    take them: src / pre (Hp, Ws) and dst 2-D int32, rowt (n, hmax + 6)
+    int32, vecs the per-item int32 tables by name (the taps fhc, fvc
+    (n, 7), the others (n,)); all contiguous on one CUDA device.
+    Returns n."""
     from .cuda_build import check_tensor
     dev = src.device
     if dev.type != "cuda":
@@ -217,27 +229,198 @@ def _launch(name, src, pre, dst, rowt, vecs, hmax, wmax, bd):
         taps = k in ("fhc", "fvc")
         check_tensor(v, k, torch.int32, dev, (n, 7) if taps else (n,),
                      ndim=2 if taps else 1)
-    ptrs = [src.data_ptr(), pre.data_ptr(), dst.data_ptr(),
-            rowt.data_ptr(), *(v.data_ptr() for v in vecs.values())]
-    dims = [src.shape[0], src.shape[1], dst.shape[1], n, hmax, wmax, bd]
+    return n
+
+
+def _call(name, ptrs, dims, dev):
     rc = getattr(_lib(name), name)(
         (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
-    return dst
+
+
+# the columns of the Wiener kernel's item table (int32, one row an item)
+WIENER_COLS = ("plane", "colbase", "oy", "ox", "ohs", "ows") + \
+    tuple(f"fh{i}" for i in range(7)) + tuple(f"fv{i}" for i in range(7))
+WIENER_TW = 64          # output columns of a Wiener kernel block
+
+
+def _wiener_launch(planes, items, rowt, blocks, bd):
+    """One launch of csrc/lr_wiener.cu. planes: [(src, pre, dst, w,
+    wmax)] per plane index of the item table (src and pre (Hp, Ws) and
+    dst 2-D, int32; columns clamp to [0, w); wmax the widest item);
+    items (n, 20), rowt (n, rw) and blocks (nb, 2) or None (a grid of
+    items x tiles over plane 0): int32, all contiguous on one CUDA
+    device."""
+    from .cuda_build import check_tensor
+    dev = planes[0][0].device
+    if dev.type != "cuda":
+        raise ValueError("lr_wiener needs CUDA tensors")
+    if bd not in (8, 10, 12):
+        raise ValueError(f"bitdepth {bd}")
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"{len(planes)} planes, expected 1 to 3")
+    ptrs, dims = [0] * 12, [0] * 20
+    for p, (src, pre, dst, w, wmax) in enumerate(planes):
+        check_tensor(src, f"src {p}", torch.int32, dev)
+        check_tensor(pre, f"pre {p}", torch.int32, dev, src.shape)
+        check_tensor(dst, f"dst {p}", torch.int32, dev)
+        if not 0 < w <= src.shape[1] or wmax < 1:
+            raise ValueError(f"plane {p}: width {w}, widest item {wmax}")
+        ptrs[3 * p:3 * p + 3] = (src.data_ptr(), pre.data_ptr(),
+                                 dst.data_ptr())
+        dims[5 * p:5 * p + 5] = (*src.shape, dst.shape[1], w, wmax)
+    n = items.shape[0] if items.dim() == 2 else -1
+    check_tensor(items, "items", torch.int32, dev, (n, len(WIENER_COLS)))
+    rw = rowt.shape[1] if rowt.dim() == 2 else -1
+    check_tensor(rowt, "rowt", torch.int32, dev, (n, rw))
+    nb = 0
+    if blocks is not None:
+        nb = blocks.shape[0] if blocks.dim() == 2 else -1
+        check_tensor(blocks, "blocks", torch.int32, dev, (nb, 2))
+    ptrs[9:] = (items.data_ptr(), rowt.data_ptr(),
+                0 if blocks is None else blocks.data_ptr())
+    dims[15:] = (len(planes), n, rw, nb, bd)
+    _call("lr_wiener", ptrs, dims, dev)
 
 
 def wiener_cuda(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
                 hmax, wmax, bd):
     """wiener_items_plain's contract with one launch of
-    csrc/lr_wiener.cu; CUDA int32 tensors only (the tables too), the
+    csrc/lr_wiener.cu (the item table packed on the device, a grid of
+    items x tiles); CUDA int32 tensors only (the tables too), the
     items' outputs inside dst. Launches on the current stream and does
     not synchronise."""
-    return _launch("lr_wiener", src, pre, dst, rowt,
-                   {"colbase": colbase, "fhc": fhc, "fvc": fvc, "oy": oy,
-                    "ox": ox, "ohs": ohs, "ows": ows}, hmax, wmax, bd)
+    _check_items("lr_wiener", src, pre, dst, rowt,
+                 {"colbase": colbase, "fhc": fhc, "fvc": fvc, "oy": oy,
+                  "ox": ox, "ohs": ohs, "ows": ows}, hmax, wmax, bd)
+    col = [v[:, None] for v in (torch.zeros_like(colbase), colbase, oy, ox,
+                                ohs, ows)]
+    _wiener_launch([(src, pre, dst, src.shape[1], wmax)],
+                   torch.cat(col + [fhc, fvc], dim=1), rowt, None, bd)
+    return dst
+
+
+def wiener_blocks(items):
+    """The Wiener kernel's block table of an item table (numpy): one
+    (item, first output column) row per tile of WIENER_TW output
+    columns of each item, int32."""
+    ows = items[:, WIENER_COLS.index("ows")].astype(np.int64)
+    nt = -(-ows // WIENER_TW)
+    first = np.repeat(np.cumsum(nt) - nt, nt)
+    return np.stack([np.repeat(np.arange(len(items)), nt),
+                     (np.arange(nt.sum()) - first) * WIENER_TW],
+                    axis=1).astype(np.int32)
+
+
+def wiener_frame_tables(groups, sgrp):
+    """The Wiener item table of a frame: groups, per plane index, (its
+    Wiener items as _collect_items gives them, hmax, Hp (its rows)).
+    Returns (items (n, 20), rowt (n, max hmax + 6)) int32 numpy: the
+    columns of WIENER_COLS, colbase = ox - 3 in the unpadded plane, and
+    each plane's row tables (item_tables') padded to the widest by
+    their last entry."""
+    rw = max(hmax for _, hmax, _ in groups) + 6
+    items, rowts = [], []
+    for p, (sel, hmax, Hp) in enumerate(groups):
+        rowt, _, fhc, fvc, oy, ox, ohs, ows = item_tables(
+            "wiener", sel, sgrp, hmax, Hp)
+        items.append(np.column_stack([np.full(len(sel), p), ox - PAD, oy,
+                                      ox, ohs, ows, fhc, fvc]))
+        rowts.append(np.pad(rowt, ((0, 0), (0, rw - rowt.shape[1])),
+                            mode="edge"))
+    return (np.concatenate(items).astype(np.int32),
+            np.concatenate(rowts).astype(np.int32))
+
+
+def check_frame(planes, tables):
+    """Raise unless `tables` (wiener_frame_tables') fit `planes`
+    ([(src, pre, dst, w, hmax)]): int32 2-D arrays of WIENER_COLS
+    columns and one row table an item, at least hmax + 6 wide, every
+    item's plane index in the list, inside its plane's valid columns
+    and at most its hmax rows. Returns the widest item of each plane."""
+    items, rowt = tables
+    for name, a in (("items", items), ("rowt", rowt)):
+        if not isinstance(a, np.ndarray) or a.dtype != np.int32:
+            raise TypeError(f"{name}: expected an int32 numpy array")
+        if a.ndim != 2:
+            raise ValueError(f"{name} of shape {a.shape}")
+    if items.shape[1] != len(WIENER_COLS) or rowt.shape[0] != len(items):
+        raise ValueError(f"tables of shapes {items.shape}, {rowt.shape}")
+    pl, ox, ohs, ows = (items[:, WIENER_COLS.index(k)]
+                        for k in ("plane", "ox", "ohs", "ows"))
+    if len(items) and (pl.min() < 0 or pl.max() >= len(planes)):
+        raise ValueError(f"plane index {int(pl.max())} past the "
+                         f"{len(planes)} planes")
+    wmax = []
+    for p, (src, _, _, w, hmax) in enumerate(planes):
+        sel = pl == p
+        if not 0 < hmax <= 64 or rowt.shape[1] < hmax + 6 or \
+                (sel.any() and (ox[sel].min() < 0 or
+                                (ox + ows)[sel].max() > w or
+                                ohs[sel].max() > hmax)) or \
+                not 0 < w <= src.shape[1]:
+            raise ValueError(f"plane {p}: items outside its {w} columns "
+                             f"or {hmax} rows")
+        wmax.append(max(1, int(ows[sel].max())) if sel.any() else 1)
+    return wmax
+
+
+def wiener_frame_plain(planes, tables, bd):
+    """wiener_frame_cuda's contract in plain torch: per plane of
+    `planes` ([(src, pre, dst, w, hmax)]), its items of `tables`
+    (wiener_frame_tables') through plane_sources and
+    wiener_items_plain, into dst in place."""
+    items, rowt = tables
+    wmax = check_frame(planes, tables)
+    for p, (src, pre, dst, w, hmax) in enumerate(planes):
+        sel = items[:, 0] == p
+        if not sel.any():
+            continue
+        it = items[sel]
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            src.device)
+        curp, prep = plane_sources(src, pre, w, wmax[p])
+        wiener_items_plain(curp, prep, dst, T(rowt[sel][:, :hmax + 6]),
+                           T(it[:, 1] + LR_BS), T(it[:, 6:13]),
+                           T(it[:, 13:20]), *(T(it[:, k]) for k in
+                                              range(2, 6)),
+                           hmax, wmax[p], bd)
+
+
+def wiener_frame_cuda(planes, tables, bd):
+    """The Wiener pass of a frame's planes in one launch of
+    csrc/lr_wiener.cu: planes [(src, pre, dst, w, hmax)], src and pre
+    the unpadded pre-LR and pre-CDEF planes (Hp, Ws), dst the restored
+    plane (src's shape; not src), w its valid columns; tables
+    (wiener_frame_tables' host arrays) checked on the host, then the
+    item, row and block tables cross in one upload. CUDA int32 planes
+    only. Launches on the current stream and does not synchronise."""
+    wmax = check_frame(planes, tables)
+    dev = planes[0][0].device
+    if dev.type != "cuda":
+        raise ValueError("wiener_frame_cuda needs CUDA tensors")
+    for p, (src, _, dst, _, _) in enumerate(planes):
+        if tuple(dst.shape) != tuple(src.shape):
+            raise ValueError(f"plane {p}: dst {tuple(dst.shape)} and src "
+                             f"{tuple(src.shape)}")
+    items, rowt, blocks = upload_tables(
+        [*tables, wiener_blocks(tables[0])], dev)
+    _wiener_launch([(s, q, d, w, m) for (s, q, d, w, _), m
+                    in zip(planes, wmax)], items, rowt, blocks, bd)
+
+
+def wiener_frame(planes, tables, bd):
+    """The Wiener pass of a frame (wiener_frame_cuda's contract): one
+    launch of the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if planes[0][0].is_cuda:
+        return wiener_frame_cuda(planes, tables, bd)
+    from .mc import _cpu_only
+    _cpu_only(planes[0][0])
+    return wiener_frame_plain(planes, tables, bd)
 
 
 def sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
@@ -246,10 +429,15 @@ def sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
     own copy of dav1d_sgr_x_by_x); CUDA int32 tensors only, the items'
     outputs inside dst. Launches on the current stream and does not
     synchronise."""
-    return _launch("lr_sgr", src, pre, dst, rowt,
-                   {"colbase": colbase, "s0": s0, "s1": s1, "w0": w0,
-                    "w1": w1, "oy": oy, "ox": ox, "ohs": ohs, "ows": ows},
-                   hmax, wmax, bd)
+    vecs = [colbase, s0, s1, w0, w1, oy, ox, ohs, ows]
+    n = _check_items("lr_sgr", src, pre, dst, rowt, dict(zip(
+        ("colbase", "s0", "s1", "w0", "w1", "oy", "ox", "ohs", "ows"),
+        vecs)), hmax, wmax, bd)
+    _call("lr_sgr", [src.data_ptr(), pre.data_ptr(), dst.data_ptr(),
+                     rowt.data_ptr(), *(v.data_ptr() for v in vecs)],
+          [src.shape[0], src.shape[1], dst.shape[1], n, hmax, wmax, bd],
+          src.device)
+    return dst
 
 
 def wiener_items(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
@@ -456,25 +644,32 @@ def plane_items(plan):
 def lr_planes_device(planes, pre_cdef, plan, bd):
     """Loop restoration over int32 plane tensors. planes: full padded
     post-CDEF planes; pre_cdef: the post-deblock (lpf) planes. The
-    inputs stay as they are; returns the restored plane list."""
+    Wiener items of every plane go in one wiener_frame call that reads
+    the planes themselves; SGR runs per plane on edge-padded sources.
+    The inputs stay as they are; returns the restored plane list."""
     from .device import device_tables
     sgrp = _sgr_params_tbl()
     out = list(planes)
     dev = planes[0].device
-    for plane, w, hmax, wmax, kinds in plane_items(plan):
+    groups = plane_items(plan)
+    for plane, *_ in groups:
+        out[plane] = planes[plane].clone()
+    wiener = [(plane, w, hmax, kinds["wiener"])
+              for plane, w, hmax, _, kinds in groups if kinds["wiener"]]
+    if wiener:
+        wiener_frame(
+            [(planes[p], pre_cdef[p][:planes[p].shape[0]], out[p], w, hmax)
+             for p, w, hmax, _ in wiener],
+            wiener_frame_tables([(sel, hmax, planes[p].shape[0])
+                                 for p, _, hmax, sel in wiener], sgrp), bd)
+    for plane, w, hmax, wmax, kinds in groups:
+        sel = kinds["sgr"]
+        if not sel:
+            continue
         cur = planes[plane]
         Hp = cur.shape[0]
-        res = cur.clone()
         curp, prep = plane_sources(cur, pre_cdef[plane][:Hp], w, wmax)
-        for kind, sel in kinds.items():
-            if not sel:
-                continue
-            views = upload_tables(item_tables(kind, sel, sgrp, hmax, Hp),
-                                  dev)
-            if kind == "wiener":
-                wiener_items(curp, prep, res, *views, hmax, wmax, bd)
-            else:
-                sgr_items(curp, prep, res, *views, hmax, wmax, bd,
-                          device_tables(dev)["sgr_x_by_x"])
-        out[plane] = res
+        views = upload_tables(item_tables("sgr", sel, sgrp, hmax, Hp), dev)
+        sgr_items(curp, prep, out[plane], *views, hmax, wmax, bd,
+                  device_tables(dev)["sgr_x_by_x"])
     return out

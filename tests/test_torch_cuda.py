@@ -10,7 +10,10 @@ into 32-wide tiles; the warp and OBMC kernels on their seeded cases
 (every plane in one launch, 4:2:0, 4:2:2 and 4:4:4, bd 8/10/12,
 extreme shears, every lap geometry, laps cut at the plane edges, top
 before left); the CDEF, Wiener and SGR kernels on their seeded cases
-(bd 8/10/12, every layout, every unit size and stripe height). Marked
+(bd 8/10/12, every layout, every unit size and stripe height; CDEF
+also on tiles wholly outside the crop and on exact direction-cost
+ties; Wiener also in one launch over the items of every plane of a
+frame). Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -400,15 +403,19 @@ def test_warp_obmc_wrapper_checks(cuda):
 @pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("layout", [0, 1, 2, 3],
                          ids=["400", "420", "422", "444"])
-@pytest.mark.parametrize("geo", [0, 1], ids=["70x50", "196x130"])
+@pytest.mark.parametrize("geo", [0, 1, 2, "tie"],
+                         ids=["70x50", "196x130", "100x60-copy", "ties"])
 def test_cdef_kernel_vs_plain(cuda, bd, layout, geo):
     # every plane in one launch: block kinds at the direction search's
     # extremes, every strength, blocks off, the crop ending inside the
-    # tiles and the padded planes (copied through outside it)
+    # tiles and the padded planes (copied through outside it), whole
+    # tiles outside the crop, exact cost ties between directions
     from dav1d_tpu_torch.ops import cdef
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops.device import device_tables
-    args = kc.cdef_args(kc.cdef_case_at(bd, layout, geo), cuda)
+    case = kc.cdef_tie_case(bd, layout) if geo == "tie" else \
+        kc.cdef_case_at(bd, layout, geo)
+    args = kc.cdef_args(case, cuda)
     before = cdef.LAUNCHES["cdef"]
     got = cdef.cdef_cuda(*args)
     assert cdef.LAUNCHES["cdef"] == before + 1
@@ -450,6 +457,55 @@ def test_lr_kernel_vs_plain(cuda, bd, kind, us_log2, hmax):
     assert torch.equal(args[2], want)
 
 
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3],
+                         ids=["400", "420", "422", "444"])
+def test_wiener_frame_kernel_vs_plain(cuda, bd, layout):
+    # every plane's Wiener items in exactly one launch, reading the
+    # unpadded planes: planes of different shapes, every edge flag at
+    # both plane edges, items of two column tiles
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import lr
+    planes, tables, bd = kc.wiener_frame_args(
+        kc.wiener_frame_case(bd, layout), cuda)
+    want = [p[2].clone() for p in planes]
+    lr.wiener_frame_plain([(s, q, d, w, h) for (s, q, _, w, h), d
+                           in zip(planes, want)], tables, bd)
+    before = lr.LAUNCHES["lr_wiener"]
+    lr.wiener_frame(planes, tables, bd)
+    assert lr.LAUNCHES["lr_wiener"] == before + 1
+    torch.cuda.synchronize()
+    for (src, _, got, _, _), w in zip(planes, want):
+        assert not torch.equal(w, src)
+        assert torch.equal(got, w)
+
+
+def test_wiener_frame_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import lr
+    planes, (items, rowt), bd = kc.wiener_frame_args(
+        kc.wiener_frame_case(8, 1), cuda)
+    before = lr.LAUNCHES["lr_wiener"]
+    with pytest.raises(TypeError):          # a plane of the wrong dtype
+        lr.wiener_frame_cuda([(planes[0][0].long(), *planes[0][1:])] +
+                             planes[1:], (items, rowt), bd)
+    with pytest.raises(TypeError):          # a table of the wrong dtype
+        lr.wiener_frame_cuda(planes, (items.astype(np.int64), rowt), bd)
+    with pytest.raises(ValueError):         # a CPU tensor
+        lr.wiener_frame_cuda([tuple(t.cpu() if isinstance(t, torch.Tensor)
+                                    else t for t in p) for p in planes],
+                             (items, rowt), bd)
+    with pytest.raises(ValueError):         # a table of the wrong width
+        lr.wiener_frame_cuda(planes, (items[:, :-1].copy(), rowt), bd)
+    with pytest.raises(ValueError):         # row tables too narrow
+        lr.wiener_frame_cuda(planes, (items, rowt[:, :-1].copy()), bd)
+    with pytest.raises(ValueError):         # a plane index past the list
+        lr.wiener_frame_cuda(planes[:2], (items, rowt), bd)
+    with pytest.raises(ValueError):         # bit depth
+        lr.wiener_frame_cuda(planes, (items, rowt), 9)
+    assert lr.LAUNCHES["lr_wiener"] == before
+
+
 def test_filter_wrapper_checks(cuda):
     from dav1d_tpu_torch.ops import cdef, lr
     from dav1d_tpu_torch.ops import kernel_cases as kc
@@ -467,6 +523,9 @@ def test_filter_wrapper_checks(cuda):
         cdef.cdef_cuda(planes[:2], maps, Hy, Wy, layout, bd, damping)
     with pytest.raises(ValueError):
         cdef.cdef_cuda(planes, maps, Hy + 4, Wy, layout, bd, damping)
+    with pytest.raises(ValueError):         # rows not 16-byte vectors
+        cdef.cdef_cuda([p[:, 2:].contiguous() for p in planes], maps, Hy,
+                       Wy, layout, bd, damping)
     args = kc.lr_args(kc.lr_case_at(8, "wiener", 5, 64), cuda)
     with pytest.raises(TypeError):
         lr.wiener_cuda(*args[:3], args[3].long(), *args[4:])

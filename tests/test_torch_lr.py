@@ -3,8 +3,9 @@ the CPU) against dav1d_tpu's (XLA on the CPU) on the CDEF output and
 pre-CDEF planes of small decoded intra streams, Wiener and SGR units
 both (4:2:0 at 8/10/12 bit, 4:2:2, 4:4:4, monochrome); the plain
 Wiener and SGR against dav1d_tpu's _wiener_fn / _sgr_fn on the CUDA
-kernels' seeded cases; the kernels' column tiling, in plain torch.
-Tolerance 0: bit-exact."""
+kernels' seeded cases; the kernels' column tiling, and the one-launch
+Wiener's reads of the unpadded planes (columns clamped), in plain
+torch. Tolerance 0: bit-exact."""
 import numpy as np
 import pytest
 import torch
@@ -17,7 +18,7 @@ from dav1d_tpu_torch.ops import lr
 from dav1d_tpu_torch.ops.device import device_tables
 from dav1d_tpu_torch.ops.lr import lr_planes_device
 
-from torch_port_cases import STREAMS, frame_planes
+from torch_port_cases import STREAMS, frame_planes, wiener_frame_tiled_plain
 
 torch.set_num_threads(2)
 
@@ -159,3 +160,89 @@ def test_lr_on_cpu_launches_no_kernel():
     assert lr.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         lr.wiener_cuda(*args)
+
+
+def _frame_paths(planes, tables, bd):
+    """(the padded per-plane path, the kernel's addressing): each
+    plane's destination after wiener_frame_plain and after
+    wiener_frame_tiled_plain, from fresh copies."""
+    out = []
+    for run in (lr.wiener_frame_plain, wiener_frame_tiled_plain):
+        dsts = [p[2].clone() for p in planes]
+        run([(s, q, d, w, h) for (s, q, _, w, h), d in zip(planes, dsts)],
+            tables, bd)
+        out.append(dsts)
+    return out
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_wiener_frame_reads_equal_the_padded_path(bd):
+    """csrc/lr_wiener.cu's frame launch reads the unpadded planes with
+    each column clamped to the plane's valid width, one block per item
+    and 64-column tile (wiener_frame_tiled_plain): equal to
+    wiener_frame_plain, the padded per-plane path built from
+    plane_sources and wiener_items_plain, on every Wiener case of
+    lr_cases (one plane each) and on the frame cases (planes of every
+    layout's shapes, junk beyond each plane's valid columns)."""
+    cases = [kc.lr_frame_case(c) for c in kc.lr_cases((bd,))
+             if c["kind"] == "wiener"]
+    cases += [kc.wiener_frame_case(bd, layout) for layout in kc.CDEF_LAYOUTS]
+    for case in cases:
+        planes, tables, bd = kc.wiener_frame_args(case, "cpu")
+        want, got = _frame_paths(planes, tables, bd)
+        for (src, *_), g, w in zip(planes, got, want):
+            assert torch.equal(g, w)
+            assert not torch.equal(w, src)
+
+
+def test_wiener_frame_case_covers_both_plane_edges():
+    """The frame cases' Wiener items meet every edge-flag combination at
+    ox = 0 and at ox + ows = w of each plane, some span two 64-column
+    tiles, the chroma planes have no SGR item and the luma plane has."""
+    case = kc.wiener_frame_case(8, 2)
+    for p, pl in enumerate(case["planes"]):
+        wiener = [it for it in pl["items"] if it[5]["type"] == 2]
+        for edge in (lambda it: it[1] == 0,
+                     lambda it: it[1] + it[2] == pl["w"]):
+            assert {it[4] for it in wiener if edge(it)} == set(range(16))
+        assert any(it[2] > 64 for it in wiener) == (p == 0)
+        assert any(it[5]["type"] != 2 for it in pl["items"]) == (p == 0)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_wiener_frame_reads_equal_the_padded_path_on_streams(name):
+    """The same on the Wiener items of every plane of the streams'
+    frames, as lr_planes_device groups them (plane_items,
+    wiener_frame_tables) over the port's CDEF output."""
+    from dav1d_tpu_torch.ops.cdef import cdef_planes_device
+    from dav1d_tpu_torch.ops.restore_ref import _sgr_params_tbl
+    n = 0
+    for _pj, pt, bd, _planes, dbk in frame_planes(name):
+        pre = [torch.from_numpy(p.copy()) for p in dbk]
+        cur = cdef_planes_device(pre, pt, bd)
+        groups = [(p, w, hmax, k["wiener"])
+                  for p, w, hmax, _, k in lr.plane_items(pt) if k["wiener"]]
+        if not groups:
+            continue
+        planes = [(cur[p], pre[p][:cur[p].shape[0]], cur[p].clone(), w, h)
+                  for p, w, h, _ in groups]
+        tables = lr.wiener_frame_tables(
+            [(sel, h, cur[p].shape[0]) for p, _, h, sel in groups],
+            _sgr_params_tbl())
+        want, got = _frame_paths(planes, tables, bd)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        n += len(tables[0])
+    assert n
+
+
+def test_wiener_frame_on_cpu_launches_no_kernel():
+    planes, tables, bd = kc.wiener_frame_args(kc.wiener_frame_case(8, 1),
+                                              "cpu")
+    before = dict(lr.LAUNCHES)
+    lr.wiener_frame(planes, tables, bd)
+    assert lr.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        lr.wiener_frame_cuda(planes, tables, bd)
+    with pytest.raises(ValueError, match="past"):
+        lr.wiener_frame(planes[:1], tables, bd)

@@ -149,3 +149,32 @@ def cdef_tiled_plain(planes, maps, Hy, Wy, layout, bd, damping, proj,
                                          grid[3], bd)
                 out[p][y0:y0 + th, x0:x0 + tw] = got[bv:bv + th, bh:bh + tw]
     return out
+
+
+def wiener_frame_tiled_plain(planes, tables, bd, tw=64):
+    """csrc/lr_wiener.cu's addressing of a frame's Wiener pass, in plain
+    torch: per block (item, first output column c0) of lr.wiener_blocks,
+    the window's rows from the item's row table (a row r >= Hp from row
+    r - Hp of pre) and its columns clamp(colbase + c0 + c, 0, w - 1) of
+    the unpadded planes, the item's taps over tw output columns
+    (lr._wiener_math), written under the item's rows and the tile's
+    columns into each plane's dst in place. planes and tables as
+    lr.wiener_frame takes them."""
+    import torch
+    from dav1d_tpu_torch.ops import lr
+    items, rowt = tables
+    blocks = lr.wiener_blocks(items)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    for p, (src, pre, dst, w, _hmax) in enumerate(planes):
+        blk = blocks[items[blocks[:, 0], 0] == p]
+        if not len(blk):
+            continue
+        it, c0 = items[blk[:, 0]].astype(np.int64), blk[:, 1]
+        cols = np.clip(it[:, 1, None] + c0[:, None] +
+                       np.arange(tw + 6)[None, :], 0, w - 1)
+        S = torch.cat([src, pre])[T(rowt[blk[:, 0]])[:, :, None],
+                                  T(cols)[:, None, :]]
+        vals = lr._wiener_math(S, T(it[:, 6:13]).int(), T(it[:, 13:20]).int(),
+                               rowt.shape[1] - 6, tw, bd)
+        lr._write_back(dst, vals, T(it[:, 2]), T(it[:, 3] + c0), T(it[:, 4]),
+                       T(np.minimum(tw, it[:, 5] - c0)))

@@ -1,9 +1,10 @@
-"""Run chip_smoke.py's build and kernel_real phases (the inter kernels'
-device time on the s7 stream's frame-2 tables) of the checkout at
-argv[1], or of this one, on one GPU, then time the deblock of one
-synthetic 1080p 4:2:0 frame through that checkout's ops/lf.py with this
-checkout's measuring code (chip_smoke.deblock_frame_times: all device
-work, kernels alone, wrapper and plain); prints their JSON lines.
+"""Run chip_smoke.py's build and kernel_real phases (every kernel's
+device time on the tables and planes of frame 2 of the s7 stream, then
+of the s31 stream) of the checkout at argv[1], or of this one, on one
+GPU, then time the deblock of one synthetic 1080p 4:2:0 frame through
+that checkout's ops/lf.py with this checkout's measuring code
+(chip_smoke.deblock_frame_times: all device work, kernels alone,
+wrapper and plain); prints their JSON lines.
 
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run them in turns in one call:
@@ -29,6 +30,8 @@ if not torch.cuda.is_available():
 card = cs.smi()
 cs.phase_build()
 cs.phase_kernel_real(torch, card)
+cs.phase_kernel_real(torch, card, cs.STREAM_1080P, cs.MD5S_S31,
+                     cs.KERNELS[1:])
 
 # the checkout's package is imported by now; this checkout's chip_smoke
 # is loaded under another name for its measuring code only
