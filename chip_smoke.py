@@ -41,20 +41,22 @@ exits nonzero and prints no "ok" line:
                 4:4:4, every plane in one launch; warps with random and
                 extreme shears (filter rows 0 and 192), windows across
                 every frame edge; every lap geometry the emitter writes
-                with every filter type, top then left laps on the same
-                blocks, laps cut at the plane's right and bottom edges
+                with every filter type, top and left laps on the same
+                blocks in one launch (top before left), laps cut at the
+                plane's right and bottom edges, lap counts that are not
+                multiples of a block's 3 laps
 7. kernel_filters - the CDEF, Wiener and SGR kernels against their
                 plain versions (torch.equal) on every case of
                 ops/kernel_cases.py cdef_cases, lr_cases and
-                wiener_frame_cases: bd 8/10/12, monochrome, 4:2:0, 4:2:2
+                frame_cases: bd 8/10/12, monochrome, 4:2:0, 4:2:2
                 and 4:4:4, direction-search extremes and exact cost ties,
                 every strength, crops that end inside the padded planes,
                 tiles wholly outside the crop; every unit size and stripe
                 height, the 16 edge-flag combinations, Wiener taps at
                 their limits, every SGR parameter row, SGR's int32
-                overflows at 12 bit; the one-launch Wiener of a frame's
-                planes of different shapes, every edge flag at both plane
-                edges
+                overflows at 12 bit; the one-launch Wiener and SGR of a
+                frame's planes of different shapes, every edge flag at
+                both plane edges
 8. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s31 stream, decoded on cuda with every launch of the
                 inter frame checked against the plain version on the
@@ -81,7 +83,10 @@ exits nonzero and prints no "ok" line:
                 share and per-kernel device ms of one profiled decode,
                 and from one more, synchronous (n_threads=1), the device
                 ms of the work each stage launched (CDEF, Wiener and SGR
-                among them) beside their bounds per picture
+                among them; credited through the runtime calls the host
+                made inside the stage, and the count of stages in which
+                a kernel launched but nothing was credited) beside their
+                bounds per picture
 12. inter_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
 13. inter_main - the main path: all 8 frames of the primary bench stream
@@ -338,14 +343,20 @@ def deblock_frame_times(torch, fn, plain):
     """Times of deblocking one frame's planes on the card: fn(), the
     wrapper (CUDA events, ms), all device work it launches and the
     deblock kernels alone (torch.profiler, us), and plain(), the plain
-    version (ms)."""
-    all_us, kern_us = _device_window_us(torch, fn)
-    if not kern_us:
-        raise RuntimeError("torch.profiler reported no device time for "
-                           "the deblock kernel")
+    version (ms). A trace without the kernel is taken again, up to 3
+    times; after that the device times are CUDA events' (`timer`): an
+    upper bound, as they also span the wrapper's host work."""
+    timer = "profiler"
+    for _attempt in range(3):
+        all_us, kern_us = _device_window_us(torch, fn)
+        if kern_us:
+            break
+    else:
+        timer = "events"
+        all_us = kern_us = 1e3 * _time_ms(torch, fn)
     return {"wrapper_ms": _time_ms(torch, fn),
             "device_all_us": all_us, "kernel_device_us": kern_us,
-            "plain_ms": _time_ms(torch, plain, iters=3)}
+            "plain_ms": _time_ms(torch, plain, iters=3), "timer": timer}
 
 
 def phase_kernel(torch, card):
@@ -599,17 +610,21 @@ def phase_kernel_warp_obmc(torch, card):
                 torch, g[1], w[1], f"mc_warp bd={bd} ss={ss} plane {pi}"))
         n_warp += len(jobs)
         case = kc.obmc_case(bd, seed, *ss)
-        got, want = (kc.case_planes(case, dev) for _ in range(2))
-        for top, key in ((1, "top"), (0, "left")):
-            jobs = _t(torch, case[key], dev)
-            mc_obmc.obmc_cuda(got, jobs, bd, top)
-            mc_obmc.obmc_planes_plain(want, jobs, bd, tb["mc_filter_banks"],
-                                      tb["mc_obmc_masks"], top)
-            n_lap += len(jobs)
-        torch.cuda.synchronize()
-        for pi, (g, w) in enumerate(zip(got, want)):
-            errs["mc_obmc"] = max(errs["mc_obmc"], _check_equal(
-                torch, g[1], w[1], f"mc_obmc bd={bd} ss={ss} plane {pi}"))
+        # the whole tables, then counts that are not multiples of 3
+        for cut in ((None, None), (-1, -2)):
+            got, want = (kc.case_planes(case, dev) for _ in range(2))
+            top, left = (_t(torch, case[k][:c], dev)
+                         for k, c in zip(("top", "left"), cut))
+            mc_obmc.obmc_cuda(got, top, left, bd)
+            mc_obmc.obmc_frame_plain(want, top, left, bd,
+                                     tb["mc_filter_banks"],
+                                     tb["mc_obmc_masks"])
+            n_lap += len(top) + len(left)
+            torch.cuda.synchronize()
+            for pi, (g, w) in enumerate(zip(got, want)):
+                errs["mc_obmc"] = max(errs["mc_obmc"], _check_equal(
+                    torch, g[1], w[1], f"mc_obmc bd={bd} ss={ss} cut={cut} "
+                    f"plane {pi}"))
     emit({"phase": "kernel_warp_obmc", "card": card, "warp_tiles": n_warp,
           "obmc_laps": n_lap, "max_abs_err": errs, "equal": True})
     return errs
@@ -617,61 +632,47 @@ def phase_kernel_warp_obmc(torch, card):
 
 def _filter_plain(torch, name, args):
     """The plain version of a CDEF / Wiener / SGR launch on `args` (the
-    kernel wrapper's arguments; lr_wiener_frame: wiener_frame's): CDEF
-    returns new planes, Wiener and SGR a fresh copy of their destination
-    (a frame's Wiener call a list of them), filtered."""
+    kernel wrapper's arguments; lr_wiener / lr_sgr: wiener_frame's /
+    sgr_frame's): CDEF returns new planes, Wiener and SGR fresh copies
+    of their destinations, filtered."""
     from dav1d_tpu_torch.ops import cdef, lr
     from dav1d_tpu_torch.ops.device import device_tables
-    if name == "lr_wiener_frame":
-        planes, tables, bd = args
-        dsts = [p[2].clone() for p in planes]
-        lr.wiener_frame_plain([(s, q, d, w, h) for (s, q, _, w, h), d
-                               in zip(planes, dsts)], tables, bd)
-        return dsts
-    tb = device_tables(args[0].device if name != "cdef" else
-                       args[0][0].device)
     if name == "cdef":
-        return cdef.cdef_planes_plain(*args, tb["cdef_proj"])
-    dst = args[2].clone()
-    if name == "lr_wiener":
-        lr.wiener_items_plain(*args[:2], dst, *args[3:])
-    else:
-        lr.sgr_items_plain(*args[:2], dst, *args[3:], tb["sgr_x_by_x"])
-    return dst
+        return cdef.cdef_planes_plain(
+            *args, device_tables(args[0][0].device)["cdef_proj"])
+    planes, tables, bd = args
+    dsts = [p[2].clone() for p in planes]
+    (lr.wiener_frame_plain if name == "lr_wiener" else lr.sgr_frame_plain)(
+        [(s, q, d, w, h) for (s, q, _, w, h), d in zip(planes, dsts)],
+        tables, bd)
+    return dsts
 
 
 def _filter_cuda(name, args, dst=None):
     """The kernel launch of a CDEF / Wiener / SGR call on `args`; Wiener
-    and SGR write into dst (args' own destination by default; a list of
-    them for a frame's Wiener call, lr_wiener_frame)."""
+    and SGR write into dst (a list, a destination a plane; the args' own
+    destinations by default)."""
     from dav1d_tpu_torch.ops import cdef, lr
     if name == "cdef":
         return cdef.cdef_cuda(*args)
-    if name == "lr_wiener_frame":
-        planes, tables, bd = args
-        dsts = [p[2] for p in planes] if dst is None else dst
-        lr.wiener_frame_cuda([(s, q, d, w, h) for (s, q, _, w, h), d
-                              in zip(planes, dsts)], tables, bd)
-        return dsts
-    a = list(args)
-    if dst is not None:
-        a[2] = dst
-    return (lr.wiener_cuda if name == "lr_wiener" else lr.sgr_cuda)(*a)
+    planes, tables, bd = args
+    dsts = [p[2] for p in planes] if dst is None else dst
+    (lr.wiener_frame_cuda if name == "lr_wiener" else lr.sgr_frame_cuda)(
+        [(s, q, d, w, h) for (s, q, _, w, h), d in zip(planes, dsts)],
+        tables, bd)
+    return dsts
 
 
 def _filter_check(torch, name, args, what):
-    """Launch the kernel on args (Wiener / SGR into a copy of their
-    destination) and hold it torch.equal to the plain version; returns
+    """Launch the kernel on args (Wiener / SGR into copies of their
+    destinations) and hold it torch.equal to the plain version; returns
     the max abs error (0)."""
     want = _filter_plain(torch, name, args)
     got = _filter_cuda(name, args, None if name == "cdef" else
-                       [p[2].clone() for p in args[0]]
-                       if name == "lr_wiener_frame" else args[2].clone())
+                       [p[2].clone() for p in args[0]])
     torch.cuda.synchronize()
-    if name in ("cdef", "lr_wiener_frame"):
-        return max(_check_equal(torch, g, w, f"{what} plane {i}")
-                   for i, (g, w) in enumerate(zip(got, want)))
-    return _check_equal(torch, got, want, what)
+    return max(_check_equal(torch, g, w, f"{what} plane {i}")
+               for i, (g, w) in enumerate(zip(got, want)))
 
 
 def phase_kernel_filters(torch, card):
@@ -690,22 +691,29 @@ def phase_kernel_filters(torch, card):
     for case in kc.lr_cases():
         name = "lr_" + case["kind"]
         errs[name] = max(errs[name], _filter_check(
-            torch, name, kc.lr_args(case, dev),
+            torch, name, kc.frame_args(kc.lr_frame_case(case), dev,
+                                       case["kind"]),
             f"{name} bd={case['bd']} wmax={case['wmax']} "
             f"hmax={case['hmax']}"))
         n[name] += len(case["items"])
-    # the one-launch Wiener of a frame: planes of different shapes
-    n_frames = n_frame_items = 0
-    for case in kc.wiener_frame_cases():
-        args = kc.wiener_frame_args(case, dev)
-        errs["lr_wiener"] = max(errs["lr_wiener"], _filter_check(
-            torch, "lr_wiener_frame", args,
-            f"lr_wiener frame bd={case['bd']} layout={case['layout']}"))
-        n_frames += 1
-        n_frame_items += len(args[1][0])
+    # the one-launch Wiener and SGR of a frame: planes of different
+    # shapes
+    frames = {}
+    for kind in ("wiener", "sgr"):
+        name = "lr_" + kind
+        for case in kc.frame_cases(kind):
+            args = kc.frame_args(case, dev, kind)
+            errs[name] = max(errs[name], _filter_check(
+                torch, name, args,
+                f"{name} frame bd={case['bd']} layout={case['layout']}"))
+            f = frames.setdefault(kind, [0, 0])
+            f[0] += 1
+            f[1] += len(args[1][0])
     emit({"phase": "kernel_filters", "card": card, "cdef_frames": n["cdef"],
-          "wiener_items": n["lr_wiener"], "wiener_frames": n_frames,
-          "wiener_frame_items": n_frame_items, "sgr_items": n["lr_sgr"],
+          "wiener_items": n["lr_wiener"], "wiener_frames": frames["wiener"][0],
+          "wiener_frame_items": frames["wiener"][1],
+          "sgr_items": n["lr_sgr"], "sgr_frames": frames["sgr"][0],
+          "sgr_frame_items": frames["sgr"][1],
           "max_abs_err": errs, "equal": True})
     return errs
 
@@ -733,26 +741,22 @@ def _cdef_work(torch, planes, maps, Hy, Wy, layout, bd, damping):
 
 
 def _lr_work(name, args):
-    """(bytes, ops) of a frame's Wiener call (lr_wiener: wiener_frame's
-    arguments) or a plane's SGR call (lr_sgr: sgr_items'): each restored
-    pixel read and written once as int32 and its tables read once (as
-    _stage_device counts them), and WIENER_OPS_PER_PX / SGR_OPS_PER_PX
-    per restored pixel. Wiener's tables count as one plane's call per
-    plane had them, whatever the kernel's grouping: per item its row
-    table of the plane's hmax + 6 entries, colbase, 14 taps and oy, ox,
-    ohs, ows, int32."""
+    """(bytes, ops) of a frame's Wiener or SGR call (lr_wiener /
+    lr_sgr: wiener_frame's / sgr_frame's arguments): each restored pixel
+    read and written once as int32 and its tables read once, and
+    WIENER_OPS_PER_PX / SGR_OPS_PER_PX per restored pixel. The tables
+    count as one plane's call per plane had them, whatever the kernel's
+    grouping: per item its row table of the plane's hmax + 6 entries,
+    colbase, oy, ox, ohs, ows and Wiener's 14 taps or SGR's s0, s1, w0,
+    w1, int32."""
     import numpy as np
-    import torch
+    planes, (items, _), _ = args
+    hmax = np.array([p[4] for p in planes], np.int64)[items[:, 0]]
+    px = int((items[:, 4].astype(np.int64) * items[:, 5]).sum())
     if name == "lr_wiener":
-        planes, (items, _), _ = args
-        hmax = np.array([p[4] for p in planes], np.int64)[items[:, 0]]
-        px = int((items[:, 4].astype(np.int64) * items[:, 5]).sum())
         return 8 * px + 4 * int((hmax + 6 + 19).sum()), \
             px * WIENER_OPS_PER_PX
-    px = int((args[11].long() * args[12].long()).sum())
-    tables = sum(t.numel() * t.element_size() for t in args[3:]
-                 if isinstance(t, torch.Tensor))
-    return 8 * px + tables, px * SGR_OPS_PER_PX
+    return 8 * px + 4 * int((hmax + 6 + 9).sum()), px * SGR_OPS_PER_PX
 
 
 def _warp_work(jobs, n_refs, ref_shape, rh, rw):
@@ -925,37 +929,41 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             "obmc_planes": mc_obmc.obmc_planes,
             "deblock_frame": lf.deblock_frame,
             "cdef_planes": cdef.cdef_planes,
-            "wiener_frame": lr.wiener_frame, "sgr_items": lr.sgr_items}
+            "wiener_frame": lr.wiener_frame, "sgr_frame": lr.sgr_frame}
     label = os.path.basename(stream)
 
-    def planes_plain(name, planes, jobs, bd, arg):
+    def planes_plain(name, planes, jobs, bd):
         """The plain version of a put / warp / OBMC launch over
-        `planes` (arg: the OBMC direction)."""
+        `planes` (OBMC's jobs: its (top, left) tables)."""
         if name == "mc_put":
             return mc.put_planes_plain(planes, jobs, bd,
                                        tb["mc_filter_banks"])
         if name == "mc_warp":
             return mc_warp.warp_planes_plain(planes, jobs, bd,
                                              tb["mc_warp_filter"])
-        return mc_obmc.obmc_planes_plain(planes, jobs, bd,
-                                         tb["mc_filter_banks"],
-                                         tb["mc_obmc_masks"], arg)
+        return mc_obmc.obmc_frame_plain(planes, *jobs, bd,
+                                        tb["mc_filter_banks"],
+                                        tb["mc_obmc_masks"])
 
     def planes_spy(name, run):
-        # a launch over a frame's planes: (planes, jobs, before, bd, arg,
-        # blocks); arg is the OBMC direction, blocks the put's table
-        def spy(planes, jobs, bd, *args, **kw):
+        # a launch over a frame's planes: (planes, jobs, before, bd,
+        # blocks); OBMC's jobs are its (top, left) tables, blocks the
+        # put's table
+        def spy(planes, jobs, *args, **kw):
             before = [p.clone() for _, p, _, _ in planes]
-            run(planes, jobs, bd, *args, **kw)
-            arg = args[0] if name == "mc_obmc" else None
+            run(planes, jobs, *args, **kw)
+            if name == "mc_obmc":
+                jobs, bd = (jobs, args[0]), args[1]
+            else:
+                bd = args[0]
             blocks = kw.get("blocks") if name == "mc_put" else None
             want = [(r, b.clone(), rh, rw)
                     for (r, _, rh, rw), b in zip(planes, before)]
-            planes_plain(name, want, jobs, bd, arg)
+            planes_plain(name, want, jobs, bd)
             for (_, p, _, _), (_, w, _, _) in zip(planes, want):
                 errs[name] = max(errs[name], _check_equal(
                     torch, p, w, f"{name} on {label} tables"))
-            calls[name].append((planes, jobs, before, bd, arg, blocks))
+            calls[name].append((planes, jobs, before, bd, blocks))
             return [p for _, p, _, _ in planes]
         return spy
 
@@ -1000,11 +1008,9 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         def spy(*a):
             if name == "cdef":
                 rec = a
-            elif name == "lr_wiener":
+            else:
                 rec = ([(s, q, d.clone(), w, h) for s, q, d, w, h in a[0]],
                        *a[1:])
-            else:       # SGR: the kernel holds its own x_by_x
-                rec = (*a[:2], a[2].clone(), *a[3:-1])
             filt.append((len(frames), name, rec))
             return run(*a)
         return spy
@@ -1016,7 +1022,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     lf.deblock_frame = deblock_frame
     cdef.cdef_planes = filter_spy("cdef", orig["cdef_planes"])
     lr.wiener_frame = filter_spy("lr_wiener", orig["wiener_frame"])
-    lr.sgr_items = filter_spy("lr_sgr", orig["sgr_items"])
+    lr.sgr_frame = filter_spy("lr_sgr", orig["sgr_frame"])
     try:
         _, digest, _, _, md5s = _decode(stream, timed=False, n_tu=2)
     finally:
@@ -1026,18 +1032,16 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         mc_obmc.obmc_planes = orig["obmc_planes"]
         lf.deblock_frame = orig["deblock_frame"]
         cdef.cdef_planes = orig["cdef_planes"]
-        lr.wiener_frame, lr.sgr_items = orig["wiener_frame"], \
-            orig["sgr_items"]
+        lr.wiener_frame, lr.sgr_frame = orig["wiener_frame"], \
+            orig["sgr_frame"]
     if md5s != md5s_want[:2]:
         raise AssertionError(f"kernel_real {label}: md5s {md5s}")
     # the inter frame's filter launches, each held to its plain version
     for f, name, rec in filt:
         if f == len(frames):
             calls[name].append(rec)
-            # the decoder's Wiener call is a frame's
-            kind = "lr_wiener_frame" if name == "lr_wiener" else name
             errs[name] = max(errs[name], _filter_check(
-                torch, kind, rec, f"{name} on {label} frame 1"))
+                torch, name, rec, f"{name} on {label} frame 1"))
     if not all(calls[k] for k in need):
         raise AssertionError(f"kernel_real {label}: a kernel had no "
                              f"launch: "
@@ -1053,25 +1057,19 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             # CDEF writes fresh planes; Wiener and SGR into their
             # destinations, given fresh copies of them
             for c in calls[name]:
-                if name == "lr_wiener":
-                    def fn(p, s, c=c, plain=plain):
-                        a = ([(*q[:2], d, *q[3:]) for q, d in zip(c[0], p)],
-                             *c[1:])
-                        return _filter_plain(torch, "lr_wiener_frame", a) \
-                            if plain else _filter_cuda("lr_wiener_frame", a)
-                    out.append(([p[2] for p in c[0]], None, fn))
-                elif name == "cdef":
+                if name == "cdef":
                     out.append((None, None, (
                         lambda p, s, c=c: _filter_plain(torch, "cdef", c))
                         if plain else (lambda p, s, c=c: _filter_cuda(
                             "cdef", c))))
-                elif plain:
-                    out.append((c[2], None, lambda p, s, c=c, name=name:
-                                _filter_plain(torch, name,
-                                              (*c[:2], p, *c[3:]))))
-                else:
-                    out.append((c[2], None, lambda p, s, c=c, name=name:
-                                _filter_cuda(name, c, p)))
+                    continue
+
+                def fn(p, s, c=c, plain=plain, name=name):
+                    a = ([(*q[:2], d, *q[3:]) for q, d in zip(c[0], p)],
+                         *c[1:])
+                    return _filter_plain(torch, name, a) if plain \
+                        else _filter_cuda(name, a)
+                out.append(([p[2] for p in c[0]], None, fn))
             return out
         for c in calls[name]:
             if largest and c[-1] is not None:
@@ -1082,12 +1080,12 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                     args = [(r, p, rh, rw)
                             for (r, _, rh, rw), p in zip(c[0], ps)]
                     if plain:
-                        return planes_plain(name, args, c[1], c[3], c[4])
+                        return planes_plain(name, args, c[1], c[3])
                     if name == "mc_put":
-                        return mc.put_planes_cuda(args, c[1], c[3], c[5])
+                        return mc.put_planes_cuda(args, c[1], c[3], c[4])
                     if name == "mc_warp":
                         return mc_warp.warp_cuda(args, c[1], c[3])
-                    return mc_obmc.obmc_cuda(args, c[1], c[3], c[4])
+                    return mc_obmc.obmc_cuda(args, *c[1], c[3])
                 out.append((c[2], None, fn))
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
@@ -1111,12 +1109,34 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                                              c[5]))))
         return out
 
+    def event_rounds(name, plain, reps, largest=False):
+        """`reps` rounds of the frame's launches on fresh copies, each
+        the CUDA-event ms of every launch (one call, synchronized)."""
+        rounds = []
+        for _ in range(reps):
+            row = []
+            for before, segb, fn in runners(name, plain, largest):
+                p, s = _fresh(before), _fresh(segb)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                fn(p, s)
+                b.record()
+                torch.cuda.synchronize()
+                row.append(a.elapsed_time(b))
+            rounds.append(row)
+        return rounds
+
     def device_us(name, largest=False):
         """(total, per launch) device us of one round of the frame's
         launches, from torch.profiler: median of the last `reps` of
         reps + 3 rounds (the trace may miss the first kernels: up to 2
-        seen). A trace that holds fewer is taken again, up to 3 times
-        (on the card a whole trace has come back empty)."""
+        seen). A trace that holds fewer is taken again, up to 3 times;
+        on the card whole traces have come back empty three times
+        running, and then each launch is timed by CUDA events instead
+        (median of `reps` rounds), noted in `timers`: an upper bound, as
+        the pair also spans the wrapper's host work and uploads."""
         n = len(calls[name])
         for _attempt in range(3):
             with profile(activities=[ProfilerActivity.CPU,
@@ -1132,8 +1152,11 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             if len(evs) >= reps * n:
                 break
         else:
-            raise RuntimeError(f"torch.profiler saw {len(evs)} {name} "
-                               f"kernels, expected {reps * n} or more")
+            timers[name] = f"events (profiler saw {len(evs)} kernels)"
+            rounds = event_rounds(name, False, reps, largest)
+            per = [1e3 * sorted(r[i] for r in rounds)[reps // 2]
+                   for i in range(n)]
+            return sum(per), per
         evs = evs[len(evs) - reps * n:]
         per = [sorted(evs[r * n + i].time_range.elapsed_us()
                       for r in range(reps))[reps // 2] for i in range(n)]
@@ -1155,25 +1178,13 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     def frame_ms(name, plain, reps):
         """Sum over the frame's launches of the CUDA-event time of one
         call on fresh copies; median of `reps` rounds."""
-        rounds = []
-        for _ in range(reps):
-            total = 0.0
-            for before, segb, fn in runners(name, plain):
-                p, s = _fresh(before), _fresh(segb)
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                a.record()
-                fn(p, s)
-                b.record()
-                torch.cuda.synchronize()
-                total += a.elapsed_time(b)
-            rounds.append(total)
-        return sorted(rounds)[reps // 2]
+        return sorted(sum(r) for r in event_rounds(name, plain,
+                                                   reps))[reps // 2]
 
     names = KERNEL_NAMES
     reps = 5
     res = {}
+    timers = {}
     for name in calls:
         frame_ms(name, False, 1)                          # warm-up
         dev_us, per_launch = device_us(name)
@@ -1185,19 +1196,24 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             extra = {"blocks_per_launch": [
                 -(-c[0][0].shape[0] // 64) * -(-c[0][0].shape[1] // 64)
                 for c in calls[name]]}
-        elif name == "lr_wiener":
+        elif name in ("lr_wiener", "lr_sgr"):
             # one block per item and tile of 64 output columns
             extra = {"blocks_per_launch": [
-                len(lr.wiener_blocks(c[1][0])) for c in calls[name]]}
-        elif name == "lr_sgr":
-            # one block per item and tile of 32 output columns
-            extra = {"blocks_per_launch": [
-                c[3].shape[0] * -(-c[-2] // 32) for c in calls[name]]}
-        elif name in ("mc_warp", "mc_obmc"):
-            # one kernel block per four tiles / per lap, no block table
-            extra = {"blocks_per_launch": [
-                -(-len(c[1]) // 4) if name == "mc_warp" else len(c[1])
-                for c in calls[name]]}
+                len(lr.item_blocks(c[1][0])) for c in calls[name]]}
+        elif name == "mc_warp":
+            # one kernel block per four tiles, no block table
+            extra = {"blocks_per_launch": [-(-len(c[1]) // 4)
+                                           for c in calls[name]]}
+        elif name == "mc_obmc":
+            # a warp per lap, 3 a block, as many blocks as the card holds
+            # at once (fewer for fewer laps), top laps then left laps
+            lib = mc_obmc._lib()
+            laps = [[0 if t is None else len(t) for t in c[1]]
+                    for c in calls[name]]
+            extra = {"laps_per_launch": laps,
+                     "blocks_per_sm": lib.mc_obmc_blocks_per_sm(),
+                     "blocks_per_launch": [lib.mc_obmc_grid(*n)
+                                           for n in laps]}
         else:
             extra = {"blocks_per_launch": [len(c[-1])
                                            for c in calls[name]],
@@ -1208,22 +1224,27 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                 b, o = _cdef_work(torch, *c)
             elif name in ("lr_wiener", "lr_sgr"):
                 b, o = _lr_work(name, c)
-            elif name in ("mc_put", "mc_warp", "mc_obmc"):
+            elif name in ("mc_put", "mc_warp"):
                 planes, jobs, before = c[:3]
                 j = jobs.cpu().numpy()
-                col = 1 if name == "mc_obmc" else 0
                 b = o = 0
                 for pi, (refs, _, rh, rw) in enumerate(planes):
-                    args = (j[j[:, col] == pi], len(refs),
-                            tuple(refs[0].shape), rh, rw)
-                    if name == "mc_put":
-                        bp, op = _put_work(*args)
-                    elif name == "mc_warp":
-                        bp, op = _warp_work(*args)
-                    else:
-                        bp, op = _obmc_work(*args, c[4],
-                                            tuple(before[pi].shape))
+                    bp, op = (_put_work if name == "mc_put" else _warp_work)(
+                        j[j[:, 0] == pi], len(refs), tuple(refs[0].shape),
+                        rh, rw)
                     b, o = b + bp, o + op
+            elif name == "mc_obmc":
+                planes, jobs, before = c[:3]
+                b = o = 0
+                for top, t in zip((1, 0), jobs):
+                    if t is None:
+                        continue
+                    j = t.cpu().numpy()
+                    for pi, (refs, _, rh, rw) in enumerate(planes):
+                        bp, op = _obmc_work(j[j[:, 1] == pi], len(refs),
+                                            tuple(refs[0].shape), rh, rw, top,
+                                            tuple(before[pi].shape))
+                        b, o = b + bp, o + op
             elif name == "mc_comp":
                 refs, jobs, before, segb, rh, rw, bd, luma, sh, sv, _ = c
                 b, o = _comp_work(jobs.cpu().numpy(), len(refs),
@@ -1236,11 +1257,13 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         bound_ms, bound_by = _bound(bytes_, ops)
         res[name] = {
             "launches_per_frame": len(calls[name]),
-            # filters: 8x8 luma blocks (CDEF), items (Wiener, SGR)
+            # filters: 8x8 luma blocks (CDEF), items (Wiener, SGR); OBMC
+            # laps of both directions
             "jobs_per_frame": int(sum(
                 c[1].shape[1] * c[1].shape[2] if name == "cdef" else
-                len(c[1][0]) if name == "lr_wiener" else
-                c[3].shape[0] if name in FILTER_KERNELS else len(c[1])
+                len(c[1][0]) if name in FILTER_KERNELS else
+                sum(len(t) for t in c[1] if t is not None)
+                if name == "mc_obmc" else len(c[1])
                 for c in calls[name])),
             "max_abs_err": errs[name],
             "ms": dev_us / 1e3, "launch_us": per_launch, **extra,
@@ -1270,7 +1293,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     emit({"phase": "kernel_real", "card": card, "stream": stream,
           "temporal_unit": 1, "md5s": md5s, "equal": True,
           "one_element_fill_us": floor_us(), "kernels": res,
-          "deblock": deblock_real,
+          "device_timers": timers or "profiler", "deblock": deblock_real,
           "library_ms": "null: no single PyTorch call computes a "
           "clamped-window 8-tap put, an affine-warped 8x8 tile, a masked "
           "compound, an OBMC lap blend, an integer AV1 inverse "
@@ -1337,47 +1360,89 @@ def _profiled(torch, path, **kw):
     return digest, busy_us / 1e3, wall, per
 
 
+# the CPU events of the CUDA API calls that start device work
+RUNTIME_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def _credit(ranges, runtime, device):
+    """Device ms credited to each range: ranges [(label, start, end)] on
+    the host clock, runtime {correlation id: host start} of the runtime
+    calls, device [(correlation id, start, end)] of the device activity.
+    An activity whose id a runtime call has is credited to every range
+    whose window holds that call's start (host clock against host
+    clock); one that no runtime call in the trace owns, to every range
+    whose window holds its own (start, end) (device clock against host
+    clock, as before correlation). Returns ([ms per range], {"correlated":
+    n, "by_window": n}) with the activities counted by how they were
+    credited."""
+    import bisect
+    order = sorted(range(len(ranges)), key=lambda i: ranges[i][1])
+    starts = [ranges[i][1] for i in order]
+    ms = [0.0] * len(ranges)
+    how = {"correlated": 0, "by_window": 0}
+    for cid, a, b in device:
+        t = runtime.get(cid)
+        key = "correlated" if t is not None else "by_window"
+        how[key] += 1
+        for k in order[:bisect.bisect_right(starts, a if t is None else t)]:
+            _, r0, r1 = ranges[k]
+            if (t is not None and t <= r1) or (t is None and b <= r1):
+                ms[k] += (b - a) / 1e3
+    return ms, how
+
+
 def _stage_device(torch, path, **kw):
     """One more profiled decode, synchronous (Settings(n_threads=1):
     every stage on the calling thread, where the profiler sees its
     ranges): the device ms of the work each stage (utils.timing phase)
     and each LR filter (lr.wiener, lr.sgr) launched, from
     record_function ranges set up around them here and taken away
-    after, each ending in a device synchronize: the device activity
-    (kernels, copies, memsets) that runs inside a range's window is its
-    work (the ranges' own device_time_total misses the kernels that
-    ctypes launches, which no aten op owns); the bytes each LR filter must move (the pixels it restores,
-    int32, read and written once, and its unit tables: every tensor
-    argument but the source, pre-filter and destination planes); and
-    the decode's md5."""
+    after, each ending in a device synchronize. A range's work is the
+    device activity (kernels, copies, memsets) of the runtime calls the
+    host made inside the range (_credit: by correlation id; the ranges'
+    own device_time_total misses the kernels that ctypes launches, which
+    no aten op owns). Returns the decode's md5; the device ms per label;
+    the bytes each LR filter must move (the pixels it restores, int32,
+    read and written once, and its unit tables, as _lr_work counts
+    them); and per label the ranges in which a kernel of the port
+    launched (its launch count moved) but no device time was credited,
+    beside how the device activity was credited."""
     from contextlib import contextmanager
     from torch.profiler import ProfilerActivity, profile, record_function
     from dav1d_tpu_torch.ops import lr
     from dav1d_tpu_torch.utils import timing
     orig = {"phase": timing.phase, "wiener": lr.wiener_frame,
-            "sgr": lr.sgr_items}
+            "sgr": lr.sgr_frame}
     labels = set()
     lr_bytes = {"lr.wiener": 0, "lr.sgr": 0}
+    launched = {}       # label: launches inside each of its ranges
+
+    def total():
+        return sum(_counts().values())
 
     @contextmanager
     def phase(label):
         labels.add(label)
+        n0 = total()
         with record_function(label), orig["phase"](label):
             yield
             torch.cuda.synchronize()
+        launched.setdefault(label, []).append(total() - n0)
 
     def annotate(label, fn, name):
         def run(*a, **k):
             labels.add(label)
             lr_bytes[label] += _lr_work(name, a)[0]
+            n0 = total()
             with record_function(label):
                 out = fn(*a, **k)
                 torch.cuda.synchronize()
-                return out
+            launched.setdefault(label, []).append(total() - n0)
+            return out
         return run
     timing.phase = phase
     lr.wiener_frame = annotate("lr.wiener", orig["wiener"], "lr_wiener")
-    lr.sgr_items = annotate("lr.sgr", orig["sgr"], "lr_sgr")
+    lr.sgr_frame = annotate("lr.sgr", orig["sgr"], "lr_sgr")
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1385,25 +1450,38 @@ def _stage_device(torch, path, **kw):
                                          **kw)
     finally:
         timing.phase = orig["phase"]
-        lr.wiener_frame, lr.sgr_items = orig["wiener"], orig["sgr"]
-    import bisect
+        lr.wiener_frame, lr.sgr_frame = orig["wiener"], orig["sgr"]
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = list(prof.events())
+    ranges = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in evs
+                     if e.device_type != cuda and e.name in labels),
+                    key=lambda r: r[1])
+    runtime = {e.id: e.time_range.start for e in evs
+               if e.device_type != cuda and e.name.startswith("cu") and
+               any(k in e.name for k in RUNTIME_CALLS)}
     # the device activity, without the spans that mirror the ranges on
     # the device timeline (they carry the ranges' names)
-    dev = sorted((e.time_range.start, e.time_range.end)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and
-                 e.name not in labels)
-    starts = [d[0] for d in dev]
-    stage = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and \
-                e.name in labels:
-            r = e.time_range
-            ms = sum(b - a for a, b in dev[bisect.bisect_left(
-                starts, r.start):bisect.bisect_right(starts, r.end)]
-                if b <= r.end) / 1e3
-            stage[e.name] = stage.get(e.name, 0.0) + ms
-    return digest, stage, lr_bytes
+    device = [(e.id, e.time_range.start, e.time_range.end) for e in evs
+              if e.device_type == cuda and e.name not in labels]
+    ms, how = _credit(ranges, runtime, device)
+    stage, seen = {}, {}
+    for (label, _, _), m in zip(ranges, ms):
+        stage[label] = stage.get(label, 0.0) + m
+        seen.setdefault(label, []).append(m)
+    # ranges (in the order they began, as the launch counts were taken)
+    # in which a kernel launched and nothing was credited
+    misses = {}
+    for label, n in launched.items():
+        got = seen.get(label, [])
+        if len(got) != len(n):
+            misses[label] = f"{len(got)} ranges traced of {len(n)}"
+            continue
+        k = sum(1 for a, m in zip(n, got) if a and not m)
+        if k:
+            misses[label] = k
+    return digest, stage, lr_bytes, {"misses": misses, "credited": how,
+                                     "runtime_calls": len(runtime)}
 
 
 def _filter_bounds(pic, n_pics, lr_bytes):
@@ -1458,7 +1536,7 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
     d3, busy_ms, prof_wall, kernel_ms = _profiled(torch, path, **kw)
     if d3 != md5:
         raise AssertionError(f"{name}: md5 {d3} in the profiled decode")
-    d4, stage_dev, lr_bytes = _stage_device(torch, path, **kw)
+    d4, stage_dev, lr_bytes, credit = _stage_device(torch, path, **kw)
     if d4 != md5:
         raise AssertionError(f"{name}: md5 {d4} in the synchronous "
                              f"profiled decode")
@@ -1472,6 +1550,7 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
           "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / prof_wall,
           "kernel_device_ms": kernel_ms, "stage_device_ms": stage_dev,
+          "stage_device_credit": credit,
           "filter_bound_ms_per_picture": _filter_bounds(pics[0], n_pics,
                                                         lr_bytes)})
     return launches

@@ -6,7 +6,7 @@
 // wiener_c (src/looprestoration_tmpl.c), term by term as ops/lr.py
 // `wiener_items_plain` computes it.
 //
-// Inputs, as the host builds them (ops/lr.py wiener_frame_tables): per
+// Inputs, as the host builds them (ops/lr.py frame_tables): per
 // plane its pre-LR plane `src` and pre-CDEF plane `pre` (Hp rows each,
 // one row stride), the restored plane `dst` and the width w that
 // columns clamp to; per item a row of the item table (plane, colbase,
@@ -14,10 +14,8 @@
 // of at least ohs + 6 rows (padded rows -3..ohs+2; a row r >= Hp reads
 // row r - Hp of `pre`: the stripe-edge redirection and the top/bottom
 // replication are already in it). The window's column c reads column
-// clamp(colbase + c, 0, w - 1): on the unpadded planes (colbase = ox -
-// 3) that is the reference's left/right edge replication, on
-// edge-padded planes (the per-plane entry, w their width) a plain
-// linear window. The item's ohs x ows outputs land in `dst` at (oy,
+// clamp(colbase + c, 0, w - 1) of the unpadded planes (colbase = ox -
+// 3): the reference's left/right edge replication. The item's ohs x ows outputs land in `dst` at (oy,
 // ox).
 //
 // Horizontal pass: 2^(bd+6) + sum of taps x pixels, rounded by 3 (5 at
@@ -27,8 +25,7 @@
 // < 2^9 in magnitude).
 //
 // Design. One block of 256 threads per (item, tile of <= 64 output
-// columns), from a block table the host builds (or, without one, a
-// grid of items x tiles whose tiles past ows return). (1) One warp per
+// columns), from a block table the host builds. (1) One warp per
 // window row stages the (ohs + 6) x (cols + 6) window as int16 (its
 // row-table entry and plane read once a row, the columns clamped; the
 // loop unrolled, so that all of a thread's loads are in flight at
@@ -76,14 +73,8 @@ lr_wiener_kernel(const __grid_constant__ Args a) {
     __shared__ int16_t s_win[ROWS][TW + 8];
     __shared__ int16_t s_hor[ROWS][TW];
     const int tid = threadIdx.x;
-    int item, c0;
-    if (a.blocks) {
-        item = a.blocks[2 * blockIdx.x];
-        c0 = a.blocks[2 * blockIdx.x + 1];
-    } else {
-        item = blockIdx.x;
-        c0 = blockIdx.y * TW;
-    }
+    const int item = a.blocks[2 * blockIdx.x];
+    const int c0 = a.blocks[2 * blockIdx.x + 1];
     if (item < 0 || item >= a.n) __trap();
     const int32_t *it = a.items + (size_t)item * NCOL;
     const int pi = it[I_PLANE];
@@ -162,9 +153,9 @@ lr_wiener_kernel(const __grid_constant__ Args a) {
 // ptrs: per plane p src, pre, dst at ptrs[3 p ..] (int32; src and pre
 // (Hp, ss), dst row stride ds, written at the items' outputs only),
 // then the item table (n, 20), the row tables (n, rw) and the block
-// table (nb, 2) of (item, first output column), or null: then a grid of
-// n x ceil(wmax / 64) blocks over the items of plane 0. dims: per plane
-// Hp, ss, ds, w, wmax at dims[5 p ..], then np, n, rw, nb, bd.
+// table (nb, 2) of (item, first output column), a block each. dims:
+// per plane Hp, ss, ds, w, wmax at dims[5 p ..], then np, n, rw, nb,
+// bd.
 extern "C" int lr_wiener(const void *const *ptrs, const int *dims,
                          void *stream) {
     Args a = {};
@@ -191,10 +182,8 @@ extern "C" int lr_wiener(const void *const *ptrs, const int *dims,
     a.items = (const int32_t *)ptrs[9];
     a.rowt = (const int32_t *)ptrs[10];
     a.blocks = (const int32_t *)ptrs[11];
-    if (a.blocks ? nb > 0 : a.n > 0) {
-        const dim3 grid = a.blocks ? dim3(nb)
-                                   : dim3(a.n, (a.pl[0].wmax + TW - 1) / TW);
-        lr_wiener_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
-    }
+    if (nb > 0 && !a.blocks) return (int)cudaErrorInvalidValue;
+    if (nb > 0)
+        lr_wiener_kernel<<<nb, THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

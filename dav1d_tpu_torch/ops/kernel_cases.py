@@ -711,8 +711,8 @@ def lr_cases(bds=(8, 10, 12)):
 
 
 def lr_args(case, device):
-    """The arguments of ops/lr.py wiener_items / sgr_items (SGR: without
-    the x_by_x table) of an lr_case on device: the edge-padded sources,
+    """The arguments of ops/lr.py wiener_items_plain / sgr_items_plain
+    (SGR: without the x_by_x table) of an lr_case on device: the edge-padded sources,
     a fresh destination (a copy of cur) and the int32 item tables, built
     by the decoder's own lr.item_tables / plane_sources."""
     import torch
@@ -727,20 +727,22 @@ def lr_args(case, device):
             case["hmax"], case["wmax"], case["bd"])
 
 
-def wiener_frame_case(bd, layout):
-    """The Wiener items of every plane of one frame, for the one-launch
-    kernel: luma and (but for monochrome, layout 0) two chroma planes of
-    the layout's shape, each with its own valid width (columns beyond
-    it junk, which the clamped reads must not reach), stripe height
-    (luma 64, 4:2:0 chroma 32) and unit size (luma 64, chroma 32); units
-    across the whole width as _collect_items cuts them (the first at
-    ox = 0, the last ending at ox + ows = w) over 16 stripes of
-    LR_STRIPES heights, with edge flags (stripe + 5 unit) % 16, so
-    that every combination meets both plane edges; taps as lr_case.
-    Luma's second unit column is SGR (the chroma planes have Wiener
-    items and no SGR item). Returns {planes: [{cur, pre, w, hmax,
-    items}], layout, bd}."""
-    rng = np.random.default_rng(3000 + 10 * bd + layout)
+def frame_case(bd, layout, kind):
+    """The items of every plane of one frame for the one-launch Wiener
+    or SGR kernel (kind): luma and (but for monochrome, layout 0) two
+    chroma planes of the layout's shape, each with its own valid width
+    (columns beyond it junk, which the clamped reads must not reach),
+    stripe height (luma 64, 4:2:0 chroma 32) and unit size (luma 64,
+    chroma 32); units across the whole width as _collect_items cuts them
+    (the first at ox = 0, the last ending at ox + ows = w) over 16
+    stripes of LR_STRIPES heights, with edge flags (stripe + 5 unit) %
+    16, so that every combination meets both plane edges. Items of
+    `kind` everywhere but luma's second unit column, which is of the
+    other filter; Wiener taps as lr_case, SGR parameter rows in turn
+    with random weights. Returns {planes: [{cur, pre, w, hmax, items}],
+    layout, bd}."""
+    rng = np.random.default_rng((3000 if kind == "wiener" else 4000) +
+                                10 * bd + layout)
     ss_ver, ss_hor = int(layout == 1), int(layout != 3)
     w_y = 3 * 64 + 90
     planes = []
@@ -761,7 +763,7 @@ def wiener_frame_case(bd, layout):
         for s, h in enumerate(heights):
             x = 0
             for k, uw in enumerate(units):
-                if p == 0 and k == 1:
+                if (kind == "sgr") != (p == 0 and k == 1):
                     u = {"type": 3 + s % 16,
                          "sgr_weights": (int(rng.integers(-96, 32)),
                                          int(rng.integers(-32, 96)))}
@@ -777,9 +779,10 @@ def wiener_frame_case(bd, layout):
     return {"planes": planes, "layout": layout, "bd": bd}
 
 
-def wiener_frame_cases():
-    """Every Wiener frame case: each layout at bd 8/10/12."""
-    return [wiener_frame_case(bd, layout) for bd in (8, 10, 12)
+def frame_cases(kind):
+    """Every frame case of Wiener or SGR items (kind): each layout at bd
+    8/10/12."""
+    return [frame_case(bd, layout, kind) for bd in (8, 10, 12)
             for layout in CDEF_LAYOUTS]
 
 
@@ -790,10 +793,11 @@ def lr_frame_case(case):
             "layout": None, "bd": case["bd"]}
 
 
-def wiener_frame_args(case, device):
-    """The arguments of ops/lr.py wiener_frame of a frame case on
-    device: [(src, pre, dst (a copy of src), w, hmax)] per plane and the
-    host tables of its Wiener items (lr.wiener_frame_tables), and bd."""
+def frame_args(case, device, kind):
+    """The arguments of ops/lr.py wiener_frame or sgr_frame (kind) of a
+    frame case on device: [(src, pre, dst (a copy of src), w, hmax)] per
+    plane and the host tables of its items of that kind
+    (lr.frame_tables), and bd."""
     import torch
     from . import lr
     from .restore_ref import _sgr_params_tbl
@@ -802,7 +806,8 @@ def wiener_frame_args(case, device):
         cur = torch.from_numpy(pl["cur"]).to(device)
         planes.append((cur, torch.from_numpy(pl["pre"]).to(device),
                        cur.clone(), pl["w"], pl["hmax"]))
-        groups.append(([it for it in pl["items"] if it[5]["type"] == 2],
+        groups.append(([it for it in pl["items"]
+                        if (it[5]["type"] == 2) == (kind == "wiener")],
                        pl["hmax"], cur.shape[0]))
-    return planes, lr.wiener_frame_tables(groups, _sgr_params_tbl()), \
+    return planes, lr.frame_tables(kind, groups, _sgr_params_tbl()), \
         case["bd"]

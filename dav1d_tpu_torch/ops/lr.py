@@ -6,26 +6,25 @@ work item of a frame's plane is one row of a dense batch. The host
 builds per item the row table that bakes in the reference's
 streaming-edge semantics (stripe-boundary rows redirected to the
 pre-CDEF plane, top/bottom replication, the SGR row clamp). The plain
-versions and SGR read columns from horizontally edge-padded sources,
-so each item's column window is linear; the Wiener kernel clamps the
-columns of the unpadded planes instead, which is the same edge
-replication. All tables are int32. Two implementations of each filter:
+versions read columns from horizontally edge-padded sources, so each
+item's column window is linear; the kernels clamp the columns of the
+unpadded planes instead, which is the same edge replication. All
+tables are int32. Two implementations of each filter:
 
 - the plain torch version (`wiener_items_plain`, `sgr_items_plain`):
   gathers the (n, hmax+6, wmax+6) padded sources from [src; pre], runs
   the Wiener or SGR math over the batch (SGR in int64) and writes the
   results back under the per-item size mask; CPU tensors only.
-  `wiener_frame_plain` runs a frame's Wiener table through it plane by
-  plane;
-- the hand-written CUDA kernels csrc/lr_wiener.cu and csrc/lr_sgr.cu:
-  Wiener in one launch a frame over every plane's items
-  (`wiener_frame_cuda`; `wiener_cuda` takes one plane's padded
-  sources), SGR in one launch per plane (`sgr_cuda`); one block per
-  (item, column tile); every CUDA tensor.
+  `wiener_frame_plain` / `sgr_frame_plain` run a frame's table through
+  it plane by plane;
+- the hand-written CUDA kernels csrc/lr_wiener.cu and csrc/lr_sgr.cu,
+  each in one launch a frame over every plane's items of its filter
+  (`wiener_frame_cuda`, `sgr_frame_cuda`; one block per item and tile
+  of 64 output columns); every CUDA tensor.
 
-`wiener_frame`, `wiener_items` and `sgr_items` dispatch between the
-two; `lr_planes_device` makes one `wiener_frame` call a frame, then one
-`sgr_items` call per plane with SGR items.
+`wiener_frame` and `sgr_frame` dispatch between the two;
+`lr_planes_device` makes one `wiener_frame` and one `sgr_frame` call a
+frame.
 """
 from __future__ import annotations
 
@@ -101,10 +100,17 @@ def sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox,
     table pre-clamps rows -3..hmax+2 to the reference's [-2, h+1], so
     box sums use direct shifts. s0/s1/w0/w1: (n,) int32 (0 = branch
     off). Writes into dst in place."""
+    S = _gather(torch.cat([src, pre], dim=0), rowt, colbase, wmax + 6)
+    _write_back(dst, _sgr_math(S, s0, s1, w0, w1, hmax, wmax, bd, xbyx),
+                oy, ox, ohs, ows)
+
+
+def _sgr_math(S, s0, s1, w0, w1, hmax, wmax, bd, xbyx):
+    """The SGR filter of gathered (n, hmax + 6, wmax + 6) windows, the
+    box sums direct: (n, hmax, wmax) int32 outputs."""
     bdm8 = bd - 8
-    n = rowt.shape[0]
-    CP = torch.cat([src, pre], dim=0)
-    S = _gather(CP, rowt, colbase, wmax + 6).to(torch.int64)
+    n = S.shape[0]
+    S = S.to(torch.int64)
     src_px = S[:, 3:3 + hmax, PAD:PAD + wmax]
 
     def calc_ab(sumsq, ssum, s, nn, one_by_x):
@@ -175,8 +181,7 @@ def sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox,
     v = (w0.to(torch.int64)[:, None, None] * t5 +
          w1.to(torch.int64)[:, None, None] * t3)
     res = src_px + ((v + (1 << 10)) >> 11)
-    vals = torch.clamp(res, 0, (1 << bd) - 1).to(torch.int32)
-    _write_back(dst, vals, oy, ox, ohs, ows)
+    return torch.clamp(res, 0, (1 << bd) - 1).to(torch.int32)
 
 
 _LIBS = {}
@@ -189,10 +194,11 @@ def _lib(name):
         lib = load_library(name)
         if name == "lr_sgr":
             from .. import tables
-            xbyx = np.ascontiguousarray(tables.get("dav1d_sgr_x_by_x"),
-                                        np.int32)
-            if xbyx.shape != (256,):
-                raise ValueError(f"sgr_x_by_x of shape {xbyx.shape}")
+            xbyx = np.asarray(tables.get("dav1d_sgr_x_by_x"))
+            if xbyx.shape != (256,) or xbyx.min() < 0 or xbyx.max() > 255:
+                raise ValueError("sgr_x_by_x: expected 256 entries in "
+                                 "0..255")
+            xbyx = np.ascontiguousarray(xbyx, np.uint8)
             lib.lr_sgr_set_table.restype = ct.c_int
             lib.lr_sgr_set_table.argtypes = [ct.c_void_p]
             rc = lib.lr_sgr_set_table(xbyx.ctypes.data)
@@ -206,58 +212,28 @@ def _lib(name):
     return lib
 
 
-def _check_items(name, src, pre, dst, rowt, vecs, hmax, wmax, bd):
-    """Raise unless the arguments are one plane's items as the kernels
-    take them: src / pre (Hp, Ws) and dst 2-D int32, rowt (n, hmax + 6)
-    int32, vecs the per-item int32 tables by name (the taps fhc, fvc
-    (n, 7), the others (n,)); all contiguous on one CUDA device.
-    Returns n."""
+# the columns of the kernels' item tables (int32, one row an item): the
+# first six shared, then Wiener's taps or SGR's strengths and weights
+_ITEM = ("plane", "colbase", "oy", "ox", "ohs", "ows")
+WIENER_COLS = _ITEM + tuple(f"fh{i}" for i in range(7)) + \
+    tuple(f"fv{i}" for i in range(7))
+SGR_COLS = _ITEM + ("s0", "s1", "w0", "w1")
+COLS = {"wiener": WIENER_COLS, "sgr": SGR_COLS}
+LR_TW = 64              # output columns of a Wiener or SGR kernel block
+
+
+def _frame_launch(kind, planes, items, rowt, blocks, bd):
+    """One launch of csrc/lr_wiener.cu or csrc/lr_sgr.cu (kind "wiener"
+    or "sgr"). planes: [(src, pre, dst, w, wmax)] per plane index of the
+    item table (src and pre (Hp, Ws) and dst 2-D, int32; columns clamp
+    to [0, w); wmax the widest item); items (n, len(COLS[kind])), rowt
+    (n, rw) and blocks (nb, 2) (item_blocks'): int32, all contiguous
+    on one CUDA device."""
     from .cuda_build import check_tensor
-    dev = src.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors")
-    if bd not in (8, 10, 12):
-        raise ValueError(f"bitdepth {bd}")
-    if not (0 < hmax <= 64 and hmax % 2 == 0) or wmax < 1:
-        raise ValueError(f"item bounds {(hmax, wmax)}")
-    check_tensor(src, "src", torch.int32, dev)
-    check_tensor(pre, "pre", torch.int32, dev, src.shape)
-    check_tensor(dst, "dst", torch.int32, dev)
-    n = rowt.shape[0] if rowt.dim() == 2 else -1
-    check_tensor(rowt, "rowt", torch.int32, dev, (n, hmax + 6))
-    for k, v in vecs.items():
-        taps = k in ("fhc", "fvc")
-        check_tensor(v, k, torch.int32, dev, (n, 7) if taps else (n,),
-                     ndim=2 if taps else 1)
-    return n
-
-
-def _call(name, ptrs, dims, dev):
-    rc = getattr(_lib(name), name)(
-        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-
-
-# the columns of the Wiener kernel's item table (int32, one row an item)
-WIENER_COLS = ("plane", "colbase", "oy", "ox", "ohs", "ows") + \
-    tuple(f"fh{i}" for i in range(7)) + tuple(f"fv{i}" for i in range(7))
-WIENER_TW = 64          # output columns of a Wiener kernel block
-
-
-def _wiener_launch(planes, items, rowt, blocks, bd):
-    """One launch of csrc/lr_wiener.cu. planes: [(src, pre, dst, w,
-    wmax)] per plane index of the item table (src and pre (Hp, Ws) and
-    dst 2-D, int32; columns clamp to [0, w); wmax the widest item);
-    items (n, 20), rowt (n, rw) and blocks (nb, 2) or None (a grid of
-    items x tiles over plane 0): int32, all contiguous on one CUDA
-    device."""
-    from .cuda_build import check_tensor
+    name = "lr_" + kind
     dev = planes[0][0].device
     if dev.type != "cuda":
-        raise ValueError("lr_wiener needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     if bd not in (8, 10, 12):
         raise ValueError(f"bitdepth {bd}")
     if not 1 <= len(planes) <= 3:
@@ -273,71 +249,56 @@ def _wiener_launch(planes, items, rowt, blocks, bd):
                                  dst.data_ptr())
         dims[5 * p:5 * p + 5] = (*src.shape, dst.shape[1], w, wmax)
     n = items.shape[0] if items.dim() == 2 else -1
-    check_tensor(items, "items", torch.int32, dev, (n, len(WIENER_COLS)))
+    check_tensor(items, "items", torch.int32, dev, (n, len(COLS[kind])))
     rw = rowt.shape[1] if rowt.dim() == 2 else -1
     check_tensor(rowt, "rowt", torch.int32, dev, (n, rw))
-    nb = 0
-    if blocks is not None:
-        nb = blocks.shape[0] if blocks.dim() == 2 else -1
-        check_tensor(blocks, "blocks", torch.int32, dev, (nb, 2))
-    ptrs[9:] = (items.data_ptr(), rowt.data_ptr(),
-                0 if blocks is None else blocks.data_ptr())
+    nb = blocks.shape[0] if blocks.dim() == 2 else -1
+    check_tensor(blocks, "blocks", torch.int32, dev, (nb, 2))
+    ptrs[9:] = (items.data_ptr(), rowt.data_ptr(), blocks.data_ptr())
     dims[15:] = (len(planes), n, rw, nb, bd)
-    _call("lr_wiener", ptrs, dims, dev)
+    rc = getattr(_lib(name), name)(
+        (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
-def wiener_cuda(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
-                hmax, wmax, bd):
-    """wiener_items_plain's contract with one launch of
-    csrc/lr_wiener.cu (the item table packed on the device, a grid of
-    items x tiles); CUDA int32 tensors only (the tables too), the
-    items' outputs inside dst. Launches on the current stream and does
-    not synchronise."""
-    _check_items("lr_wiener", src, pre, dst, rowt,
-                 {"colbase": colbase, "fhc": fhc, "fvc": fvc, "oy": oy,
-                  "ox": ox, "ohs": ohs, "ows": ows}, hmax, wmax, bd)
-    col = [v[:, None] for v in (torch.zeros_like(colbase), colbase, oy, ox,
-                                ohs, ows)]
-    _wiener_launch([(src, pre, dst, src.shape[1], wmax)],
-                   torch.cat(col + [fhc, fvc], dim=1), rowt, None, bd)
-    return dst
-
-
-def wiener_blocks(items):
-    """The Wiener kernel's block table of an item table (numpy): one
-    (item, first output column) row per tile of WIENER_TW output
-    columns of each item, int32."""
-    ows = items[:, WIENER_COLS.index("ows")].astype(np.int64)
-    nt = -(-ows // WIENER_TW)
+def item_blocks(items):
+    """The Wiener or SGR kernel's block table of an item table (numpy):
+    one (item, first output column) row per tile of LR_TW output columns
+    of each item, int32."""
+    ows = items[:, _ITEM.index("ows")].astype(np.int64)
+    nt = -(-ows // LR_TW)
     first = np.repeat(np.cumsum(nt) - nt, nt)
     return np.stack([np.repeat(np.arange(len(items)), nt),
-                     (np.arange(nt.sum()) - first) * WIENER_TW],
+                     (np.arange(nt.sum()) - first) * LR_TW],
                     axis=1).astype(np.int32)
 
 
-def wiener_frame_tables(groups, sgrp):
-    """The Wiener item table of a frame: groups, per plane index, (its
-    Wiener items as _collect_items gives them, hmax, Hp (its rows)).
-    Returns (items (n, 20), rowt (n, max hmax + 6)) int32 numpy: the
-    columns of WIENER_COLS, colbase = ox - 3 in the unpadded plane, and
-    each plane's row tables (item_tables') padded to the widest by
-    their last entry."""
+def frame_tables(kind, groups, sgrp):
+    """The Wiener or SGR item table of a frame: groups, per plane index,
+    (its items of that kind as _collect_items gives them, hmax, Hp (its
+    rows)). Returns (items (n, len(COLS[kind])), rowt (n, max hmax +
+    6)) int32 numpy: the columns of COLS[kind], colbase = ox - 3 in the
+    unpadded plane, and each plane's row tables (item_tables') padded to
+    the widest by their last entry."""
     rw = max(hmax for _, hmax, _ in groups) + 6
     items, rowts = [], []
     for p, (sel, hmax, Hp) in enumerate(groups):
-        rowt, _, fhc, fvc, oy, ox, ohs, ows = item_tables(
-            "wiener", sel, sgrp, hmax, Hp)
+        rowt, _, *par, oy, ox, ohs, ows = item_tables(kind, sel, sgrp, hmax,
+                                                      Hp)
         items.append(np.column_stack([np.full(len(sel), p), ox - PAD, oy,
-                                      ox, ohs, ows, fhc, fvc]))
+                                      ox, ohs, ows, *par]))
         rowts.append(np.pad(rowt, ((0, 0), (0, rw - rowt.shape[1])),
                             mode="edge"))
     return (np.concatenate(items).astype(np.int32),
             np.concatenate(rowts).astype(np.int32))
 
 
-def check_frame(planes, tables):
-    """Raise unless `tables` (wiener_frame_tables') fit `planes`
-    ([(src, pre, dst, w, hmax)]): int32 2-D arrays of WIENER_COLS
+def check_frame(planes, tables, kind):
+    """Raise unless `tables` (frame_tables(kind, ...)'s) fit `planes`
+    ([(src, pre, dst, w, hmax)]): int32 2-D arrays of COLS[kind]
     columns and one row table an item, at least hmax + 6 wide, every
     item's plane index in the list, inside its plane's valid columns
     and at most its hmax rows. Returns the widest item of each plane."""
@@ -347,9 +308,9 @@ def check_frame(planes, tables):
             raise TypeError(f"{name}: expected an int32 numpy array")
         if a.ndim != 2:
             raise ValueError(f"{name} of shape {a.shape}")
-    if items.shape[1] != len(WIENER_COLS) or rowt.shape[0] != len(items):
+    if items.shape[1] != len(COLS[kind]) or rowt.shape[0] != len(items):
         raise ValueError(f"tables of shapes {items.shape}, {rowt.shape}")
-    pl, ox, ohs, ows = (items[:, WIENER_COLS.index(k)]
+    pl, ox, ohs, ows = (items[:, _ITEM.index(k)]
                         for k in ("plane", "ox", "ohs", "ows"))
     if len(items) and (pl.min() < 0 or pl.max() >= len(planes)):
         raise ValueError(f"plane index {int(pl.max())} past the "
@@ -368,13 +329,13 @@ def check_frame(planes, tables):
     return wmax
 
 
-def wiener_frame_plain(planes, tables, bd):
-    """wiener_frame_cuda's contract in plain torch: per plane of
-    `planes` ([(src, pre, dst, w, hmax)]), its items of `tables`
-    (wiener_frame_tables') through plane_sources and
-    wiener_items_plain, into dst in place."""
+def _frame_plain(kind, planes, tables, bd):
+    """_frame_cuda's contract in plain torch: per plane of `planes`
+    ([(src, pre, dst, w, hmax)]), its items of `tables` through
+    plane_sources and wiener_items_plain / sgr_items_plain, into dst in
+    place."""
     items, rowt = tables
-    wmax = check_frame(planes, tables)
+    wmax = check_frame(planes, tables, kind)
     for p, (src, pre, dst, w, hmax) in enumerate(planes):
         sel = items[:, 0] == p
         if not sel.any():
@@ -383,88 +344,85 @@ def wiener_frame_plain(planes, tables, bd):
         T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             src.device)
         curp, prep = plane_sources(src, pre, w, wmax[p])
-        wiener_items_plain(curp, prep, dst, T(rowt[sel][:, :hmax + 6]),
-                           T(it[:, 1] + LR_BS), T(it[:, 6:13]),
-                           T(it[:, 13:20]), *(T(it[:, k]) for k in
-                                              range(2, 6)),
-                           hmax, wmax[p], bd)
+        args = (curp, prep, dst, T(rowt[sel][:, :hmax + 6]),
+                T(it[:, 1] + LR_BS))
+        pos = [T(it[:, k]) for k in range(2, 6)]
+        if kind == "wiener":
+            wiener_items_plain(*args, T(it[:, 6:13]), T(it[:, 13:20]), *pos,
+                               hmax, wmax[p], bd)
+        else:
+            from .device import device_tables
+            sgr_items_plain(*args, *(T(it[:, k]) for k in range(6, 10)),
+                            *pos, hmax, wmax[p], bd,
+                            device_tables(src.device)["sgr_x_by_x"])
 
 
-def wiener_frame_cuda(planes, tables, bd):
-    """The Wiener pass of a frame's planes in one launch of
-    csrc/lr_wiener.cu: planes [(src, pre, dst, w, hmax)], src and pre
-    the unpadded pre-LR and pre-CDEF planes (Hp, Ws), dst the restored
-    plane (src's shape; not src), w its valid columns; tables
-    (wiener_frame_tables' host arrays) checked on the host, then the
-    item, row and block tables cross in one upload. CUDA int32 planes
-    only. Launches on the current stream and does not synchronise."""
-    wmax = check_frame(planes, tables)
+def _frame_cuda(kind, planes, tables, bd):
+    """The Wiener or SGR pass of a frame's planes in one launch of
+    csrc/lr_wiener.cu or csrc/lr_sgr.cu: planes [(src, pre, dst, w,
+    hmax)], src and pre the unpadded pre-LR and pre-CDEF planes (Hp,
+    Ws), dst the restored plane (src's shape; not src), w its valid
+    columns; tables (frame_tables' host arrays) checked on the host,
+    then the item, row and block tables cross in one upload. CUDA int32
+    planes only. Launches on the current stream and does not
+    synchronise."""
+    wmax = check_frame(planes, tables, kind)
     dev = planes[0][0].device
     if dev.type != "cuda":
-        raise ValueError("wiener_frame_cuda needs CUDA tensors")
+        raise ValueError(f"{kind}_frame_cuda needs CUDA tensors")
     for p, (src, _, dst, _, _) in enumerate(planes):
         if tuple(dst.shape) != tuple(src.shape):
             raise ValueError(f"plane {p}: dst {tuple(dst.shape)} and src "
                              f"{tuple(src.shape)}")
     items, rowt, blocks = upload_tables(
-        [*tables, wiener_blocks(tables[0])], dev)
-    _wiener_launch([(s, q, d, w, m) for (s, q, d, w, _), m
-                    in zip(planes, wmax)], items, rowt, blocks, bd)
+        [*tables, item_blocks(tables[0])], dev)
+    _frame_launch(kind, [(s, q, d, w, m) for (s, q, d, w, _), m
+                         in zip(planes, wmax)], items, rowt, blocks, bd)
+
+
+def _frame(kind, planes, tables, bd):
+    if planes[0][0].is_cuda:
+        return _frame_cuda(kind, planes, tables, bd)
+    from .mc import _cpu_only
+    _cpu_only(planes[0][0])
+    return _frame_plain(kind, planes, tables, bd)
+
+
+def wiener_frame_plain(planes, tables, bd):
+    """wiener_frame_cuda's contract in plain torch (_frame_plain)."""
+    return _frame_plain("wiener", planes, tables, bd)
+
+
+def wiener_frame_cuda(planes, tables, bd):
+    """The Wiener pass of a frame's planes in one launch of
+    csrc/lr_wiener.cu (_frame_cuda; tables: frame_tables("wiener",
+    ...))."""
+    return _frame_cuda("wiener", planes, tables, bd)
 
 
 def wiener_frame(planes, tables, bd):
     """The Wiener pass of a frame (wiener_frame_cuda's contract): one
     launch of the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
-    if planes[0][0].is_cuda:
-        return wiener_frame_cuda(planes, tables, bd)
-    from .mc import _cpu_only
-    _cpu_only(planes[0][0])
-    return wiener_frame_plain(planes, tables, bd)
+    return _frame("wiener", planes, tables, bd)
 
 
-def sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
-             ows, hmax, wmax, bd):
-    """sgr_items_plain's contract with one launch of csrc/lr_sgr.cu (its
-    own copy of dav1d_sgr_x_by_x); CUDA int32 tensors only, the items'
-    outputs inside dst. Launches on the current stream and does not
-    synchronise."""
-    vecs = [colbase, s0, s1, w0, w1, oy, ox, ohs, ows]
-    n = _check_items("lr_sgr", src, pre, dst, rowt, dict(zip(
-        ("colbase", "s0", "s1", "w0", "w1", "oy", "ox", "ohs", "ows"),
-        vecs)), hmax, wmax, bd)
-    _call("lr_sgr", [src.data_ptr(), pre.data_ptr(), dst.data_ptr(),
-                     rowt.data_ptr(), *(v.data_ptr() for v in vecs)],
-          [src.shape[0], src.shape[1], dst.shape[1], n, hmax, wmax, bd],
-          src.device)
-    return dst
+def sgr_frame_plain(planes, tables, bd):
+    """sgr_frame_cuda's contract in plain torch (_frame_plain)."""
+    return _frame_plain("sgr", planes, tables, bd)
 
 
-def wiener_items(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox, ohs, ows,
-                 hmax, wmax, bd):
-    """Wiener pass over one plane's items into dst in place: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if src.is_cuda:
-        return wiener_cuda(src, pre, dst, rowt, colbase, fhc, fvc, oy, ox,
-                           ohs, ows, hmax, wmax, bd)
-    from .mc import _cpu_only
-    _cpu_only(src)
-    return wiener_items_plain(src, pre, dst, rowt, colbase, fhc, fvc, oy,
-                              ox, ohs, ows, hmax, wmax, bd)
+def sgr_frame_cuda(planes, tables, bd):
+    """The SGR pass of a frame's planes in one launch of csrc/lr_sgr.cu
+    (_frame_cuda; tables: frame_tables("sgr", ...))."""
+    return _frame_cuda("sgr", planes, tables, bd)
 
 
-def sgr_items(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy, ox, ohs,
-              ows, hmax, wmax, bd, xbyx):
-    """Self-guided restoration of one plane's items into dst in place:
-    the CUDA kernel for CUDA tensors (xbyx unused: the library holds the
-    table), the plain version for CPU tensors."""
-    if src.is_cuda:
-        return sgr_cuda(src, pre, dst, rowt, colbase, s0, s1, w0, w1, oy,
-                        ox, ohs, ows, hmax, wmax, bd)
-    from .mc import _cpu_only
-    _cpu_only(src)
-    return sgr_items_plain(src, pre, dst, rowt, colbase, s0, s1, w0, w1,
-                           oy, ox, ohs, ows, hmax, wmax, bd, xbyx)
+def sgr_frame(planes, tables, bd):
+    """The SGR pass of a frame (sgr_frame_cuda's contract): one launch of
+    the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    return _frame("sgr", planes, tables, bd)
 
 
 def _collect_items(plan, plane, w, h, us_log2, ss_ver, ss_hor, sb_log2,
@@ -644,32 +602,22 @@ def plane_items(plan):
 def lr_planes_device(planes, pre_cdef, plan, bd):
     """Loop restoration over int32 plane tensors. planes: full padded
     post-CDEF planes; pre_cdef: the post-deblock (lpf) planes. The
-    Wiener items of every plane go in one wiener_frame call that reads
-    the planes themselves; SGR runs per plane on edge-padded sources.
-    The inputs stay as they are; returns the restored plane list."""
-    from .device import device_tables
+    Wiener items of every plane go in one wiener_frame call and the SGR
+    items of every plane in one sgr_frame call, both reading the planes
+    themselves. The inputs stay as they are; returns the restored plane
+    list."""
     sgrp = _sgr_params_tbl()
     out = list(planes)
-    dev = planes[0].device
     groups = plane_items(plan)
     for plane, *_ in groups:
         out[plane] = planes[plane].clone()
-    wiener = [(plane, w, hmax, kinds["wiener"])
-              for plane, w, hmax, _, kinds in groups if kinds["wiener"]]
-    if wiener:
-        wiener_frame(
-            [(planes[p], pre_cdef[p][:planes[p].shape[0]], out[p], w, hmax)
-             for p, w, hmax, _ in wiener],
-            wiener_frame_tables([(sel, hmax, planes[p].shape[0])
-                                 for p, _, hmax, sel in wiener], sgrp), bd)
-    for plane, w, hmax, wmax, kinds in groups:
-        sel = kinds["sgr"]
-        if not sel:
-            continue
-        cur = planes[plane]
-        Hp = cur.shape[0]
-        curp, prep = plane_sources(cur, pre_cdef[plane][:Hp], w, wmax)
-        views = upload_tables(item_tables("sgr", sel, sgrp, hmax, Hp), dev)
-        sgr_items(curp, prep, out[plane], *views, hmax, wmax, bd,
-                  device_tables(dev)["sgr_x_by_x"])
+    for kind, run in (("wiener", wiener_frame), ("sgr", sgr_frame)):
+        sel = [(p, w, hmax, kinds[kind])
+               for p, w, hmax, _, kinds in groups if kinds[kind]]
+        if sel:
+            run([(planes[p], pre_cdef[p][:planes[p].shape[0]], out[p], w,
+                  hmax) for p, w, hmax, _ in sel],
+                frame_tables(kind, [(items, hmax, planes[p].shape[0])
+                                    for p, _, hmax, items in sel], sgrp),
+                bd)
     return out

@@ -13,8 +13,8 @@ pass order (`segments`):
             one stream)
   OBMC      laps blended into the puts' and warps' predictions: the top
             laps of every plane, then the left laps (a block's left laps
-            read its top-left corner after its top laps wrote it); one
-            launch each, in order on one stream
+            read its top-left corner after its top laps wrote it), in
+            one launch with a grid-wide barrier between the two
   residuals inverse transform + add from the frame's coefficient pool,
             then the lossless WHT jobs
 
@@ -29,7 +29,8 @@ jobs into one segment per transform size, the host sorts each plane's
 put, compound and residual jobs by class and cuts them into
 class-uniform kernel blocks (ops/mc.py put_blocks, comp_blocks,
 ops/itx.py res_blocks); warp tiles and OBMC laps go unsorted, one
-kernel block per four tiles or per lap (ops/mc_warp.py, mc_obmc.py).
+kernel block per four tiles, one warp per lap (ops/mc_warp.py,
+mc_obmc.py).
 """
 from __future__ import annotations
 
@@ -178,9 +179,9 @@ def execute(recon, jobs):
         sync_if_timed(dev)
 
     with timing.phase("inter.obmc"):
-        for top in (1, 0):                # top laps before left laps
-            if ("obmc", top) in T:
-                mc_obmc.obmc_planes(per_plane, T["obmc", top], bd, top)
+        laps = [T.get(("obmc", top)) for top in (1, 0)]
+        if any(t is not None for t in laps):   # top laps before left laps
+            mc_obmc.obmc_planes(per_plane, *laps, bd)
         sync_if_timed(dev)
 
     with timing.phase("inter.residuals"):

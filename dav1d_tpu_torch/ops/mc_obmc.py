@@ -10,8 +10,8 @@ blend_v_c). Two implementations:
 - `obmc_plain`: batched torch gathers per lap geometry, used for CPU
   tensors only;
 - the hand-written CUDA kernel csrc/mc_obmc.cu, used for every CUDA
-  tensor (`obmc_cuda`: every plane's laps of one direction in one
-  launch).
+  tensor (`obmc_cuda`: every lap of a frame's planes, both directions,
+  in one launch).
 
 Job row (int32, as native/interjobs.cpp writes it):
 
@@ -29,10 +29,11 @@ top-left corner after its top laps wrote it, so the top laps of every
 plane run before the left laps.
 
 Unlike dav1d_tpu's fused segments, the geometry is the job's own: there
-are no static caps. The kernel holds laps of up to 64 x 64 (the largest
-the emitter writes: ww <= 64, hh and lap_h <= 64): the host raises on a
-larger one before the upload (`check_geometry`, from ops/mc_fused.py),
-and the kernel traps on one.
+are no static caps. The kernel holds the laps the emitter writes (ww,
+hh and lap_h <= 64; a top lap's hh and a left lap's ww <= 32, so a
+blended region of at most 24 x 64 or 64 x 24): the host raises on
+another before the upload (`check_geometry`, from ops/mc_fused.py), and
+the kernel traps on one.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from . import mc
 from .mc_ref import intermediate_bits, obmc_masks
 
 MAX_DIM = 64            # the kernel's largest ww, hh and lap_h
+MAX_SHORT = 32          # its largest hh of a top lap, ww of a left lap
 
 
 def blend_dims(jobs, top):
@@ -103,17 +105,28 @@ def obmc_plain(refs, jobs, plane, rh, rw, bd, fb, om, top):
 
 
 def obmc_planes_plain(planes, jobs, bd, fb, om, top):
-    """obmc_cuda's contract in plain torch: obmc_plain per plane
-    on the laps of its plane index (column 1)."""
+    """The laps of one direction over a frame's planes in plain torch:
+    obmc_plain per plane on the laps of its plane index (column 1)."""
     for pi, (refs, plane, rh, rw) in enumerate(planes):
         obmc_plain(refs, jobs[jobs[:, 1] == pi], plane, rh, rw, bd, fb, om,
                    top)
     return [p for _, p, _, _ in planes]
 
 
+def obmc_frame_plain(planes, top, left, bd, fb, om):
+    """obmc_cuda's contract in plain torch: obmc_planes_plain of the top
+    laps, then of the left laps (either may be None)."""
+    for t, jobs in ((1, top), (0, left)):
+        if jobs is not None:
+            obmc_planes_plain(planes, jobs, bd, fb, om, t)
+    return [p for _, p, _, _ in planes]
+
+
 def check_geometry(jobs, top):
     """Raise unless every lap (n, 13) numpy row is of direction `top`
-    and of a geometry the kernel holds (ww, hh, lap_h in 1..64)."""
+    and of a geometry the kernel holds: ww, hh and lap_h in 1..64, and a
+    blended region of at most 24 x 64 (top: hh <= 32) or 64 x 24 (left:
+    ww <= 32), as the emitter writes them."""
     j = np.asarray(jobs)
     if not len(j):
         return
@@ -121,10 +134,12 @@ def check_geometry(jobs, top):
         raise ValueError(f"OBMC laps of direction {set(j[:, 0])} in a "
                          f"{'top' if top else 'left'} call")
     g = j[:, 2:5]
-    if g.min() < 1 or g.max() > MAX_DIM:
+    short = j[:, 3 if top else 2]
+    if g.min() < 1 or g.max() > MAX_DIM or short.max() > MAX_SHORT:
         raise ValueError(f"OBMC lap geometry (ww, hh, lap_h) from "
                          f"{g.min(0).tolist()} to {g.max(0).tolist()}: "
-                         f"the kernel holds 1..{MAX_DIM}")
+                         f"the kernel holds 1..{MAX_DIM}, and "
+                         f"{'hh' if top else 'ww'} <= {MAX_SHORT}")
 
 
 _LIB = []
@@ -146,40 +161,53 @@ def _lib():
                                f"{rc}")
         lib.mc_obmc.restype = ct.c_int
         lib.mc_obmc.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
-                                ct.c_void_p, ct.c_int, ct.c_int, ct.c_int,
-                                ct.c_void_p]
+                                ct.c_void_p, ct.c_int, ct.c_void_p,
+                                ct.c_int, ct.c_int, ct.c_void_p,
+                                ct.POINTER(ct.c_int)]
+        lib.mc_obmc_blocks_per_sm.restype = ct.c_int
+        lib.mc_obmc_grid.restype = ct.c_int
+        lib.mc_obmc_grid.argtypes = [ct.c_int, ct.c_int]
         _LIB.append(lib)
     return _LIB[0]
 
 
-def obmc_cuda(planes, jobs, bd, top):
-    """The laps of one direction over a frame's planes in one launch of
-    csrc/mc_obmc.cu; CUDA tensors only. planes: [(refs, plane, rh,
-    rw)], one per plane index of the jobs' column 1. A lap of another
-    direction, of a plane index or slot past the lists, or of a geometry
-    beyond 64 traps the kernel. Launches on the current stream, does not
-    synchronise: launch the top laps before the left laps on one
-    stream."""
-    ptrs, dims = mc.plane_args(planes, jobs, 13, bd)
+def obmc_cuda(planes, top, left, bd):
+    """Every lap of a frame's planes in one launch of csrc/mc_obmc.cu,
+    the top laps before the left laps; CUDA tensors only. planes:
+    [(refs, plane, rh, rw)], one per plane index of the laps' column 1;
+    top, left: (n, 13) int32 tables of that direction's laps, or None. A
+    lap of the other direction, of a plane index or slot past the lists,
+    or of a geometry the kernel does not hold traps the kernel. Launches
+    on the current stream, does not synchronise."""
+    from .cuda_build import check_tensor
+    given = [t for t in (top, left) if t is not None]
+    if not given:
+        raise ValueError("no OBMC laps")
+    ptrs, dims = mc.plane_args(planes, given[0], 13, bd)
     dev = planes[0][1].device
-    rc = _lib().mc_obmc(ptrs, dims, len(planes), jobs.data_ptr(),
-                        len(jobs), bd, int(bool(top)),
-                        torch.cuda.current_stream(dev).cuda_stream)
+    for t in given[1:]:
+        check_tensor(t, "jobs", torch.int32, dev, (len(t), 13))
+    arg = [(0, 0) if t is None else (t.data_ptr(), len(t))
+           for t in (top, left)]
+    launched = ct.c_int(0)
+    rc = _lib().mc_obmc(ptrs, dims, len(planes), *arg[0], *arg[1], bd,
+                        torch.cuda.current_stream(dev).cuda_stream,
+                        ct.byref(launched))
     if rc != 0:
         raise RuntimeError(f"mc_obmc kernel launch failed: CUDA error {rc}")
-    mc.LAUNCHES["mc_obmc"] += 1
+    mc.LAUNCHES["mc_obmc"] += launched.value
     return [p for _, p, _, _ in planes]
 
 
-def obmc_planes(planes, jobs, bd, top):
-    """Blend a frame's laps of one direction into their planes
-    (obmc_cuda's contract): one launch of the CUDA kernel for
+def obmc_planes(planes, top, left, bd):
+    """Blend a frame's laps into their planes, the top laps before the
+    left laps (obmc_cuda's contract): one launch of the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
     plane = planes[0][1]
     if plane.is_cuda:
-        return obmc_cuda(planes, jobs, bd, top)
+        return obmc_cuda(planes, top, left, bd)
     mc._cpu_only(plane)
     from .device import device_tables
     tb = device_tables(plane.device)
-    return obmc_planes_plain(planes, jobs, bd, tb["mc_filter_banks"],
-                             tb["mc_obmc_masks"], top)
+    return obmc_frame_plain(planes, top, left, bd, tb["mc_filter_banks"],
+                            tb["mc_obmc_masks"])

@@ -9,11 +9,11 @@ and compound tables whose classes end in ragged kernel blocks or split
 into 32-wide tiles; the warp and OBMC kernels on their seeded cases
 (every plane in one launch, 4:2:0, 4:2:2 and 4:4:4, bd 8/10/12,
 extreme shears, every lap geometry, laps cut at the plane edges, top
-before left); the CDEF, Wiener and SGR kernels on their seeded cases
+before left in one launch, ragged lap counts); the CDEF, Wiener and SGR kernels on their seeded cases
 (bd 8/10/12, every layout, every unit size and stripe height; CDEF
 also on tiles wholly outside the crop and on exact direction-cost
-ties; Wiener also in one launch over the items of every plane of a
-frame). Marked
+ties; Wiener and SGR also in one launch over the items of every plane
+of a frame). Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -358,27 +358,41 @@ def test_mc_warp_kernel_vs_plain(cuda, bd, layout):
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-def test_mc_obmc_kernel_vs_plain(cuda, bd, layout):
+@pytest.mark.parametrize("cut", [(None, None), (-1, -2), (5, None),
+                                 (None, 7)],
+                         ids=["whole", "ragged", "top-only-5", "left-only-7"])
+def test_mc_obmc_kernel_vs_plain(cuda, bd, layout, cut):
     # every lap geometry the emitter writes, every filter type, top and
-    # left laps on the same blocks (two launches in order), laps cut at
-    # the plane's right and bottom edges
+    # left laps on the same blocks (one launch, the top laps before the
+    # left laps), laps cut at the plane's right and bottom edges; lap
+    # counts that are not multiples of the 3 laps of a block, and one
+    # direction alone (the other None)
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import mc, mc_obmc
     from dav1d_tpu_torch.ops.device import device_tables
     tb = device_tables(cuda)
     case = kc.obmc_case(bd, seed=bd, ss_hor=LAYOUTS[layout][0],
                         ss_ver=LAYOUTS[layout][1])
+    if cut[0] == 5:
+        top, left = _t(case["top"][:5], cuda), None
+    elif cut[1] == 7:
+        top, left = None, _t(case["left"][:7], cuda)
+    else:
+        top, left = (_t(case[k][:c], cuda)
+                     for k, c in zip(("top", "left"), cut))
     got, want = (kc.case_planes(case, cuda) for _ in range(2))
     before = mc.LAUNCHES["mc_obmc"]
-    for top, key in ((1, "top"), (0, "left")):
-        jobs = _t(case[key], cuda)
-        mc_obmc.obmc_cuda(got, jobs, bd, top)
-        mc_obmc.obmc_planes_plain(want, jobs, bd, tb["mc_filter_banks"],
-                                  tb["mc_obmc_masks"], top)
-    assert mc.LAUNCHES["mc_obmc"] == before + 2
+    mc_obmc.obmc_cuda(got, top, left, bd)
+    assert mc.LAUNCHES["mc_obmc"] == before + 1
+    mc_obmc.obmc_frame_plain(want, top, left, bd, tb["mc_filter_banks"],
+                             tb["mc_obmc_masks"])
     torch.cuda.synchronize()
-    for p, (_, g, _, _), (_, w, _, _) in zip(case["planes"], got, want):
-        assert not torch.equal(w, _t(p["plane"], cuda))
+    changed = [not torch.equal(w, _t(p["plane"], cuda))
+               for p, (_, w, _, _) in zip(case["planes"], want)]
+    # every plane has laps in the whole and ragged tables; a few laps of
+    # one direction may leave a plane untouched
+    assert all(changed) if cut[0] != 5 and cut[1] != 7 else any(changed)
+    for (_, g, _, _), (_, w, _, _) in zip(got, want):
         assert torch.equal(g, w)
 
 
@@ -394,10 +408,16 @@ def test_warp_obmc_wrapper_checks(cuda):
             (1, 11), dtype=torch.int32, device=cuda), 8)
     with pytest.raises(ValueError):
         mc_obmc.obmc_cuda([([ref], ref.clone(), 17, 16)], torch.zeros(
-            (1, 13), dtype=torch.int32, device=cuda), 8, 1)
+            (1, 13), dtype=torch.int32, device=cuda), None, 8)
     with pytest.raises(ValueError):
         mc_obmc.obmc_cuda(planes, torch.zeros(
-            (1, 13), dtype=torch.int32, device=cuda), 9, 1)
+            (1, 13), dtype=torch.int32, device=cuda), None, 9)
+    with pytest.raises(ValueError):         # the left table's width
+        mc_obmc.obmc_cuda(planes, torch.zeros(
+            (1, 13), dtype=torch.int32, device=cuda), torch.zeros(
+            (1, 12), dtype=torch.int32, device=cuda), 8)
+    with pytest.raises(ValueError):         # no laps at all
+        mc_obmc.obmc_cuda(planes, None, None, 8)
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
@@ -432,29 +452,26 @@ def test_cdef_kernel_vs_plain(cuda, bd, layout, geo):
                          ids=["wmax48", "wmax96", "wmax192", "wmax384"])
 @pytest.mark.parametrize("hmax", [64, 32])
 def test_lr_kernel_vs_plain(cuda, bd, kind, us_log2, hmax):
-    # one launch over a plane's items: all 16 edge-flag combinations,
-    # every stripe height, Wiener taps at their limits, every SGR
-    # parameter row (s0 = 0 and s1 = 0 among them), SGR's int32
-    # overflows at 12 bit
+    # one launch over a plane's items, through the frame entry: all 16
+    # edge-flag combinations, every stripe height, Wiener taps at their
+    # limits, every SGR parameter row (s0 = 0 and s1 = 0 among them),
+    # SGR's int32 overflows at 12 bit
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import lr
-    from dav1d_tpu_torch.ops.device import device_tables
-    args = kc.lr_args(kc.lr_case_at(bd, kind, us_log2, hmax), cuda)
-    want = args[2].clone()
+    planes, tables, bd = kc.frame_args(kc.lr_frame_case(kc.lr_case_at(
+        bd, kind, us_log2, hmax)), cuda, kind)
+    want = [p[2].clone() for p in planes]
+    (lr.wiener_frame_plain if kind == "wiener" else lr.sgr_frame_plain)(
+        [(s, q, d, w, h) for (s, q, _, w, h), d in zip(planes, want)],
+        tables, bd)
     name = "lr_" + kind
     before = lr.LAUNCHES[name]
-    if kind == "wiener":
-        lr.wiener_cuda(*args)
-        lr.wiener_items_plain(*args[:2], want, *args[3:])
-    else:
-        lr.sgr_cuda(*args)
-        lr.sgr_items_plain(*args[:2], want, *args[3:],
-                           device_tables(cuda)["sgr_x_by_x"])
+    (lr.wiener_frame_cuda if kind == "wiener" else lr.sgr_frame_cuda)(
+        planes, tables, bd)
     assert lr.LAUNCHES[name] == before + 1
     torch.cuda.synchronize()
-    assert not torch.equal(want, kc.lr_args(kc.lr_case_at(
-        bd, kind, us_log2, hmax), cuda)[2])
-    assert torch.equal(args[2], want)
+    assert not torch.equal(want[0], planes[0][0])
+    assert torch.equal(planes[0][2], want[0])
 
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
@@ -466,8 +483,8 @@ def test_wiener_frame_kernel_vs_plain(cuda, bd, layout):
     # both plane edges, items of two column tiles
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import lr
-    planes, tables, bd = kc.wiener_frame_args(
-        kc.wiener_frame_case(bd, layout), cuda)
+    planes, tables, bd = kc.frame_args(kc.frame_case(bd, layout, "wiener"),
+                                       cuda, "wiener")
     want = [p[2].clone() for p in planes]
     lr.wiener_frame_plain([(s, q, d, w, h) for (s, q, _, w, h), d
                            in zip(planes, want)], tables, bd)
@@ -483,8 +500,8 @@ def test_wiener_frame_kernel_vs_plain(cuda, bd, layout):
 def test_wiener_frame_wrapper_checks(cuda):
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import lr
-    planes, (items, rowt), bd = kc.wiener_frame_args(
-        kc.wiener_frame_case(8, 1), cuda)
+    planes, (items, rowt), bd = kc.frame_args(kc.frame_case(8, 1, "wiener"),
+                                              cuda, "wiener")
     before = lr.LAUNCHES["lr_wiener"]
     with pytest.raises(TypeError):          # a plane of the wrong dtype
         lr.wiener_frame_cuda([(planes[0][0].long(), *planes[0][1:])] +
@@ -504,6 +521,54 @@ def test_wiener_frame_wrapper_checks(cuda):
     with pytest.raises(ValueError):         # bit depth
         lr.wiener_frame_cuda(planes, (items, rowt), 9)
     assert lr.LAUNCHES["lr_wiener"] == before
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3, "lr_cases"],
+                         ids=["400", "420", "422", "444", "lr_cases"])
+def test_sgr_frame_kernel_vs_plain(cuda, bd, layout):
+    # every plane's SGR items in exactly one launch, reading the
+    # unpadded planes: planes of different shapes, every edge flag at
+    # both plane edges, every parameter row, items of two column tiles;
+    # and every SGR case of lr_cases as a frame of one plane (every unit
+    # size and stripe height, SGR's int32 overflows at 12 bit)
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import lr
+    cases = [kc.lr_frame_case(c) for c in kc.lr_cases((bd,))
+             if c["kind"] == "sgr"] if layout == "lr_cases" else \
+        [kc.frame_case(bd, layout, "sgr")]
+    for case in cases:
+        planes, tables, bd = kc.frame_args(case, cuda, "sgr")
+        want = [p[2].clone() for p in planes]
+        lr.sgr_frame_plain([(s, q, d, w, h) for (s, q, _, w, h), d
+                            in zip(planes, want)], tables, bd)
+        before = lr.LAUNCHES["lr_sgr"]
+        lr.sgr_frame(planes, tables, bd)
+        assert lr.LAUNCHES["lr_sgr"] == before + 1
+        torch.cuda.synchronize()
+        for (src, _, got, _, _), w in zip(planes, want):
+            assert not torch.equal(w, src)
+            assert torch.equal(got, w)
+
+
+def test_sgr_frame_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import lr
+    planes, (items, rowt), bd = kc.frame_args(kc.frame_case(8, 1, "sgr"),
+                                              cuda, "sgr")
+    before = lr.LAUNCHES["lr_sgr"]
+    with pytest.raises(TypeError):          # a table of the wrong dtype
+        lr.sgr_frame_cuda(planes, (items.astype(np.int64), rowt), bd)
+    with pytest.raises(ValueError):         # Wiener's table width
+        lr.sgr_frame_cuda(planes, kc.frame_args(
+            kc.frame_case(8, 1, "wiener"), cuda, "wiener")[1], bd)
+    with pytest.raises(ValueError):         # row tables too narrow
+        lr.sgr_frame_cuda(planes, (items, rowt[:, :-1].copy()), bd)
+    with pytest.raises(ValueError):         # a plane index past the list
+        lr.sgr_frame_cuda(planes[:2], (items, rowt), bd)
+    with pytest.raises(ValueError):         # bit depth
+        lr.sgr_frame_cuda(planes, (items, rowt), 9)
+    assert lr.LAUNCHES["lr_sgr"] == before
 
 
 def test_filter_wrapper_checks(cuda):
@@ -526,17 +591,18 @@ def test_filter_wrapper_checks(cuda):
     with pytest.raises(ValueError):         # rows not 16-byte vectors
         cdef.cdef_cuda([p[:, 2:].contiguous() for p in planes], maps, Hy,
                        Wy, layout, bd, damping)
-    args = kc.lr_args(kc.lr_case_at(8, "wiener", 5, 64), cuda)
-    with pytest.raises(TypeError):
-        lr.wiener_cuda(*args[:3], args[3].long(), *args[4:])
-    with pytest.raises(ValueError):
-        lr.wiener_cuda(args[0].cpu(), *args[1:])
-    with pytest.raises(ValueError):
-        lr.wiener_cuda(*args[:3], args[3][:, :-1].contiguous(), *args[4:])
-    with pytest.raises(ValueError):
-        lr.wiener_cuda(*args[:-3], 128, *args[-2:])
-    args = kc.lr_args(kc.lr_case_at(8, "sgr", 5, 32), cuda)
-    with pytest.raises(ValueError):
-        lr.sgr_cuda(*args[:4], args[4][:-1], *args[5:])
-    with pytest.raises(ValueError):
-        lr.sgr_cuda(*args[:-1], 9)
+    planes, (items, rowt), bd = kc.frame_args(kc.lr_frame_case(
+        kc.lr_case_at(8, "wiener", 5, 64)), cuda, "wiener")
+    with pytest.raises(TypeError):          # a row table of int64
+        lr.wiener_frame_cuda(planes, (items, rowt.astype(np.int64)), bd)
+    with pytest.raises(ValueError):         # a CPU plane
+        lr.wiener_frame_cuda([(planes[0][0].cpu(), *planes[0][1:])],
+                             (items, rowt), bd)
+    with pytest.raises(ValueError):         # rows past the plane's hmax
+        lr.wiener_frame_cuda([(*planes[0][:4], 30)], (items, rowt), bd)
+    planes, (items, rowt), bd = kc.frame_args(kc.lr_frame_case(
+        kc.lr_case_at(8, "sgr", 5, 32)), cuda, "sgr")
+    with pytest.raises(ValueError):         # one row table short
+        lr.sgr_frame_cuda(planes, (items, rowt[:-1].copy()), bd)
+    with pytest.raises(ValueError):         # bit depth
+        lr.sgr_frame_cuda(planes, (items, rowt), 9)

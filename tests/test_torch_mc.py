@@ -238,8 +238,7 @@ def _port_warp(case, bd):
 
 def _port_obmc(case, bd):
     planes = kc.case_planes(case, "cpu")
-    for top, key in ((1, "top"), (0, "left")):
-        mc_obmc.obmc_planes(planes, T(case[key]), bd, top)
+    mc_obmc.obmc_planes(planes, T(case["top"]), T(case["left"]), bd)
     return [p.numpy() for _, p, _, _ in planes]
 
 
@@ -372,7 +371,7 @@ def test_warp_obmc_wrappers_route_by_device(monkeypatch):
     case = kc.obmc_case(8, seed=2)
     planes = kc.case_planes(case, "cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        mc_obmc.obmc_cuda(planes, T(case["top"]), 8, 1)
+        mc_obmc.obmc_cuda(planes, T(case["top"]), T(case["left"]), 8)
     wcase = kc.warp_case(8, seed=2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         mc_warp.warp_cuda(kc.case_planes(wcase, "cpu"),
@@ -382,7 +381,7 @@ def test_warp_obmc_wrappers_route_by_device(monkeypatch):
                       (mc_warp, "warp_planes_plain")):
         monkeypatch.setattr(mod, name, lambda *a, name=name:
                             calls.append(name))
-    mc_obmc.obmc_planes(planes, T(case["top"]), 8, 1)
+    mc_obmc.obmc_planes(planes, T(case["top"]), None, 8)
     mc_warp.warp_planes(kc.case_planes(wcase, "cpu"), T(wcase["jobs"]), 8)
     assert calls == ["obmc_planes_plain", "warp_planes_plain"]
     with pytest.raises(ValueError, match="direction"):
@@ -391,3 +390,39 @@ def test_warp_obmc_wrappers_route_by_device(monkeypatch):
     big[0, 2] = 128
     with pytest.raises(ValueError, match="geometry"):
         mc_obmc.check_geometry(big, 1)
+    # a top lap of more than 24 blended rows, a left lap of more than 24
+    # blended columns: larger than the kernel's shared buffers
+    for key, top, col in (("top", 1, 3), ("left", 0, 2)):
+        big = case[key].copy()
+        big[0, col] = 64
+        with pytest.raises(ValueError, match="geometry"):
+            mc_obmc.check_geometry(big, top)
+
+
+@pytest.mark.parametrize("bd", [8, 12])
+def test_obmc_lap_assignment_equals_top_then_left(bd):
+    """csrc/mc_obmc.cu's assignment of laps (a warp per lap, 3 to a
+    block, the grid's warps striding over the top laps, a grid-wide
+    barrier, then over the left laps; torch_port_cases.
+    obmc_assigned_plain) equals obmc_frame_plain, all top laps then all
+    left laps, on the OBMC case: grids of one block (3 warps, 20
+    rounds), of 7 blocks (21 warps: the 60 laps end in a ragged round)
+    and as large as the card holds (132 SMs x 5 blocks: one round), on
+    the whole tables and on tables cut to counts that are not multiples
+    of 3 (59 top, 58 left laps)."""
+    from torch_port_cases import obmc_assigned_plain
+    tb = device_tables("cpu")
+    case = kc.obmc_case(bd, seed=40 + bd)
+    for cut in ((None, None), (-1, -2)):
+        top, left = (T(case[k][:c]) for k, c in zip(("top", "left"), cut))
+        want = kc.case_planes(case, "cpu")
+        mc_obmc.obmc_frame_plain(want, top, left, bd, tb["mc_filter_banks"],
+                                 tb["mc_obmc_masks"])
+        for blocks in (1, 7, 132 * 5):
+            got = kc.case_planes(case, "cpu")
+            obmc_assigned_plain(got, top, left, bd, tb["mc_filter_banks"],
+                                tb["mc_obmc_masks"], blocks)
+            for (_, g, _, _), (_, w, _, _), p in zip(got, want,
+                                                     case["planes"]):
+                assert not torch.equal(w, T(p["plane"]))
+                assert torch.equal(g, w)
