@@ -39,8 +39,10 @@ exits nonzero and prints no "ok" line:
 6. kernel_warp_obmc - the warp and OBMC kernels against their plain
                 versions (torch.equal): bd 8/10/12, 4:2:0, 4:2:2 and
                 4:4:4, every plane in one launch; warps with random and
-                extreme shears (filter rows 0 and 192), windows across
-                every frame edge; every lap geometry the emitter writes
+                extreme shears (filter rows 0 and 192), windows inside,
+                across every frame edge and wholly outside it, on a
+                table that fills its last block of 8 warps and one that
+                ends it ragged; every lap geometry the emitter writes
                 with every filter type, top and left laps on the same
                 blocks in one launch (top before left), laps cut at the
                 plane's right and bottom edges, lap counts that are not
@@ -58,13 +60,17 @@ exits nonzero and prints no "ok" line:
                 frame's planes of different shapes, every edge flag at
                 both plane edges
 8. kernel_real- the first 2 temporal units of the s7 stream, then of the
-                s31 stream, decoded on cuda with every launch of the
-                inter frame checked against the plain version on the
-                same inputs (s7: put, compound, residual; s31: those,
-                warp and OBMC); then, on those inputs, each kernel's
+                s33 stream and of the s31 stream, decoded on cuda with
+                every launch of the inter frame checked against the
+                plain version on the same inputs (s7: put, compound,
+                residual; s33 and s31: those, warp and OBMC); then, on
+                those inputs, each kernel's
                 device time (torch.profiler), per launch too, beside its
                 block count and the time of a launch of its largest
-                block alone; the plain version's ms and the bound; the
+                block (warp: its first tile) alone, the floor below
+                which a launch's reading is retaken and, after 3
+                traces, replaced by CUDA events'; the plain version's ms
+                and the bound; the
                 same for the CDEF, Wiener and SGR launches of the inter
                 frame, rerun on the planes and tables the decode gave
                 them (torch.equal); and the deblock of that frame's
@@ -85,8 +91,10 @@ exits nonzero and prints no "ok" line:
                 ms of the work each stage launched (CDEF, Wiener and SGR
                 among them; credited through the runtime calls the host
                 made inside the stage, and the count of stages in which
-                a kernel launched but nothing was credited) beside their
-                bounds per picture
+                a kernel launched but nothing was credited: such a trace
+                is retaken, and after 3 each stage's CUDA-event ms are
+                given instead, noted in the credit's `timer`) beside
+                their bounds per picture
 12. inter_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
 13. inter_main - the main path: all 8 frames of the primary bench stream
@@ -94,7 +102,14 @@ exits nonzero and prints no "ok" line:
                 each of the nine kernels launched (count > 0)
 14. inter_main_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s33_enc.ivf (4K 10-bit)
-15. kernels   - the per-kernel summary line (launches from inter_main;
+15. golden_walks - the GOLDEN_WALKS streams (tests/data/torch_golden/:
+                interintra, blocks on scaled references with 8-tap and
+                bilinear filters, scaled compounds, warped compounds of
+                global motion, 4:4:4 intrabc frames) decoded on cuda to
+                their golden md5s, i444-intrabc's frames through the
+                host intrabc walk, every other stream's leftover blocks
+                through the host golden inter walk
+16. kernels   - the per-kernel summary line (launches from inter_main;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame)
 
@@ -158,6 +173,45 @@ MD5_S31 = "2028903f9e5e69af98b0348d5e246e13"
 MD5S_S33 = ["2ed9103fb6b4e5d644968bac73475bed",
             "b002aae1da5dad11bfaeb690e02324eb"]
 MD5_S33 = "9c5ef1fd85042a0f5a78c9e22a1aad6f"
+# the streams of the host golden walks (tests/torch_port_cases.py
+# GOLDEN_WALKS: leftovers that are not pure intra, intrabc frames),
+# committed under GOLDEN_DIR: per picture and over the stream, the md5s
+# of dav1d_tpu's golden numpy path (the recipe of MD5S_S7)
+GOLDEN_DIR = "tests/data/torch_golden"
+GOLDEN_WALKS = {
+    "interintra": ([
+        "b51d9fe04f7b1ccda13f06c37c4d02a7",
+        "bb082a011dfad46646abc50b00223c09",
+        "c9694df0a7d74d45682707a660ef440c",
+        "858ff9c3524b8d239a18f97739a0f68d",
+        "e901f9863a40740c31d979c444973cf0"],
+        "082cc584f3404d73a4470fe63e04f663"),
+    "scaled-ref": ([
+        "3a7b61513ad272ec99fad7569eeee006",
+        "1d09e5943b3b265c2c6d454f54cf7ff6",
+        "1f80038e5848d9789015ce697b359adf"],
+        "3deb78aea7a4adaa2ad81f348df5c161"),
+    "scaled-ref-bilin": ([
+        "fc370c12cc1686efc7a11cf6665600ff",
+        "5ee7278384fda49bde370bf140188200",
+        "a6f5a4989e5350fe5dc5888ff59f9ed1"],
+        "aa7f923769e695e542ead4b731386a0f"),
+    "scaled-ref-compound": ([
+        "de905a63f314787e5b62b570a27d261a",
+        "376e147ebb3a9c44f7d952363ffaca29",
+        "d8349135dd7437c042269b79d78a0f4f",
+        "19b6fd60f1009ec7d99322cce55b6f90"],
+        "dbe88cf410ac60997573bb2be5ca15c5"),
+    "gmv-compound": ([
+        "c592adce0c1ce94510b3cb0b99c0b1f2",
+        "fd5c4363073048b8f999e019c3126afc",
+        "9373ccbd697084195846ab77f58803c7",
+        "e92965be78ad51615be9ddb3b013a759"],
+        "0c6952401fb7efa5c3b3b2ef74ec19f4"),
+    "i444-intrabc": ([
+        "d5ba24a049e6d0e44d9a01a11b49b424",
+        "39df4a5e05d890c910eef9d5442e01f5"],
+        "4e0798ea6c5711b258752c57151ab9f9")}
 KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc",
            "cdef", "lr_wiener", "lr_sgr")
 # the in-loop filter kernels after the deblock; every stream phase's
@@ -600,15 +654,19 @@ def phase_kernel_warp_obmc(torch, card):
     for bd, ss in itertools.product((8, 10, 12), ((1, 1), (1, 0), (0, 0))):
         seed = bd + 3 * ss[0] + ss[1]
         case = kc.warp_case(bd, seed, *ss)
-        jobs = _t(torch, case["jobs"], dev)
-        got, want = (kc.case_planes(case, dev) for _ in range(2))
-        mc_warp.warp_cuda(got, jobs, bd)
-        mc_warp.warp_planes_plain(want, jobs, bd, tb["mc_warp_filter"])
-        torch.cuda.synchronize()
-        for pi, (g, w) in enumerate(zip(got, want)):
-            errs["mc_warp"] = max(errs["mc_warp"], _check_equal(
-                torch, g[1], w[1], f"mc_warp bd={bd} ss={ss} plane {pi}"))
-        n_warp += len(jobs)
+        # the whole table (its last block of 8 warps full), then one cut
+        # to end its last block ragged
+        for cut in (None, -5):
+            jobs = _t(torch, case["jobs"][:cut], dev)
+            got, want = (kc.case_planes(case, dev) for _ in range(2))
+            mc_warp.warp_cuda(got, jobs, bd)
+            mc_warp.warp_planes_plain(want, jobs, bd, tb["mc_warp_filter"])
+            torch.cuda.synchronize()
+            for pi, (g, w) in enumerate(zip(got, want)):
+                errs["mc_warp"] = max(errs["mc_warp"], _check_equal(
+                    torch, g[1], w[1], f"mc_warp bd={bd} ss={ss} "
+                    f"cut={cut} plane {pi}"))
+            n_warp += len(jobs)
         case = kc.obmc_case(bd, seed, *ss)
         # the whole tables, then counts that are not multiples of 3
         for cut in ((None, None), (-1, -2)):
@@ -1050,7 +1108,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
 
     # each launch, given fresh copies of its inputs; with `largest`, each
     # put, compound and residual launch keeps only the block of its table
-    # that covers the most pixels
+    # that covers the most pixels, and each warp launch its first tile
     def runners(name, plain, largest=False):
         out = []
         if name in FILTER_KERNELS:
@@ -1072,7 +1130,9 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                 out.append(([p[2] for p in c[0]], None, fn))
             return out
         for c in calls[name]:
-            if largest and c[-1] is not None:
+            if largest and name == "mc_warp":
+                c = (c[0], c[1][:1], *c[2:])
+            elif largest and c[-1] is not None:
                 i = _largest_block(name, c[-1].cpu().numpy())
                 c = (*c[:-1], c[-1][i:i + 1])
             if name in ("mc_put", "mc_warp", "mc_obmc"):
@@ -1128,16 +1188,21 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             rounds.append(row)
         return rounds
 
-    def device_us(name, largest=False):
+    def device_us(name, largest=False, floor=None):
         """(total, per launch) device us of one round of the frame's
         launches, from torch.profiler: median of the last `reps` of
         reps + 3 rounds (the trace may miss the first kernels: up to 2
-        seen). A trace that holds fewer is taken again, up to 3 times;
-        on the card whole traces have come back empty three times
-        running, and then each launch is timed by CUDA events instead
-        (median of `reps` rounds), noted in `timers`: an upper bound, as
-        the pair also spans the wrapper's host work and uploads."""
+        seen). A trace that holds fewer, or in which a launch reads
+        below its floor (`floor`, us a launch: what it cannot beat), is
+        taken again, up to 3 times. On the card whole traces have come
+        back empty three times running, and a launch has read below the
+        time of its work's first tile alone; after 3 such traces each
+        launch is timed by CUDA events instead (median of `reps`
+        rounds), noted in `timers` with what the last trace showed: an
+        upper bound, as the pair also spans the wrapper's host work and
+        uploads."""
         n = len(calls[name])
+        floor = floor or [0.0] * n
         for _attempt in range(3):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1149,17 +1214,21 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                           if e.device_type == torch.autograd.DeviceType.CUDA
                           and any(k in e.name for k in names[name])),
                          key=lambda e: e.time_range.start)
-            if len(evs) >= reps * n:
-                break
-        else:
-            timers[name] = f"events (profiler saw {len(evs)} kernels)"
-            rounds = event_rounds(name, False, reps, largest)
-            per = [1e3 * sorted(r[i] for r in rounds)[reps // 2]
-                   for i in range(n)]
-            return sum(per), per
-        evs = evs[len(evs) - reps * n:]
-        per = [sorted(evs[r * n + i].time_range.elapsed_us()
-                      for r in range(reps))[reps // 2] for i in range(n)]
+            if len(evs) < reps * n:
+                seen = f"profiler saw {len(evs)} kernels"
+                continue
+            evs = evs[len(evs) - reps * n:]
+            per = [sorted(evs[r * n + i].time_range.elapsed_us()
+                          for r in range(reps))[reps // 2] for i in range(n)]
+            low = [i for i in range(n) if per[i] < floor[i]]
+            if not low:
+                return sum(per), per
+            seen = (f"profiler read launch {low[0]} at {per[low[0]]} us, "
+                    f"below its floor {floor[low[0]]} us")
+        timers[f"{name}{' alone' if largest else ''}"] = f"events ({seen})"
+        rounds = event_rounds(name, False, reps, largest)
+        per = [1e3 * sorted(r[i] for r in rounds)[reps // 2]
+               for i in range(n)]
         return sum(per), per
 
     def floor_us():
@@ -1185,9 +1254,21 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     reps = 5
     res = {}
     timers = {}
+    fill = floor_us()
     for name in calls:
         frame_ms(name, False, 1)                          # warm-up
-        dev_us, per_launch = device_us(name)
+        # a launch's floor: a one-element fill; for the kernels with job
+        # tables also 0.9 of the profiled time of the launch cut to one
+        # block of its table (put, compound, residual: the largest;
+        # warp: the first tile), which the whole launch runs among its
+        # other blocks (0.9 for the trace's jitter)
+        floor = [fill or 0.0] * len(calls[name])
+        alone = None
+        if name in ("mc_put", "mc_comp", "itx_add", "mc_warp"):
+            alone = device_us(name, True, floor)[1]
+            if f"{name} alone" not in timers:
+                floor = [max(f, 0.9 * a) for f, a in zip(floor, alone)]
+        dev_us, per_launch = device_us(name, floor=floor)
         if not dev_us:
             raise RuntimeError(f"torch.profiler reported no device time "
                                f"for {name}")
@@ -1201,9 +1282,10 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
             extra = {"blocks_per_launch": [
                 len(lr.item_blocks(c[1][0])) for c in calls[name]]}
         elif name == "mc_warp":
-            # one kernel block per four tiles, no block table
-            extra = {"blocks_per_launch": [-(-len(c[1]) // 4)
-                                           for c in calls[name]]}
+            # a warp per tile, 8 a block, no block table
+            extra = {"blocks_per_launch": [-(-len(c[1]) // 8)
+                                           for c in calls[name]],
+                     "tile_alone_us": alone}
         elif name == "mc_obmc":
             # a warp per lap, 3 a block, as many blocks as the card holds
             # at once (fewer for fewer laps), top laps then left laps
@@ -1217,7 +1299,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         else:
             extra = {"blocks_per_launch": [len(c[-1])
                                            for c in calls[name]],
-                     "largest_block_alone_us": device_us(name, True)[1]}
+                     "largest_block_alone_us": alone}
         bytes_ = ops = 0
         for c in calls[name]:
             if name == "cdef":
@@ -1292,7 +1374,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
         "bound_two_pass_us": two / HBM_BYTES_PER_S * 1e6}
     emit({"phase": "kernel_real", "card": card, "stream": stream,
           "temporal_unit": 1, "md5s": md5s, "equal": True,
-          "one_element_fill_us": floor_us(), "kernels": res,
+          "one_element_fill_us": fill, "kernels": res,
           "device_timers": timers or "profiler", "deblock": deblock_real,
           "library_ms": "null: no single PyTorch call computes a "
           "clamped-window 8-tap put, an affine-warped 8x8 tile, a masked "
@@ -1404,9 +1486,12 @@ def _stage_device(torch, path, **kw):
     no aten op owns). Returns the decode's md5; the device ms per label;
     the bytes each LR filter must move (the pixels it restores, int32,
     read and written once, and its unit tables, as _lr_work counts
-    them); and per label the ranges in which a kernel of the port
-    launched (its launch count moved) but no device time was credited,
-    beside how the device activity was credited."""
+    them); per label the ranges in which a kernel of the port launched
+    (its launch count moved) but no device time was credited, beside
+    how the device activity was credited; and per label the CUDA-event
+    ms of its ranges (an event recorded as each range begins, one after
+    its synchronize: an upper bound of its device time, as the pair
+    also spans the host's work inside the range)."""
     from contextlib import contextmanager
     from torch.profiler import ProfilerActivity, profile, record_function
     from dav1d_tpu_torch.ops import lr
@@ -1416,29 +1501,36 @@ def _stage_device(torch, path, **kw):
     labels = set()
     lr_bytes = {"lr.wiener": 0, "lr.sgr": 0}
     launched = {}       # label: launches inside each of its ranges
+    events_ms = {}
 
     def total():
         return sum(_counts().values())
 
     @contextmanager
-    def phase(label):
+    def span(label):
         labels.add(label)
         n0 = total()
-        with record_function(label), orig["phase"](label):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        with record_function(label):
             yield
             torch.cuda.synchronize()
+        b.record()
+        b.synchronize()
         launched.setdefault(label, []).append(total() - n0)
+        events_ms[label] = events_ms.get(label, 0.0) + a.elapsed_time(b)
+
+    @contextmanager
+    def phase(label):
+        with span(label), orig["phase"](label):
+            yield
 
     def annotate(label, fn, name):
         def run(*a, **k):
-            labels.add(label)
             lr_bytes[label] += _lr_work(name, a)[0]
-            n0 = total()
-            with record_function(label):
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-            launched.setdefault(label, []).append(total() - n0)
-            return out
+            with span(label):
+                return fn(*a, **k)
         return run
     timing.phase = phase
     lr.wiener_frame = annotate("lr.wiener", orig["wiener"], "lr_wiener")
@@ -1481,7 +1573,8 @@ def _stage_device(torch, path, **kw):
         if k:
             misses[label] = k
     return digest, stage, lr_bytes, {"misses": misses, "credited": how,
-                                     "runtime_calls": len(runtime)}
+                                     "runtime_calls": len(runtime)}, \
+        events_ms
 
 
 def _filter_bounds(pic, n_pics, lr_bytes):
@@ -1536,10 +1629,21 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
     d3, busy_ms, prof_wall, kernel_ms = _profiled(torch, path, **kw)
     if d3 != md5:
         raise AssertionError(f"{name}: md5 {d3} in the profiled decode")
-    d4, stage_dev, lr_bytes, credit = _stage_device(torch, path, **kw)
-    if d4 != md5:
-        raise AssertionError(f"{name}: md5 {d4} in the synchronous "
-                             f"profiled decode")
+    # a trace that credits nothing to a range in which a kernel
+    # launched is taken again, up to 3 times; then each stage's device
+    # ms are its CUDA-event ms (an upper bound), noted in its `timer`
+    for _attempt in range(3):
+        d4, stage_dev, lr_bytes, credit, events_ms = _stage_device(
+            torch, path, **kw)
+        if d4 != md5:
+            raise AssertionError(f"{name}: md5 {d4} in the synchronous "
+                                 f"profiled decode")
+        if not credit["misses"]:
+            credit["timer"] = "profiler"
+            break
+    else:
+        stage_dev = events_ms
+        credit["timer"] = "events"
     emit({"phase": name, "stream": path, "md5": digest, "pictures": n_pics,
           "luma_shape": list(y.shape), "launches": launches,
           "first_wall_ms": wall_first, "synced_wall_ms": wall_timed,
@@ -1554,6 +1658,48 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
           "filter_bound_ms_per_picture": _filter_bounds(pics[0], n_pics,
                                                         lr_bytes)})
     return launches
+
+
+def phase_golden_walks(torch):
+    """Decode the GOLDEN_WALKS streams on cuda through the public API:
+    picture and stream md5s, the launch counts of each run, and the
+    walks it took (leftover blocks of inter frames replayed through the
+    golden inter walk; intrabc frames through reconstruct_inter_frame):
+    i444-intrabc's frames through reconstruct_inter_frame, every other
+    stream's leftovers through the golden inter walk."""
+    from dav1d_tpu_torch.recon import inter_device, inter_ref
+    cls = inter_device.DeviceInterReconstructor
+    run_b, run_f = cls._recon_b_inter, inter_ref.reconstruct_inter_frame
+    walks = {}
+
+    def leftover(self, *a):
+        walks["leftover_blocks"] += 1
+        return run_b(self, *a)
+
+    def intrabc(*a):
+        walks["intrabc_frames"] += 1
+        return run_f(*a)
+    cls._recon_b_inter, inter_ref.reconstruct_inter_frame = leftover, intrabc
+    try:
+        for name, (pic_md5s, md5) in GOLDEN_WALKS.items():
+            walks.update(leftover_blocks=0, intrabc_frames=0)
+            _counts_reset()
+            pics, digest, wall, _, md5s = _decode(
+                f"{GOLDEN_DIR}/{name}.ivf", timed=False)
+            launches = _counts()
+            if md5s != pic_md5s or digest != md5:
+                raise AssertionError(f"golden_walks {name}: md5s {md5s} "
+                                     f"{digest} != {pic_md5s} {md5}")
+            walk = "intrabc_frames" if name == "i444-intrabc" \
+                else "leftover_blocks"
+            if not walks[walk]:
+                raise AssertionError(f"golden_walks {name}: no {walk} "
+                                     f"through the golden walk")
+            emit({"phase": "golden_walks", "stream": name, "md5": digest,
+                  "pictures": len(pics), **walks, "wall_ms": wall,
+                  "launches": {k: v for k, v in launches.items() if v}})
+    finally:
+        cls._recon_b_inter, inter_ref.reconstruct_inter_frame = run_b, run_f
 
 
 def main():
@@ -1575,9 +1721,10 @@ def main():
         lines[k]["max_abs_err"] = e
     for k, e in phase_kernel_filters(torch, card).items():
         lines[k]["max_abs_err"] = e
-    for args in ((), (STREAM_1080P, MD5S_S31, KERNELS[1:])):    # s7, s31
+    for args in ((), (STREAM_4K10, MD5S_S33, KERNELS[1:]),   # s7, s33,
+                 (STREAM_1080P, MD5S_S31, KERNELS[1:])):     # s31
         for k, r in phase_kernel_real(torch, card, *args).items():
-            # the kernels line keeps the main path's frame: s31's
+            # the kernels line keeps the main path's frame: s31's, last
             lines[k].update({f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by")})
             lines[k]["max_abs_err"] = max(lines[k]["max_abs_err"],
@@ -1600,6 +1747,7 @@ def main():
     phase_stream(torch, "inter_main_hbd", STREAM_4K10, MD5_S33,
                  (2176, 3840), "uint16", pic_md5s=MD5S_S33, need=KERNELS,
                  repeats=INTER_REPEATS, n_tu=2)
+    phase_golden_walks(torch)
     sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
                            "dav1d_tpu/ops/lf_pallas.py:74"),
                "mc_put": ("dav1d_tpu_torch/csrc/mc_put.cu",

@@ -685,8 +685,12 @@ class ObuStreamDecoder:
             from .recon.inter_device import reconstruct_inter_frame_device
             pic = reconstruct_inter_frame_device(plan, refp, self.device)
         else:
-            raise NotImplementedError(
-                "intrabc frames not ported yet: ROADMAP item 5")
+            # intrabc frames copy from the picture being decoded: an
+            # inherently sequential walk (reference recon_tmpl.c:1583),
+            # on the host; the filter chain uploads its planes
+            from .recon.inter_ref import reconstruct_inter_frame
+            with timing.phase("intrabc.frame_recon"):
+                pic = reconstruct_inter_frame(plan, refp)
         pic = run_filter_chain_device(pic, plan,
                                       self.settings.inloop_filters,
                                       self.device)

@@ -29,8 +29,7 @@ jobs into one segment per transform size, the host sorts each plane's
 put, compound and residual jobs by class and cuts them into
 class-uniform kernel blocks (ops/mc.py put_blocks, comp_blocks,
 ops/itx.py res_blocks); warp tiles and OBMC laps go unsorted, one
-kernel block per four tiles, one warp per lap (ops/mc_warp.py,
-mc_obmc.py).
+warp per tile or lap (ops/mc_warp.py, mc_obmc.py).
 """
 from __future__ import annotations
 
@@ -76,26 +75,35 @@ def _wedge_lut(c):
 
 def _plane_tables(jobs, lut, bases, n_planes):
     """The emitter's tables with reference slots and pool offsets
-    resolved: "put", every plane's puts in one table, and "put_blocks",
+    resolved (lut: refidx -> slot of the device references, -1 for one
+that is not on the device, which no job may read): "put", every
+plane's puts in one table, and "put_blocks",
     its put_blocks table (one launch serves all planes); "warp", every
     plane's warp tiles, and ("obmc", top) for top in 1, 0, every
     plane's laps of that direction; per plane, {(kind, plane): (n, K)
     int32}, kind in comp, res, wht, plus the kernels' block tables
     comp_blocks and res_blocks. Put, comp and res rows are class-sorted
     to match their blocks."""
+    def slots(refidx):
+        s = lut[refidx]
+        if (s < 0).any():
+            raise ValueError("a device job reads a reference that is not "
+                             "on the device (of another size)")
+        return s
+
     out = {}
     puts = jobs["puts"].copy()
-    puts[:, 5] = lut[puts[:, 5]]
+    puts[:, 5] = slots(puts[:, 5])
     out["warp"] = jobs["warps"].copy()
-    out["warp"][:, 3] = lut[out["warp"][:, 3]]
+    out["warp"][:, 3] = slots(out["warp"][:, 3])
     obmc = jobs["obmc"].copy()
-    obmc[:, 7] = lut[obmc[:, 7]]
+    obmc[:, 7] = slots(obmc[:, 7])
     for top in (1, 0):
         out["obmc", top] = obmc[obmc[:, 0] == top]
         mc_obmc.check_geometry(out["obmc", top], top)
     comp = jobs["comp"].copy()
-    comp[:, 18] = lut[comp[:, 18]]
-    comp[:, 24] = lut[comp[:, 24]]
+    comp[:, 18] = slots(comp[:, 18])
+    comp[:, 24] = slots(comp[:, 24])
     res = jobs["res"]
     cfoff = bases[res[:, 6]] + res[:, 5]
     rows, is_wht = itx.job_rows(res, cfoff)

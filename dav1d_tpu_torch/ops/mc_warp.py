@@ -87,9 +87,11 @@ def _lib():
         lib = load_library("mc_warp")
         lib.mc_warp_set_filter.restype = ct.c_int
         lib.mc_warp_set_filter.argtypes = [ct.c_void_p]
-        wf = np.ascontiguousarray(_warp_filter(), np.int32)
-        if wf.shape != (N_ROWS, 8):
-            raise ValueError(f"warp filter of shape {wf.shape}")
+        wf = np.asarray(_warp_filter())
+        if wf.shape != (N_ROWS, 8) or wf.min() < -128 or wf.max() > 127:
+            raise ValueError("the warp filter is not a (193, 8) bank of "
+                             "int8 taps")
+        wf = np.ascontiguousarray(wf, np.int8)
         rc = lib.mc_warp_set_filter(wf.ctypes.data)
         if rc != 0:
             raise RuntimeError(f"mc_warp: filter upload failed: CUDA "

@@ -5,39 +5,42 @@ the native job emitter (native/interjobs.cpp, bound in
 inter_jobs_native) writes the frame's job tables straight from the
 Stage-A pools, ops/mc_fused.execute runs them on the device (puts,
 warps, compounds luma before chroma, OBMC top then left laps,
-residuals), and the pure-intra leftover blocks replay on the host in
-decode order:
+residuals), and the leftover blocks replay on the host in decode order:
 
   the leftover rows are fetched from the device after the residual
-  pass, native/intrarec.cpp reconstructs the leftovers into the host
-  planes, and the replayed rows go back up before the filter chain.
+  pass; runs of pure-intra leftovers go through native/intrarec.cpp
+  (the golden walk where it declines), the other leftovers (interintra,
+  blocks on scaled references, bilinear or warped compounds) through
+  the golden InterReconstructor (recon/inter_ref.py) that this class
+  extends, reading every reference picture's host planes; the replayed
+  rows go back up before the filter chain.
 
 Correctness of the split (as in dav1d_tpu): inter prediction never
 reads the current picture, and intra edges only read raster-earlier
 pixels, so batching the device passes before the leftovers reproduces
 the reference's sequential walk. Reference planes are each reference
 picture's device planes (`Picture.dev`), uploaded once for a reference
-that has none.
+that has none; the device launches take only the references of the
+current frame's size (the emitter leaves every block on a scaled
+reference to the host).
 
-Not on this route, each raising NotImplementedError with its ROADMAP
-item: leftovers that are not pure intra or that the native engine
-cannot serve (5), frames the native emitter cannot serve (9; among them
-warped compounds, which the emitter leaves to the host path, and OBMC
-laps of a bilinear filter, which it never writes).
+Not on this route: frames the native emitter cannot serve (the Python
+collector walk, raising NotImplementedError with ROADMAP item 9; among
+them OBMC laps of a bilinear filter, which the emitter never writes).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..entropy import levels as lv
+from ..ops import itx_ref
 from ..ops.device import fetch_pic_host, fetch_rows, sync_if_timed, \
     upload_planes, upload_rows
 from ..utils import timing
-from .inter_ref import compute_jnt_weights
-from .picture import Picture
+from .inter_ref import InterReconstructor
 
 
-class DeviceInterReconstructor:
+class DeviceInterReconstructor(InterReconstructor):
     # job layouts (native/interjobs.cpp), each run on the device by
     # ops/mc_fused.execute:
     #  puts  (n, 11): plane, h, w, py, px, ref, dy, dx, amx, amy, ft
@@ -50,16 +53,9 @@ class DeviceInterReconstructor:
     #                 dy1, dx1, amx1, amy1, ft1, ref1
     #  res   (n, 7):  plane, tx, txtp, py, px, cf_local_off, tile_idx
     def __init__(self, plan, refp, device):
-        self.plan = plan
-        self.f = f = plan.f
-        self.bitdepth = 8 + 2 * f.seq_hdr.hbd if f.seq_hdr.hbd < 2 else 12
-        self.pic = Picture(f.frame_hdr.width[0], f.frame_hdr.height,
-                           int(f.layout), self.bitdepth)
-        self.refp = refp                      # 7 RefSlot objects
-        self.rf = f.rf
-        self.jnt_weights = compute_jnt_weights(f, refp)
+        super().__init__(plan, refp)
         self.device = device
-        self.leftovers = []
+        self.leftovers = np.zeros((0, 3), np.int64)
         self._lo_region = None   # (r0, r1) luma rows the host replay needs
         self._region_spans = None
 
@@ -84,42 +80,82 @@ class DeviceInterReconstructor:
         r1 = min(Hp, (ymax + 15) & ~7)
         return r0, r1
 
-    def _check_leftovers(self, lo):
-        from ..entropy import native_tile as nt
-        tiles_rec = self.plan.native_tiles
-        for gi, _tlf, tidx in lo.tolist():
-            tr = tiles_rec[tidx]
-            b = tr["blocks"][gi - tr["block_base"]]
-            if not b[nt.BF_INTRA] or b[nt.BF_INTERINTRA_TYPE]:
-                raise NotImplementedError(
-                    "inter leftovers that are not pure intra (interintra, "
-                    "scaled references, bilinear or warped compounds) not "
-                    "ported yet: ROADMAP item 5")
-
     def run_native(self, jobs):
         """Execute the emitter's job tables on the device, then replay
         the leftover blocks on the host."""
-        lo = jobs["leftovers"]
-        self.leftovers = lo.tolist()
+        lo = self.leftovers = np.asarray(jobs["leftovers"],
+                                         np.int64).reshape(-1, 3)
         if len(lo):
-            self._check_leftovers(lo)
             self._lo_region = self._leftover_region(lo)
         from ..ops import mc_fused
         mc_fused.execute(self, jobs)
         if not len(lo):
             return self.pic
-        from . import intra_native
         with timing.phase("inter.leftovers"):
-            idxs = [gi for gi, _tlf, _tidx in self.leftovers]
-            if not intra_native.recon_blocks_native(self.plan, self.pic,
-                                                    idxs):
-                raise NotImplementedError(
-                    "intra leftovers the native engine cannot serve not "
-                    "ported yet: ROADMAP item 5")
+            self._replay_leftovers()
         with timing.phase("inter.region_upload"):
             upload_rows(self.pic.dev, self.pic.planes, self._region_spans)
             sync_if_timed(self.device)
         return self.pic
+
+    def _replay_leftovers(self):
+        """The leftover blocks in decode order into the host planes:
+        each run of pure-intra blocks in one native call (the golden
+        walk where the engine declines), every other block through the
+        golden inter walk with the tl_4x4_filter state the emitter
+        captured for it."""
+        from ..entropy import native_tile as nt
+        from . import intra_native
+        tiles_rec = self.plan.native_tiles
+        run_idxs = []
+
+        def bounds(tr):
+            return (tr["col_start"], tr["col_end"], tr["row_start"],
+                    tr["row_end"])
+
+        def replay(gi, tr):
+            b = nt.materialize_block(self.plan, tr, gi - tr["block_base"])
+            for cb in b._cbs:
+                self.coef_by_pos.setdefault((cb.plane, cb.x4, cb.y4), cb)
+            if b.intra:
+                self._recon_block(b, *bounds(tr))
+            else:
+                self._recon_b_inter(b, *bounds(tr))
+
+        def flush():
+            if not run_idxs:
+                return
+            idxs = [g for g, _ in run_idxs]
+            if not intra_native.recon_blocks_native(self.plan, self.pic,
+                                                    idxs):
+                for g, tr in run_idxs:
+                    replay(g, tr)
+            run_idxs.clear()
+
+        for gi, tlf, tidx in self.leftovers.tolist():
+            tr = tiles_rec[tidx]
+            li = gi - tr["block_base"]
+            if tr["blocks"][li, nt.BF_INTRA] and \
+                    not tr["blocks"][li, nt.BF_INTERINTRA_TYPE]:
+                run_idxs.append((gi, tr))
+            else:
+                flush()
+                self.tl_4x4_filter = tlf
+                replay(gi, tr)
+        flush()
+
+    def _add_residuals(self, b):
+        """A replayed block's residuals from its own coefficient records
+        (materialize_block's b._cbs)."""
+        for cb in b._cbs:
+            if cb.eob < 0:
+                continue
+            t_dim = lv.TXFM_INFO[cb.tx]
+            ppx, ppy = cb.x4 * 4, cb.y4 * 4
+            itx_ref.add_residual(
+                self.pic.planes[cb.plane][ppy:ppy + t_dim.h * 4,
+                                          ppx:ppx + t_dim.w * 4],
+                cb, self.bitdepth)
 
     def _ref_bounds(self, pl_type):
         """Valid reference rows and columns: the frame size, not the
@@ -132,15 +168,18 @@ class DeviceInterReconstructor:
 
     def _ref_planes(self):
         """Per plane index, the distinct reference pictures' int32 device
-        planes, plus the (7,) refidx -> list slot lut. A reference
+        planes, plus the (7,) refidx -> list slot lut. Only references
+        of the current frame's size go to the device (a scaled one's
+        entry in the lut is -1: no device job reads it). A reference
         without device planes uploads once and keeps them."""
         n_planes = len(self.pic.planes)
         per_plane = [[] for _ in range(n_planes)]
         ids = {}
-        lut = np.zeros(7, np.int32)
+        lut = np.full(7, -1, np.int32)
         for i in range(7):
             s = self.refp[i]
-            if s is None or s.pic is None:
+            if s is None or s.pic is None or \
+                    any(sc for (sc, _step) in self.f.svc[i]):
                 continue
             pic = s.pic
             if id(pic) not in ids:
@@ -173,7 +212,7 @@ class DeviceInterReconstructor:
     def _finish_device_planes(self, planes):
         """Keep the planes on the device; with leftovers, bring the rows
         the host replay touches down first (after the residual pass)."""
-        if self.leftovers:
+        if len(self.leftovers):
             r0, r1 = self._lo_region
             spans = []
             for i, hp in enumerate(self.pic.planes):

@@ -335,15 +335,18 @@ LAYOUTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
 
 @pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-def test_mc_warp_kernel_vs_plain(cuda, bd, layout):
+@pytest.mark.parametrize("cut", [None, -5], ids=["whole", "ragged"])
+def test_mc_warp_kernel_vs_plain(cuda, bd, layout, cut):
     # every plane in one launch: random and extreme shears (filter rows
-    # 0 and 192), windows across every frame edge
+    # 0 and 192), windows inside, across every frame edge and wholly
+    # outside it; a tile count that fills its last block of 8 warps and
+    # one that ends it ragged
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import mc, mc_warp
     from dav1d_tpu_torch.ops.device import device_tables
     case = kc.warp_case(bd, seed=bd, ss_hor=LAYOUTS[layout][0],
                         ss_ver=LAYOUTS[layout][1])
-    jobs = _t(case["jobs"], cuda)
+    jobs = _t(case["jobs"][:cut], cuda)
     got, want = (kc.case_planes(case, cuda) for _ in range(2))
     before = mc.LAUNCHES["mc_warp"]
     mc_warp.warp_cuda(got, jobs, bd)

@@ -9,11 +9,14 @@ distance-weighted and masked (wedge, seg) compounds, 10-bit, 4:2:2 and
 10-bit, 4:2:0, 4:2:2, 4:4:4, an odd frame size whose laps cross the
 plane's right and bottom edges) and global-motion warp, each stream
 showing that its warp / OBMC jobs ran; monochrome and 12-bit 4:2:0
-streams with every in-loop filter on. Non-intra leftovers
-(interintra) and a missing native job emitter raise DecodeError naming
-their ROADMAP item. Every pass's jobs write disjoint pixels (the
-kernels rely on it): puts, warp tiles, compounds, each direction's OBMC
-blends, residuals."""
+streams with every in-loop filter on. The host golden walks: leftovers
+that are not pure intra (interintra, also at an odd frame size, blocks
+on scaled references, scaled and warped compounds) and intrabc frames,
+on the streams committed for chip_smoke.py (torch_port_cases
+GOLDEN_WALKS), each showing that its walk ran. Super-res, film grain and
+a missing native job emitter raise DecodeError naming their ROADMAP
+item. Every pass's jobs write disjoint pixels (the kernels rely on it):
+puts, warp tiles, compounds, each direction's OBMC blends, residuals."""
 import os
 
 import numpy as np
@@ -27,22 +30,16 @@ from dav1d_tpu_torch.api import DecodeError, Decoder, Settings
 from dav1d_tpu_torch.entropy import levels as lv
 from dav1d_tpu_torch.ops import kernel_cases as kc
 from dav1d_tpu_torch.ops import mc_fused, mc_obmc
+from dav1d_tpu_torch.recon import inter_device, inter_ref
 from dav1d_tpu_torch.utils.muxers import Md5Muxer
 from tools.streamgen.gen import generate_stream
 
-from torch_port_cases import FILTERS
+import chip_smoke
+from torch_port_cases import FILTERS, GOLDEN_DIR, GOLDEN_WALKS, PYR, \
+    golden_walk_stream
 
 torch.set_num_threads(2)
 
-
-def _pyr_refidx(fi):
-    m = {1: (0,) * 7, 2: (0, 0, 0, 0, 1, 1, 1), 3: (0, 0, 0, 0, 2, 2, 1),
-         4: (2, 2, 2, 2, 3, 3, 1), 5: (3, 2, 0, 4, 1, 1, 4)}
-    return m[min(fi, 5)]
-
-
-PYR = dict(order_hints=[0, 8, 4, 2, 6, 5], refidx_fn=_pyr_refidx,
-           refresh_fn=lambda fi: 1 << fi)
 MOTION = dict(warped_motion=1, switchable_motion_mode=1)
 STREAMS = {
     "8bit-420": dict(w=96, h=64, n_frames=3, seed=3),
@@ -70,6 +67,10 @@ STREAMS = {
     "warp-422": dict(w=96, h=64, n_frames=4, seed=65, layout=2, **MOTION,
                      **PYR),
     "warp-odd-size": dict(w=70, h=50, n_frames=4, seed=43, **MOTION, **PYR),
+    "interintra": dict(w=96, h=96, n_frames=5, seed=25, inter_intra=1,
+                       **PYR),
+    "interintra-odd-size": dict(w=70, h=50, n_frames=4, seed=26,
+                                inter_intra=1, **PYR),
 }
 # the warp / OBMC job tables each stream must have run
 WARP_OBMC = {"obmc": ("obmc",), "gmv": ("warps",),
@@ -87,9 +88,15 @@ LAYOUT_STREAMS = {
                              cdef_params=(2, 1, [9, 5], [3, 2]),
                              lr_types=(2, 2, 2)),
 }
+# the streams whose leftovers the golden inter walk replays
+LEFTOVER_WALKS = ("interintra", "interintra-odd-size")
 RAISES = {
-    "interintra": (dict(w=96, h=96, n_frames=5, seed=25, inter_intra=1,
-                        **PYR), "ROADMAP item 5"),
+    "superres": (dict(w=96, h=96, n_frames=3, seed=80, superres_denom=12),
+                 "ROADMAP item 4"),
+    "film-grain": (dict(w=96, h=96, n_frames=3, seed=95, film_grain=dict(
+        seed=1234, y_points=[(0, 64), (255, 48)], ar_coeff_lag=0,
+        ar_coeffs_y=[], scaling_shift=9, uv_points=[[(0, 32)], [(16, 48)]],
+        ar_coeffs_uv=[[5], [7]], overlap_flag=0)), "ROADMAP item 6"),
 }
 
 
@@ -125,6 +132,27 @@ def _jax_md5s(data):
 
 
 @pytest.fixture
+def walks(monkeypatch):
+    """Counts of the host golden walks the port runs: leftover blocks of
+    inter frames that are not pure intra (replayed through
+    _recon_b_inter) and intrabc frames."""
+    seen = {"leftover_blocks": 0, "intrabc_frames": 0}
+    cls = inter_device.DeviceInterReconstructor
+    run_b, run_f = cls._recon_b_inter, inter_ref.reconstruct_inter_frame
+
+    def leftover(self, *a):
+        seen["leftover_blocks"] += 1
+        return run_b(self, *a)
+
+    def intrabc(*a):
+        seen["intrabc_frames"] += 1
+        return run_f(*a)
+    monkeypatch.setattr(cls, "_recon_b_inter", leftover)
+    monkeypatch.setattr(inter_ref, "reconstruct_inter_frame", intrabc)
+    return seen
+
+
+@pytest.fixture
 def jobs_seen(monkeypatch):
     """Every job table the port's inter Stage B executes, with its
     picture's plane shapes."""
@@ -139,7 +167,8 @@ def jobs_seen(monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
-def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen):
+def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen,
+                                        walks):
     data = _stream(STREAMS[name])
     got = _port_md5s(data)
     monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
@@ -166,6 +195,26 @@ def test_inter_stream_md5s_match_golden(name, monkeypatch, jobs_seen):
         # planes' allocated padding
         frame = [(50, 70), (25, 35), (25, 35)]
         assert any(_laps_past_edge(j, frame) for j, _ in jobs_seen)
+    # the golden inter walk replayed leftovers here and nowhere else
+    assert (walks["leftover_blocks"] > 0) == (name in LEFTOVER_WALKS)
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_WALKS))
+def test_golden_walk_streams_match_golden(name, monkeypatch, walks):
+    """The committed stream is its config's, and decodes to the md5s of
+    dav1d_tpu's golden path that chip_smoke.py holds, through the
+    golden walks (ROADMAP item 5a)."""
+    with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "rb") as fh:
+        data = fh.read()
+    assert data == golden_walk_stream(name)
+    got = _port_md5s(data)
+    if name == "i444-intrabc":
+        assert walks["intrabc_frames"] > 0
+    else:
+        assert walks["leftover_blocks"] > 0
+    assert _port_md5s(data, n_threads=1) == got
+    monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
+    assert got == _jax_md5s(data) == chip_smoke.GOLDEN_WALKS[name][0]
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUT_STREAMS))

@@ -282,6 +282,39 @@ def test_warp_plain_vs_mc_ref(bd, ss):
         assert np.array_equal(got[pi][py:py + 8, px:px + 8], want), j
 
 
+@pytest.mark.parametrize("bd", [8, 12])
+def test_warp_tile_assignment_equals_plain(bd):
+    """csrc/mc_warp.cu's assignment of tiles (a warp per tile, 8 to a
+    block) and its window reads, interior and clamped, int8 bank and
+    output order (torch_port_cases.warp_assigned_plain) equal
+    warp_planes_plain and dav1d_tpu's mc_jobs warp on the warp case: on
+    the whole table (144 tiles, its last block full) and on one cut to
+    139 tiles (a ragged last block)."""
+    from torch_port_cases import warp_assigned_plain
+    wf = device_tables("cpu")["mc_warp_filter"]
+    case = kc.warp_case(bd, seed=50 + bd)
+    j = case["jobs"]
+    inner = [(dy >= 3 and dx >= 3 and dy + 12 <= case["planes"][p]["rh"] and
+              dx + 12 <= case["planes"][p]["rw"])
+             for p, dy, dx in j[:, [0, 4, 5]].tolist()]
+    assert any(inner) and not all(inner)     # both window paths taken
+    for cut in (None, -5):
+        jobs = T(j[:cut])
+        want = kc.case_planes(case, "cpu")
+        mc_warp.warp_planes_plain(want, jobs, bd, wf)
+        for pi, p in enumerate(case["planes"]):
+            sub = j[:cut][j[:cut, 0] == pi]
+            run = mc_jobs.warp_jobs_fn(len(sub), bd, p["rh"], p["rw"])
+            ref = np.asarray(run(p["refs"], sub,
+                                 np.zeros(p["dst_shape"], np.int32)))
+            assert np.array_equal(want[pi][1].numpy(), ref), pi
+        got = kc.case_planes(case, "cpu")
+        warp_assigned_plain(got, jobs, bd, wf)
+        for (_, g, _, _), (_, w, _, _) in zip(got, want):
+            assert w.count_nonzero() > w.numel() // 2
+            assert torch.equal(g, w)
+
+
 def _obmc_jobs_groups(jobs):
     """{(ww, hh, lap_h): rows} of one direction's laps."""
     out = {}

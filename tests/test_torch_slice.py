@@ -1,9 +1,9 @@
 """The keyframe/intra slice end to end: small synthetic intra streams with
 every in-loop filter on decode through dav1d_tpu's ObuStreamDecoder and
 through the port's public API (device="cpu", so the plain versions
-run), and every picture's md5 must be equal. Frame kinds the port does
-not have yet raise DecodeError naming their ROADMAP item (inter frames:
-tests/test_torch_inter.py)."""
+run), and every picture's md5 must be equal. Features the port does
+not have yet (super-res, film grain) raise DecodeError naming their
+ROADMAP item (inter frames: tests/test_torch_inter.py)."""
 import pytest
 import torch
 
@@ -80,23 +80,23 @@ def _decode_all(data, **settings):
 
 def test_inter_frame_raises_decode_error():
     # inter frames decode since the inter slice (tests/test_torch_inter
-    # .py), with OBMC and warp; one whose blocks need
-    # interintra, which is not ported yet, raises naming its ROADMAP item
+    # .py), interintra among them since the host golden walks; inter
+    # streams with super-res or film grain, which are not ported yet,
+    # raise naming their ROADMAP item
     from tools.streamgen.gen import generate_stream
-    data, _ = generate_stream(
-        96, 96, n_frames=5, seed=25, inter_intra=1,
-        order_hints=[0, 8, 4, 2, 6], refresh_fn=lambda fi: 1 << fi,
-        refidx_fn=lambda fi: [(0,) * 7, (0, 0, 0, 0, 1, 1, 1),
-                              (0, 0, 0, 0, 2, 2, 1),
-                              (2, 2, 2, 2, 3, 3, 1)][fi - 1])
-    dec = Decoder(Settings(device="cpu"))
-    frames = list(IvfReader(data))
-    dec.send_data(frames[0].data)
-    assert len(list(dec.pictures())) == 1          # the keyframe
-    with pytest.raises(DecodeError, match="ROADMAP item 5"):
-        for fr in frames[1:]:
-            dec.send_data(fr.data)
-            list(dec.pictures())
+    from torch_port_cases import PYR
+    data, _ = generate_stream(96, 96, n_frames=5, seed=25, inter_intra=1,
+                              **PYR)
+    assert len(_decode_all(data)) == 5
+    grain = dict(seed=1234, y_points=[(0, 64), (255, 48)], ar_coeff_lag=0,
+                 ar_coeffs_y=[], scaling_shift=9,
+                 uv_points=[[(0, 32)], [(16, 48)]],
+                 ar_coeffs_uv=[[5], [7]], overlap_flag=0)
+    for kw, item in ((dict(seed=80, superres_denom=12), "ROADMAP item 4"),
+                     (dict(seed=95, film_grain=grain), "ROADMAP item 6")):
+        data, _ = generate_stream(96, 96, n_frames=3, **kw)
+        with pytest.raises(DecodeError, match=item):
+            _decode_all(data)
 
 
 def test_key_only_skips_inter_frames():

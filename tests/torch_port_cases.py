@@ -1,10 +1,13 @@
 """Shared inputs of the PyTorch-port parity tests: small synthetic intra
 streams with every in-loop filter on (4:2:0 at 8, 10 and 12 bit, 4:2:2,
-4:4:4 and monochrome), parsed by both packages; and the kernels'
-decompositions (deblock and CDEF tiles) in plain torch."""
+4:4:4 and monochrome), parsed by both packages; the streams of the host
+golden walks (GOLDEN_WALKS); and the kernels' decompositions (deblock
+and CDEF tiles, the OBMC and warp assignments) in plain torch."""
+import os
+
 import numpy as np
 
-from tools.streamgen.gen import generate_intra_stream
+from tools.streamgen.gen import generate_intra_stream, generate_stream
 
 # the tests/test_e2e_big.py filter set: deblock, CDEF, LR (luma
 # switchable Wiener/SGR, chroma Wiener)
@@ -20,6 +23,70 @@ STREAMS = {
     "12bit-420": dict(w=96, h=64, n_frames=2, seed=35, hbd=2),
     "8bit-mono": dict(w=96, h=64, n_frames=2, seed=36, monochrome=1),
 }
+
+
+
+def _pyr_refidx(fi):
+    m = {1: (0,) * 7, 2: (0, 0, 0, 0, 1, 1, 1), 3: (0, 0, 0, 0, 2, 2, 1),
+         4: (2, 2, 2, 2, 3, 3, 1), 5: (3, 2, 0, 4, 1, 1, 4)}
+    return m[min(fi, 5)]
+
+
+PYR = dict(order_hints=[0, 8, 4, 2, 6, 5], refidx_fn=_pyr_refidx,
+           refresh_fn=lambda fi: 1 << fi)
+# the streams whose frames need the host golden walks: leftovers that
+# are not pure intra (interintra, blocks on scaled references with
+# 8-tap and bilinear filters, scaled compounds, warped compounds of
+# global motion) and intrabc frames; (intra stream?, generator
+# arguments), the configs of tests/test_torch_inter.py (interintra,
+# gmv with compounds allowed), tests/test_e2e_superres.py (scaled-ref*)
+# and tests/test_e2e_layouts.py (i444-intrabc). Their bytes are
+# committed under tests/data/torch_golden/ for chip_smoke.py's
+# golden_walks phase (write_golden_walks), which holds their md5s.
+GOLDEN_WALKS = {
+    "interintra": (False, dict(w=96, h=96, n_frames=5, seed=25,
+                               inter_intra=1, **PYR, **FILTERS)),
+    "scaled-ref": (False, dict(
+        w=96, h=96, n_frames=3, seed=84,
+        frame_size_fn=lambda fi: (64, 64) if fi == 1 else None)),
+    "scaled-ref-bilin": (False, dict(
+        w=96, h=96, n_frames=3, seed=89, subpel_filter_switchable=0,
+        subpel_filter=3,
+        frame_size_fn=lambda fi: (64, 64) if fi == 1 else None)),
+    "scaled-ref-compound": (False, dict(
+        w=96, h=96, n_frames=4, seed=86, jnt_comp=1, masked_compound=1,
+        inter_intra=1, order_hints=[0, 8, 4, 2], refidx_fn=_pyr_refidx,
+        refresh_fn=lambda fi: 1 << fi,
+        frame_size_fn=lambda fi: {2: (64, 64), 3: (72, 56)}.get(fi))),
+    "gmv-compound": (False, dict(
+        w=96, h=96, n_frames=4, seed=44, warped_motion=1,
+        switchable_comp_refs=1,
+        gmv_types=lambda fi, rng: [2, 0, 1, 0, 3, 0, 0])),
+    "i444-intrabc": (True, dict(w=96, h=96, qidx=100, seed=306, n_frames=2,
+                                layout=3, screen_content=1,
+                                allow_intrabc=1)),
+}
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data", "torch_golden")
+
+
+def golden_walk_stream(name):
+    """The generated bytes of a GOLDEN_WALKS stream."""
+    intra, cfg = GOLDEN_WALKS[name]
+    cfg = dict(cfg)
+    w, h = cfg.pop("w"), cfg.pop("h")
+    gen = generate_intra_stream if intra else generate_stream
+    return gen(w, h, **cfg)[0]
+
+
+def write_golden_walks():
+    """Write every GOLDEN_WALKS stream to GOLDEN_DIR/<name>.ivf:
+    python -c 'import sys; sys.path[:0] = ["tests", "."];
+    import torch_port_cases as c; c.write_golden_walks()'"""
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for name in GOLDEN_WALKS:
+        with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
+            fh.write(golden_walk_stream(name))
 
 
 def stream(name):
@@ -343,4 +410,74 @@ def obmc_assigned_plain(planes, top, left, bd, fb, om, max_blocks,
                                om, t)
                     done[i] += 1
         assert (done == 1).all()        # the barrier: this direction ends
+    return [p for _, p, _, _ in planes]
+
+
+def warp_assigned_plain(planes, jobs, bd, wf, warps=8):
+    """csrc/mc_warp.cu's assignment of tiles and its arithmetic, in
+    numpy: ceil(tiles / warps) blocks of `warps` warps; warp w of block
+    b warps tile b * warps + w (none past the last tile), taken here in
+    an order no warp would keep (each block's warps in reverse, the
+    blocks from the last). A tile's window is read as the kernel reads
+    it: 16 columns a row, row and column 15 read at 14 and dropped, the
+    clamp only where the window touches the frame's edge; the bank goes
+    through the kernel's int8 rows, each tap sign-extended from its
+    byte of two little-endian 32-bit words; the horizontal sums by lane
+    (y, h) = (l >> 1, l & 1), l < 30, outputs x = 4 h + i, i < 4, of
+    row y from window columns 4 h .. 4 h + 10; the vertical ones by
+    lane (g, x) = (l >> 3, l & 7), rows 2 g + t, t < 2, from
+    intermediate rows 2 g .. 2 g + 8. Checks that every tile is warped
+    once. planes as warp_cuda takes them (CPU tensors), in place; jobs
+    (n, 12)."""
+    bank = np.ascontiguousarray(np.asarray(wf), np.int8)
+    words = np.frombuffer(bank.tobytes(), "<u4").reshape(-1, 2)
+    taps = np.concatenate(
+        [np.stack([((words[:, w] >> (8 * b)) & 0xff).astype(np.uint8)
+                   .view(np.int8) for b in range(4)], 1) for w in (0, 1)],
+        1).astype(np.int64)
+    assert np.array_equal(taps, np.asarray(wf))
+    ib = 2 if bd == 12 else 4
+    jobs = np.asarray(jobs)
+    n = len(jobs)
+    done = np.zeros(n, int)
+    e = np.arange(256)
+    rows, cols = np.minimum(e >> 4, 14), np.minimum(e & 15, 14)
+    keep = ((e >> 4) < 15) & ((e & 15) < 15)
+    lh = np.arange(30)
+    yh = np.repeat(lh >> 1, 4)                     # per (lane, i)
+    xh = np.repeat(4 * (lh & 1), 4) + np.tile(np.arange(4), 30)
+    lv = np.arange(32)
+    yv = (2 * (lv >> 3))[:, None] + np.arange(2)   # (lane, t)
+    xv = np.broadcast_to((lv & 7)[:, None], yv.shape)
+    yv, xv = yv.reshape(-1), xv.reshape(-1)
+    for b in reversed(range(-(-n // warps))):
+        for w in reversed(range(warps)):
+            i = b * warps + w
+            if i >= n:
+                continue
+            pl, py, px, slot, dy, dx, mx, my, al, be, ga, de = \
+                (int(v) for v in jobs[i])
+            refs, plane, rh, rw = planes[pl]
+            ref = refs[slot].numpy()
+            y, x = dy - 3 + rows, dx - 3 + cols
+            if not (dy >= 3 and dx >= 3 and dy + 12 <= rh and
+                    dx + 12 <= rw):
+                y, x = np.clip(y, 0, rh - 1), np.clip(x, 0, rw - 1)
+            win = np.zeros((15, 15), np.int64)
+            win[(e >> 4)[keep], (e & 15)[keep]] = ref[y, x][keep]
+            fh = taps[np.clip(64 + ((mx + be * yh + al * xh + 512) >> 10),
+                              0, 192)]
+            s = sum(fh[:, t] * win[yh, xh + t] for t in range(8))
+            mid = np.zeros((15, 8), np.int64)
+            mid[yh, xh] = (s + ((1 << (7 - ib)) >> 1)) >> (7 - ib)
+            fv = taps[np.clip(64 + ((my + de * yv + ga * xv + 512) >> 10),
+                              0, 192)]
+            s = sum(fv[:, t] * mid[yv + t, xv] for t in range(8))
+            s = np.clip((s + ((1 << (7 + ib)) >> 1)) >> (7 + ib), 0,
+                        (1 << bd) - 1)
+            oy, ox = py + yv, px + xv
+            m = (oy < plane.shape[0]) & (ox < plane.shape[1])
+            plane.numpy()[oy[m], ox[m]] = s[m]
+            done[i] += 1
+    assert (done == 1).all()
     return [p for _, p, _, _ in planes]

@@ -1,7 +1,8 @@
-"""Time the CDEF, Wiener, SGR and OBMC kernels (csrc/cdef.cu,
-csrc/lr_wiener.cu, csrc/lr_sgr.cu, csrc/mc_obmc.cu) against variants of
-their own sources on one GPU, on the inputs the decode of the s31
-stream's first 2 temporal units gives the kernels for frame 2. A
+"""Time the CDEF, Wiener, SGR, OBMC and warp kernels (csrc/cdef.cu,
+csrc/lr_wiener.cu, csrc/lr_sgr.cu, csrc/mc_obmc.cu, csrc/mc_warp.cu)
+against variants of their own sources on one GPU, on the inputs the
+decode of the s31 stream's first 2 temporal units gives the kernels
+for frame 2. A
 variant is the source with some lines replaced: a phase taken out
 (which attributes the kernel's time to its phases) or an earlier or
 other design choice put in (which measures that choice). Each variant
@@ -12,11 +13,11 @@ variant counts both); whether its output equals the kernel's is printed
 beside it (a phase taken out changes the output). Prints one JSON line
 a variant and writes them all to the JSON file argv[1] (default
 build/filter_variants/variants.json); further arguments name the
-kernels to run (default: all four), each optionally followed by a colon
+kernels to run (default: all five), each optionally followed by a colon
 and the comma-separated variants to run of it (default: all).
 
     python tools/torch_filter_variants.py [out.json] [cdef lr_wiener
-                                                      lr_sgr mc_obmc]
+                                                      lr_sgr mc_obmc mc_warp]
     python tools/torch_filter_variants.py out.json lr_sgr:kernel,grid_mode
 """
 import ctypes as ct
@@ -31,7 +32,8 @@ os.chdir(ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
-from dav1d_tpu_torch.ops import cdef, cuda_build, lr, mc_obmc  # noqa: E402
+from dav1d_tpu_torch.ops import cdef, cuda_build, lr, mc_obmc, \
+    mc_warp  # noqa: E402
 from dav1d_tpu_torch.ops.cdef_ref import UV_DIRS, cdef_dirs  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "filter_variants")
@@ -292,6 +294,33 @@ OBMC = {
     }""")],
 }
 
+# the warp: its tiles' vertical sums stored as the window's centre pixel
+# (the window staged and the output written, no taps)
+WARP_COPY = """{
+            const Plane &P = a.p[j[J_PLANE]];
+            for (int k = 0; k < 2; k++) {
+                const int o = lane + 32 * k, y = o >> 3, x = o & 7;
+                const int oy = j[J_PY] + y, ox = j[J_PX] + x;
+                if (oy < P.dst_h && ox < P.dst_w)
+                    P.dst[(size_t)oy * P.dst_w + ox] =
+                        win[(y + 3) * WS + x + 3];
+            }
+        }"""
+WARP = {
+    "kernel": [],
+    # the launch, the bank and the job rows with their checks
+    "jobs_only": [("stage_window(a, j, lane, win);", "(void)win;"),
+                  ("horizontal(j, lane, wf, win, mid, ib);", ""),
+                  ("vertical(a, j, lane, wf, mid, ib);", "")],
+    # the windows staged and written out, no taps
+    "stage_only": [("horizontal(j, lane, wf, win, mid, ib);",
+                    "(void)mid;"),
+                   ("vertical(a, j, lane, wf, mid, ib);", WARP_COPY)],
+    # 4 and 16 warps a block (twice and half as many blocks)
+    "warps4": [("constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
+    "warps16": [("constexpr int WARPS = 8;", "constexpr int WARPS = 16;")],
+}
+
 
 def variant(name, kernel, edits):
     """Build csrc/<kernel>.cu with `edits` applied (pairs (old, new);
@@ -364,10 +393,12 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     card = cs.smi()
-    todo = sys.argv[2:] or ["cdef", "lr_wiener", "lr_sgr", "mc_obmc"]
+    todo = sys.argv[2:] or ["cdef", "lr_wiener", "lr_sgr", "mc_obmc",
+                            "mc_warp"]
     rec = {}
     run = {"cdef": cdef.cdef_planes, "wiener": lr.wiener_frame,
-           "sgr": lr.sgr_frame, "obmc": mc_obmc.obmc_planes}
+           "sgr": lr.sgr_frame, "obmc": mc_obmc.obmc_planes,
+           "warp": mc_warp.warp_planes}
 
     def spy_c(*a):
         rec["cdef"] = a
@@ -380,19 +411,24 @@ def main():
             return run[kind](planes, tables, bd)
         return spy
 
+    def spy_w(planes, jobs, bd):
+        rec["warp"] = ([(r, p.clone(), rh, rw) for r, p, rh, rw in planes],
+                       jobs, bd)
+        return run["warp"](planes, jobs, bd)
+
     def spy_o(planes, top, left, bd):
         rec["obmc"] = ([(r, p.clone(), rh, rw) for r, p, rh, rw in planes],
                        top, left, bd)
         return run["obmc"](planes, top, left, bd)
     cdef.cdef_planes, lr.wiener_frame, lr.sgr_frame = \
         spy_c, spy_lr("wiener"), spy_lr("sgr")
-    mc_obmc.obmc_planes = spy_o
+    mc_obmc.obmc_planes, mc_warp.warp_planes = spy_o, spy_w
     try:
         cs._decode(cs.STREAM_1080P, timed=False, n_tu=2)
     finally:
         cdef.cdef_planes, lr.wiener_frame, lr.sgr_frame = \
             run["cdef"], run["wiener"], run["sgr"]
-        mc_obmc.obmc_planes = run["obmc"]
+        mc_obmc.obmc_planes, mc_warp.warp_planes = run["obmc"], run["warp"]
 
     def lr_frame(kind):
         planes, tables, bd = rec[kind]
@@ -413,6 +449,16 @@ def main():
         ps = [(r, p.clone(), rh, rw) for r, p, rh, rw in planes]
         mc_obmc.obmc_cuda(ps, top, left, bd)
         return [p for _, p, _, _ in ps]
+
+    def warp():
+        planes, jobs, bd = rec["warp"]
+        ps = [(r, p.clone(), rh, rw) for r, p, rh, rw in planes]
+        mc_warp.warp_cuda(ps, jobs, bd)
+        return [p for _, p, _, _ in ps]
+
+    def setup_warp(lib):
+        mc_warp._LIB.clear()
+        load_as(lib, mc_warp._lib)
 
     def setup_cdef(lib):
         lib.cdef_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
@@ -445,7 +491,8 @@ def main():
                       setup_lr("lr_wiener")),
         "lr_sgr": (SGR, lr_frame("sgr"), "lr_sgr_kernel",
                    setup_lr("lr_sgr")),
-        "mc_obmc": (OBMC, obmc, "mc_obmc_kernel", setup_obmc)}
+        "mc_obmc": (OBMC, obmc, "mc_obmc_kernel", setup_obmc),
+        "mc_warp": (WARP, warp, "mc_warp_kernel", setup_warp)}
     lines = []
     for arg in todo:
         kernel, _, only = arg.partition(":")
@@ -482,6 +529,9 @@ def main():
                          "laps_per_warp": prof[4] / warps}
             if timeline is not None:
                 extra["timeline_ns"] = timeline
+            per_sm = getattr(lib, f"{kernel}_blocks_per_sm", None)
+            if per_sm is not None:
+                extra["blocks_per_sm"] = per_sm()
             lines.append({
                 "kernel": kernel, "variant": name, "us": us, **extra,
                 "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
