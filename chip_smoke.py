@@ -7,10 +7,10 @@ exits nonzero and prints no "ok" line:
 
 1. device     - the card, its power limit, torch's CUDA version,
                 nvcc/ninja
-2. build      - native/libstagea.so (make) and the nine sm_90a kernels
+2. build      - native/libstagea.so (make) and the eleven sm_90a kernels
                 (deblock, mc_put, mc_comp, itx_add, mc_warp, mc_obmc,
-                cdef, lr_wiener, lr_sgr; one nvcc each), all started
-                together
+                cdef, lr_wiener, lr_sgr, superres, film_grain; one nvcc
+                each), all started together
 3. kernel     - the deblock kernel against its plain torch version on
                 the card (torch.equal), bd 8/10/12, luma/chroma, each
                 direction alone (the other direction's edges inactive,
@@ -59,7 +59,21 @@ exits nonzero and prints no "ok" line:
                 overflows at 12 bit; the one-launch Wiener and SGR of a
                 frame's planes of different shapes, every edge flag at
                 both plane edges
-8. kernel_real- the first 2 temporal units of the s7 stream, then of the
+8. kernel_superres_grain - the super-res and film grain kernels
+                against their plain versions (torch.equal) at 1080p:
+                super-res to 1920 columns from 960 and 1280, every plane
+                and the pre-CDEF snapshot in one launch; the grain of a
+                1920x1080 frame with overlap on and off and the flag
+                combinations of kernel_cases.GRAIN_VARIANTS (chroma
+                scaling from luma, restricted range with and without
+                is_id, copied planes); bd 8/10/12, monochrome, 4:2:0,
+                4:2:2, 4:4:4; for the main path's shapes (sr-1080p's,
+                fg-1080p's) and a few other layouts and depths, the
+                launch's device us (median of 5 in a trace; the main
+                shapes over 5 traces, with each trace's median), the
+                floor below which a trace is retaken, the plain
+                version's ms and the bound
+9. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s33 stream and of the s31 stream, decoded on cuda with
                 every launch of the inter frame checked against the
                 plain version on the same inputs (s7: put, compound,
@@ -76,12 +90,12 @@ exits nonzero and prints no "ok" line:
                 them (torch.equal); and the deblock of that frame's
                 planes and maps (torch.equal, device time beside the
                 synthetic frame's)
-9. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
+10. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
                 _enc.ivf through Decoder(Settings(decode_frame_type=3))
                 on cuda: one picture, the expected md5, per-stage wall
                 ms, and the kernel launch counts of this path's run
-10. hbd       - the same for the 4K 10-bit keyframe
-11. inter     - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
+11. hbd       - the same for the 4K 10-bit keyframe
+12. inter     - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
                 through Decoder(Settings()) on cuda: per-picture and
                 stream md5s, the launch counts of this run (put,
                 compound, residual, deblock, CDEF, Wiener and SGR > 0;
@@ -95,23 +109,33 @@ exits nonzero and prints no "ok" line:
                 is retaken, and after 3 each stage's CUDA-event ms are
                 given instead, noted in the credit's `timer`) beside
                 their bounds per picture
-12. inter_hbd - the same for the first 2 temporal units of
+13. inter_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
-13. inter_main - the main path: all 8 frames of the primary bench stream
+14. inter_main - the main path: all 8 frames of the primary bench stream
                 bench_streams/1920x1080_8b_flt_s31_enc.ivf, as inter,
-                each of the nine kernels launched (count > 0)
-14. inter_main_hbd - the same for the first 2 temporal units of
+                each of its nine kernels launched (count > 0)
+15. inter_main_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s33_enc.ivf (4K 10-bit)
-15. golden_walks - the GOLDEN_WALKS streams (tests/data/torch_golden/:
+16. golden_walks - the GOLDEN_WALKS streams (tests/data/torch_golden/:
                 interintra, blocks on scaled references with 8-tap and
                 bilinear filters, scaled compounds, warped compounds of
                 global motion, 4:4:4 intrabc frames) decoded on cuda to
                 their golden md5s, i444-intrabc's frames through the
                 host intrabc walk, every other stream's leftover blocks
                 through the host golden inter walk
-16. kernels   - the per-kernel summary line (launches from inter_main;
+17. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
+                grain streams (GOLDEN_DIR, BIG_POST_FILTERS) as the
+                stream phases, their kernel launched; the timed decode
+                with the grain LUTs' memo cold (stage fg.luts)
+18. post_filters - the small super-res and film grain streams
+                (POST_FILTERS) decoded on cuda to their golden md5s,
+                each launching its kernel
+19. kernels   - the per-kernel summary line (launches from inter_main,
+                super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
-                kernel_real, the deblock's from the synthetic frame)
+                kernel_real, the deblock's from the synthetic frame,
+                super-res's and film grain's from their 1080p cases of
+                kernel_superres_grain)
 
 then the card's name and power limit, and the final {"ok": true, ...}
 line.
@@ -212,12 +236,80 @@ GOLDEN_WALKS = {
         "d5ba24a049e6d0e44d9a01a11b49b424",
         "39df4a5e05d890c910eef9d5442e01f5"],
         "4e0798ea6c5711b258752c57151ab9f9")}
+# the super-res and film grain streams of the post_filters phase
+# (tests/torch_port_cases.py POST_FILTERS: the configs of the same
+# names in tests/test_e2e_superres.py, tests/test_e2e_layouts.py and,
+# fg-*, tests/test_e2e_filmgrain.py), committed under GOLDEN_DIR: per
+# picture and over the stream, the md5s of dav1d_tpu's golden numpy
+# path with grain applied (the recipe of MD5S_S7)
+POST_FILTERS = {
+    "sr-inter-filters": ([
+        "133c203a158880e6f227485f3f51d1e0",
+        "553458a4c7fae54779e4c579eb4a964c",
+        "d91767c04e4c188b7ce58b87ac61fc8b",
+        "c703649c542da6618d4abb5f8a298cd8"],
+        "19212ce1594f3ec723861bfab9c39640"),
+    "sr-intra-hbd": ([
+        "18e33b1c9c1c9d7e8443a810ce7d0bbd",
+        "2c72d5b42bddf22860faa7734360fb3d"],
+        "282f09611258ede5b7dee9d8f974a6a3"),
+    "i422-superres": ([
+        "3b5440539cd073a2ac90c5fa3d71968d",
+        "da4e225c30754da6e37be8b622bc4d5d",
+        "73f483814b3ccf95fd9579cd29a574ff"],
+        "5782b6c68a97387734a3cfaa3882fe61"),
+    "mono-superres": ([
+        "c948fb54d1e55b40d208fc59cb2a9cbf",
+        "b602d1d735ac0f9c3418cef2b572cb6a",
+        "308a51d219fc85e39771ef239223a15b"],
+        "3df4c90541ddeb6470af0ac1bc53557d"),
+    "fg-inter": ([
+        "00da17c7e43f86e7b60252c1edd2def4",
+        "2f9e69ea0294a308cfe6ad4330488ef6",
+        "bb010c79042ac1ef6fc31584ae3759b3"],
+        "4b3b85edee7aaa37d2b37e4b84e9e61e"),
+    "fg-chroma-from-luma": ([
+        "5eca441b4a8eeae90c6d99f6d62456ae",
+        "699a656bfa23191a16a3622002aa5aa7"],
+        "5e9a96ec8dbc1f6470ff945a0c7c3239"),
+    "fg-lag3": ([
+        "1f250e67f1bbcda5d730f9005d24efa9",
+        "87a96317c2b6410274d374dd26fc2538"],
+        "756c2491041048116e8ef6234ba03f61"),
+    "i420-12b-grain": ([
+        "fada4c22fabe0a4ea8ce992b46994303",
+        "befed020d68fdcd37be70a651d249744"],
+        "ab610d74ebe459f3d4812519d0a58fb6"),
+    "i444-grain": ([
+        "9012240a4d0c31012be3f4be209780d2",
+        "67f6f37aa825538248a5d6b7716181b1"],
+        "f597be5d8e5655fb4742b55e39f36d60")}
+# the 1080p super-res and film grain streams of the phases of their
+# names (tests/torch_port_cases.py BIG_POST_FILTERS: 2 intra frames
+# each, every in-loop filter on; sr-1080p coded 960 wide), committed
+# under GOLDEN_DIR, and their md5s by the same recipe (dav1d_tpu's
+# golden numpy path, grain applied)
+BIG_POST_FILTERS = {
+    "sr-1080p": ([
+        "366f7fb3e9e91bd85a8255efc75d6a3a",
+        "f9f27c966bd5db5933eb4a6d6c89e284"],
+        "42028cf6a5b97f0e450229bfa22a5c60"),
+    "fg-1080p": ([
+        "1ab208c59cfaef3971c1473000dda149",
+        "53aa9c198de5b0f11327ba629788fa28"],
+        "02c90958a8139dd72805d4007d1af29d"),
+    "fg-1080p-10b": ([
+        "30047250a6628f71f575a778c05edbcd",
+        "37b401d960f8b38484d601c444cfc9e6"],
+        "7f2ad11159b13f62a4c68705e1bb6847")}
 KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc",
-           "cdef", "lr_wiener", "lr_sgr")
+           "cdef", "lr_wiener", "lr_sgr", "superres", "film_grain")
 # the in-loop filter kernels after the deblock; every stream phase's
 # stream runs all three (counted on the CPU: every s7, s11, s31 and s33
 # frame, the keyframes included, has CDEF and both Wiener and SGR units)
-FILTER_KERNELS = KERNELS[6:]
+FILTER_KERNELS = KERNELS[6:9]
+# the kernels of the s31 main path (neither super-res nor film grain)
+MAIN_KERNELS = KERNELS[:9]
 # the kernels an inter stream without warp or OBMC (s7, s11) launches
 KERNELS_NO_WARP = KERNELS[:4] + FILTER_KERNELS
 # the CUDA kernels' names in a profiler trace, per wrapper
@@ -227,7 +319,9 @@ KERNEL_NAMES = {"deblock": ("deblock_",), "mc_put": ("mc_put_kernel",),
                 "mc_warp": ("mc_warp_kernel",),
                 "mc_obmc": ("mc_obmc_kernel",), "cdef": ("cdef_kernel",),
                 "lr_wiener": ("lr_wiener_kernel",),
-                "lr_sgr": ("lr_sgr_kernel",)}
+                "lr_sgr": ("lr_sgr_kernel",),
+                "superres": ("superres_kernel",),
+                "film_grain": ("film_grain_kernel",)}
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
@@ -251,7 +345,14 @@ REPEATS = 5                     # untimed keyframe decodes (median)
 INTER_REPEATS = 3               # untimed inter-stream decodes (median)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print obj as one JSON line; a phase's line with t_s, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -503,9 +604,9 @@ def phase_kernel(torch, card):
 
 
 def _launch_dicts():
-    from dav1d_tpu_torch.ops import cdef, itx, lf, lr, mc
+    from dav1d_tpu_torch.ops import cdef, fg, itx, lf, lr, mc, superres
     return (lf.LAUNCHES, mc.LAUNCHES, itx.LAUNCHES, cdef.LAUNCHES,
-            lr.LAUNCHES)
+            lr.LAUNCHES, superres.LAUNCHES, fg.LAUNCHES)
 
 
 def _counts_reset():
@@ -1231,19 +1332,6 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
                for i in range(n)]
         return sum(per), per
 
-    def floor_us():
-        """Median device us of a one-element fill: what a launch of
-        next to no work reads in this trace."""
-        x = torch.empty(1, dtype=torch.int32, device=dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(21):
-                x.fill_(i)
-            torch.cuda.synchronize()
-        ts = sorted(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        return ts[len(ts) // 2] if ts else None
-
     def frame_ms(name, plain, reps):
         """Sum over the frame's launches of the CUDA-event time of one
         call on fresh copies; median of `reps` rounds."""
@@ -1254,7 +1342,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     reps = 5
     res = {}
     timers = {}
-    fill = floor_us()
+    fill = _fill_us(torch)
     for name in calls:
         frame_ms(name, False, 1)                          # warm-up
         # a launch's floor: a one-element fill; for the kernels with job
@@ -1603,6 +1691,9 @@ def phase_stream(torch, name, path, md5, shape, dtype, pic_md5s=None,
     # first decode warms the device (allocator, library handles)
     _, _, wall_first, _, _ = _decode(path, timed=False, **kw)
     _counts_reset()
+    # the grain LUTs' memo cold: stage fg.luts is their host generation
+    from dav1d_tpu_torch.ops import fg
+    fg._DEVICE_CACHE.clear()
     pics, digest, wall_timed, stages, md5s = _decode(path, timed=True, **kw)
     launches = _counts()
     n_pics = len(pic_md5s) if pic_md5s else 1
@@ -1702,6 +1793,206 @@ def phase_golden_walks(torch):
         cls._recon_b_inter, inter_ref.reconstruct_inter_frame = run_b, run_f
 
 
+def _fill_us(torch):
+    """Median device us of a one-element fill: what a launch of next to
+    no work reads in a trace (None if the trace came back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.empty(1, dtype=torch.int32, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(21):
+            x.fill_(i)
+        torch.cuda.synchronize()
+    ts = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return ts[len(ts) // 2] if ts else None
+
+
+def _launch_us(torch, fn, name, floor, rounds=1, n=5):
+    """The device time (us) of one launch of the kernel whose name
+    contains `name`: in each of `rounds` torch.profiler traces the
+    median over n calls of fn; the median over the traces, and each
+    trace's. A trace without the kernel, or whose median reads below
+    `floor` (a one-element fill's launch: what no launch can beat), is
+    taken again, up to 3 times; then that round's time is CUDA events'
+    per call (an upper bound: it spans the wrapper's host work too).
+    Returns (us, [us per round], timer)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    per, timer = [], "profiler"
+    for _ in range(rounds):
+        for _attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            d = sorted(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == cuda and name in e.name)
+            if d and d[len(d) // 2] >= (floor or 0.0):
+                per.append(d[len(d) // 2])
+                break
+        else:
+            per.append(1e3 * _time_ms(torch, fn, iters=n))
+            timer = "events"
+    return sorted(per)[len(per) // 2], per, timer
+
+
+# the cases of kernel_superres_grain that are timed, the main path's
+# shape first (sr-1080p: 4:2:0 8-bit from 960 columns; fg-1080p: 4:2:0
+# 8-bit with overlap), then monochrome and 4:4:4 and the other depths;
+# (bd, layout, source width) and (bd, layout, overlap). The main shapes
+# are timed over MAIN_ROUNDS traces.
+TIMED_SUPERRES = ((8, 1, 960), (8, 0, 960), (8, 3, 960), (10, 1, 960),
+                  (8, 1, 1280))
+TIMED_GRAIN = ((8, 1, True), (8, 1, False), (8, 0, True), (8, 3, True),
+               (10, 1, True), (12, 1, True))
+MAIN_ROUNDS = 5
+
+# integer ops of a super-res output (8 multiply-adds, the rounding and
+# clip) and of a grained pixel (the LUT offsets, up to 4 LUT reads and
+# 3 blends, the chroma luma average and combination, the scaling,
+# rounding and clip): lower bounds from their arithmetic
+SUPERRES_OPS_PER_PX = 20
+GRAIN_OPS_PER_PX = 40
+
+
+def _superres_work(jobs):
+    """(bytes, ops) of a resize_frame call: each source's rows [:h] and
+    columns [:src_w] read once, each destination written once, int32."""
+    b = sum(4 * h * sw + 4 * d.numel() for _, sw, h, d, _, _, _ in jobs)
+    ops = sum(SUPERRES_OPS_PER_PX * h * dw for _, _, h, _, dw, _, _ in jobs)
+    return b, ops
+
+
+def _grain_work(planes, fr, luts, scal, off):
+    """(bytes, ops) of a film_grain call: each plane read and written
+    once (the chroma's luma average reads the luma its block has read
+    already), the LUTs and the offsets once, int32 pixels."""
+    ch, cw = fr.chroma
+    b = sum(8 * p.numel() for p in planes) + luts.numel() * 2 + \
+        scal.numel() + off.numel() * 4
+    px = sum((fr.h * fr.w if p == 0 else ch * cw)
+             for p, on in enumerate(fr.apply) if on)
+    return b, GRAIN_OPS_PER_PX * px
+
+
+def phase_kernel_superres_grain(torch, card):
+    """The super-res and film grain kernels against their plain versions
+    (torch.equal) at 1080p: super-res to 1920 columns from 960 and 1280,
+    every plane and the pre-CDEF snapshot in one launch; the grain of a
+    1920x1080 frame with overlap on and off, then the flag combinations
+    of kernel_cases GRAIN_VARIANTS (chroma scaling from luma, the
+    restricted range with and without is_id, copied planes); bd 8/10/12,
+    monochrome, 4:2:0, 4:2:2 and 4:4:4. Per case the launch's device us
+    (median of 5), the plain version's ms and the bound. Returns per
+    kernel its max abs error and the times of the main path's shapes
+    (sr-1080p: 4:2:0 8-bit from 960 with the snapshot; fg-1080p: 4:2:0
+    8-bit with overlap; their device us the median of MAIN_ROUNDS
+    traces). Only the TIMED_* cases are timed: the rest are checked."""
+    from dav1d_tpu_torch.ops import fg, superres
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    dev = torch.device("cuda")
+    out = {k: {"max_abs_err": 0} for k in ("superres", "film_grain")}
+    cases = []
+    fill = _fill_us(torch)
+
+    def record(kernel, what, fn, plain, work, main):
+        us, per, timer = _launch_us(torch, fn, kernel + "_kernel", fill,
+                                    MAIN_ROUNDS if main else 1)
+        bound_ms, by = _bound(*work)
+        row = {"case": what, "device_us": us, "device_us_rounds": per,
+               "timer": timer, "plain_ms": _time_ms(torch, plain, iters=2),
+               "bound_us": 1e3 * bound_ms, "bound_by": by}
+        cases.append({"kernel": kernel, **row})
+        if main:
+            out[kernel].update(ms=us / 1e3, plain_ms=row["plain_ms"],
+                               bound_ms=bound_ms, bound_by=by,
+                               timer=timer)
+
+    for bd in (8, 10, 12):
+        for layout in (0, 1, 2, 3):
+            for in_w in (960, 1280):
+                case = kc.superres_case(bd, layout, in_w, 1920, 1080)
+                jobs = kc.superres_args(case, dev)
+
+                def plain(jobs=jobs, bd=bd):
+                    return superres.resize_frame_plain(
+                        [(s, sw, h, d.clone(), dw, st, m)
+                         for s, sw, h, d, dw, st, m in jobs], bd)
+                want = plain()
+                got = superres.resize_frame_cuda(jobs, bd)
+                torch.cuda.synchronize()
+                what = f"superres bd={bd} layout={layout} {in_w}->1920"
+                for i, (g, w) in enumerate(zip(got, want)):
+                    out["superres"]["max_abs_err"] = max(
+                        out["superres"]["max_abs_err"],
+                        _check_equal(torch, g, w, f"{what} job {i}"))
+                if (bd, layout, in_w) in TIMED_SUPERRES:
+                    record("superres", what,
+                           lambda jobs=jobs, bd=bd:
+                           superres.resize_frame_cuda(jobs, bd), plain,
+                           _superres_work(jobs),
+                           (bd, layout, in_w) == TIMED_SUPERRES[0])
+    grain = [(kc.grain_case(bd, layout, 1920, 1080, overlap=ov),
+              f"bd={bd} layout={layout} overlap={ov}", (bd, layout, ov))
+             for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
+             for ov in (True, False)]
+    for name, v in kc.GRAIN_VARIANTS.items():
+        v = dict(v)
+        grain.append((kc.grain_case(v.pop("bd"), v.pop("layout"), 1920,
+                                    1080, **v), name, None))
+    for case, what, key in grain:
+        args = kc.grain_args(case, dev)
+        want = fg.film_grain_plain(*args)
+        got = fg.film_grain_cuda(*args)
+        torch.cuda.synchronize()
+        what = f"film_grain 1920x1080 {what}"
+        for i, (g, w) in enumerate(zip(got, want)):
+            out["film_grain"]["max_abs_err"] = max(
+                out["film_grain"]["max_abs_err"],
+                _check_equal(torch, g, w, f"{what} plane {i}"))
+        if key in TIMED_GRAIN:
+            record("film_grain", what, lambda args=args:
+                   fg.film_grain_cuda(*args),
+                   lambda args=args: fg.film_grain_plain(*args),
+                   _grain_work(*args), key == TIMED_GRAIN[0])
+    emit({"phase": "kernel_superres_grain", "card": card, "cases": cases,
+          "one_element_fill_us": fill,
+          "max_abs_err": {k: v["max_abs_err"] for k, v in out.items()},
+          "equal": True})
+    return out
+
+
+def _post_filter_kernel(name):
+    """The kernel a POST_FILTERS / BIG_POST_FILTERS stream must launch."""
+    return "film_grain" if name.startswith("fg-") or \
+        name.endswith("-grain") else "superres"
+
+
+def phase_post_filters(torch):
+    """Decode the POST_FILTERS streams on cuda through the public API:
+    picture and stream md5s, and each stream's super-res or film grain
+    kernel launched."""
+    for name, (pic_md5s, md5) in POST_FILTERS.items():
+        _counts_reset()
+        pics, digest, wall, _, md5s = _decode(f"{GOLDEN_DIR}/{name}.ivf",
+                                              timed=False)
+        launches = _counts()
+        if md5s != pic_md5s or digest != md5:
+            raise AssertionError(f"post_filters {name}: md5s {md5s} "
+                                 f"{digest} != {pic_md5s} {md5}")
+        k = _post_filter_kernel(name)
+        if not launches[k]:
+            raise AssertionError(f"post_filters {name}: the {k} kernel "
+                                 f"never launched")
+        emit({"phase": "post_filters", "stream": name, "md5": digest,
+              "pictures": len(pics), "wall_ms": wall,
+              "launches": {k: v for k, v in launches.items() if v}})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1721,8 +2012,10 @@ def main():
         lines[k]["max_abs_err"] = e
     for k, e in phase_kernel_filters(torch, card).items():
         lines[k]["max_abs_err"] = e
-    for args in ((), (STREAM_4K10, MD5S_S33, KERNELS[1:]),   # s7, s33,
-                 (STREAM_1080P, MD5S_S31, KERNELS[1:])):     # s31
+    for k, r in phase_kernel_superres_grain(torch, card).items():
+        lines[k].update(r)
+    for args in ((), (STREAM_4K10, MD5S_S33, MAIN_KERNELS[1:]),  # s7, s33,
+                 (STREAM_1080P, MD5S_S31, MAIN_KERNELS[1:])):    # s31
         for k, r in phase_kernel_real(torch, card, *args).items():
             # the kernels line keeps the main path's frame: s31's, last
             lines[k].update({f: r[f] for f in ("ms", "plain_ms", "bound_ms",
@@ -1741,13 +2034,26 @@ def main():
                  repeats=INTER_REPEATS, n_tu=2)
     launches = phase_stream(torch, "inter_main", STREAM_1080P, MD5_S31,
                             (1152, 1920), "uint8", pic_md5s=MD5S_S31,
-                            need=KERNELS, repeats=INTER_REPEATS)
-    for k in KERNELS:                  # this slice's main path
+                            need=MAIN_KERNELS, repeats=INTER_REPEATS)
+    for k in MAIN_KERNELS:             # the main path: s31
         lines[k]["launches"] = launches[k]
     phase_stream(torch, "inter_main_hbd", STREAM_4K10, MD5_S33,
-                 (2176, 3840), "uint16", pic_md5s=MD5S_S33, need=KERNELS,
-                 repeats=INTER_REPEATS, n_tu=2)
+                 (2176, 3840), "uint16", pic_md5s=MD5S_S33,
+                 need=MAIN_KERNELS, repeats=INTER_REPEATS, n_tu=2)
     phase_golden_walks(torch)
+    # s31 runs neither super-res nor film grain: their launches come
+    # from the streams of their own phases
+    for name, (pic_md5s, md5) in BIG_POST_FILTERS.items():
+        k = _post_filter_kernel(name)
+        hbd = name.endswith("10b")
+        launches = phase_stream(
+            torch, name, f"{GOLDEN_DIR}/{name}.ivf", md5, (1152, 1920),
+            "uint16" if hbd else "uint8", pic_md5s=pic_md5s,
+            need=("deblock",) + FILTER_KERNELS + (k,),
+            repeats=INTER_REPEATS)
+        if name in ("sr-1080p", "fg-1080p"):
+            lines[k]["launches"] = launches[k]
+    phase_post_filters(torch)
     sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
                            "dav1d_tpu/ops/lf_pallas.py:74"),
                "mc_put": ("dav1d_tpu_torch/csrc/mc_put.cu",
@@ -1765,13 +2071,20 @@ def main():
                "lr_wiener": ("dav1d_tpu_torch/csrc/lr_wiener.cu",
                              "dav1d_tpu/ops/lr.py:106"),
                "lr_sgr": ("dav1d_tpu_torch/csrc/lr_sgr.cu",
-                          "dav1d_tpu/ops/lr.py:146")}
+                          "dav1d_tpu/ops/lr.py:146"),
+               "superres": ("dav1d_tpu_torch/csrc/superres.cu",
+                            "dav1d_tpu/ops/superres.py:41"),
+               "film_grain": ("dav1d_tpu_torch/csrc/film_grain.cu",
+                              "dav1d_tpu/ops/fg.py:131")}
     # library_ms is null for every kernel: no single PyTorch call
     # computes a deblock pass, a clamped-window 8-tap put, a masked
     # compound, an integer AV1 inverse transform, an affine-warped 8x8
     # tile, an OBMC lap blend, a CDEF direction search and constrained
-    # filter, a Wiener filter over row-table windows or a self-guided
-    # filter with its x_by_x lookup
+    # filter, a Wiener filter over row-table windows, a self-guided
+    # filter with its x_by_x lookup, a super-res upscale with its
+    # per-column phases or a film grain synthesis with its LUT gathers
+    # and overlap blends (film_grain also replaces dav1d_tpu/ops/fg.py
+    # :172, the chroma program)
     emit({"kernels": [{
         "name": k, "route": "cuda", "source": sources[k][0],
         "replaces": sources[k][1], **{f: lines[k][f] for f in (

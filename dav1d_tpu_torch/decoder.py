@@ -7,9 +7,10 @@ refresh_frame_flags, refmvs frame init, and show_existing_frame.
 
 PyTorch port of dav1d_tpu's decoder.py: key and intra frames
 reconstruct on the host (native engine), inter frames run Stage B on
-the settings' device (recon/inter_device.py), and every frame runs the
-in-loop filter chain there. Intrabc frames, film grain and the sharding
-mesh raise NotImplementedError naming their ROADMAP item.
+the settings' device (recon/inter_device.py), intrabc frames on the
+host (recon/inter_ref.py), and every frame runs the in-loop filter
+chain (super-res among it) and film grain there. The sharding mesh
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -705,7 +706,8 @@ class ObuStreamDecoder:
         pic.frame_hdr = fh
         return pic
 
-    @staticmethod
-    def _apply_grain(pic, fh, seq):
-        raise NotImplementedError(
-            "film grain not ported yet: ROADMAP item 6")
+    def _apply_grain(self, pic, fh, seq):
+        """The grained output copy of a shown picture, made on the
+        decode's device; the reference picture stays clean."""
+        from .ops.fg import apply_film_grain_device
+        return apply_film_grain_device(pic, fh, seq, self.device)

@@ -46,6 +46,16 @@ def upload_planes(host_planes, device):
     return out
 
 
+def planes_on_device(pic, device):
+    """A picture's clean planes as int32 tensors on `device`: its
+    device planes when it has them, else its host planes (made current
+    first) uploaded."""
+    if pic.dev is not None:
+        return pic.dev
+    fetch_pic_host(pic)
+    return upload_planes(pic.planes, device)
+
+
 def tables_from_numpy(d: dict, device="cpu") -> dict:
     """Table arrays (numpy, as dav1d_tpu.tables or this package's
     tables hold them) -> the port's device-side LUTs:

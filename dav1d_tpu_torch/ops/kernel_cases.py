@@ -811,3 +811,149 @@ def frame_args(case, device, kind):
                        pl["hmax"], cur.shape[0]))
     return planes, lr.frame_tables(kind, groups, _sgr_params_tbl()), \
         case["bd"]
+
+
+def _pad128(n):
+    return -(-n // 128) * 128
+
+
+def _layout_ss(layout):
+    """(ss_hor, ss_ver) of a layout (0 monochrome, 1 4:2:0, 2 4:2:2,
+    3 4:4:4)."""
+    return int(layout in (1, 2)), int(layout == 1)
+
+
+# super-res: (coded luma width, output luma width, rows) of the cases;
+# odd widths, a width whose chroma rounds up, the 2x step, and widths
+# up to the 8192 a frame may have
+SUPERRES_GEOMETRIES = ((53, 70, 21), (96, 128, 40), (64, 128, 9),
+                       (157, 256, 12), (4101, 8192, 3))
+
+
+def superres_case(bd, layout, in_w, out_w, h, pre=True, seed=0):
+    """The resize jobs of one super-res frame: every plane of the layout
+    from a coded width in_w to out_w over h rows, and (pre) the
+    pre-CDEF snapshot's planes too, with the geometry of ops/superres.py
+    frame_geometry (the even-rounded coded width as the source width,
+    chroma's step and x0 from the rounded chroma widths). Sources are
+    random pixels in planes padded as a Picture's (columns past src_w
+    junk, which the clamped reads must not reach); destinations have the
+    output Picture's padded shape. Returns {jobs: [(src, src_w, h,
+    dst_shape, dst_w, step, mx0)], bd, layout}."""
+    from .mc_ref import get_upscale_x0, scale_fac
+    rng = np.random.default_rng(seed + 100 * bd + 10 * layout + in_w)
+    sh, sv = _layout_ss(layout)
+    bw4 = ((in_w + 7) >> 3) << 3          # 4 * f.bw
+    step = [scale_fac(in_w, out_w),
+            scale_fac((in_w + sh) >> sh, (out_w + sh) >> sh)]
+    x0 = [get_upscale_x0(in_w, out_w, step[0]),
+          get_upscale_x0((in_w + sh) >> sh, (out_w + sh) >> sh, step[1])]
+    Hs, Ws, Wd = _pad128(h), _pad128(bw4), _pad128(out_w)
+    jobs = []
+    for _src in range(2 if pre else 1):
+        for p in range(3 if layout else 1):
+            c = int(bool(p))
+            shape = (Hs >> (sv * c), Ws >> (sh * c))
+            jobs.append((rng.integers(0, 1 << bd, shape).astype(np.int32),
+                         bw4 >> (sh * c), (h + sv * c) >> (sv * c),
+                         (Hs >> (sv * c), Wd >> (sh * c)),
+                         (out_w + sh * c) >> (sh * c), step[c], x0[c]))
+    return {"jobs": jobs, "bd": bd, "layout": layout}
+
+
+def superres_cases():
+    """Every super-res case: each geometry of SUPERRES_GEOMETRIES in
+    each layout at bd 8/10/12 (with the pre-CDEF snapshot at bd 8 and
+    12, without it at bd 10)."""
+    return [superres_case(bd, layout, *g, pre=bd != 10)
+            for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
+            for g in SUPERRES_GEOMETRIES]
+
+
+def superres_args(case, device):
+    """resize_frame's jobs of a superres_case on `device`: destinations
+    filled with -1 (the kernel writes every pixel, zeros outside the
+    resized area)."""
+    import torch
+    return [(torch.from_numpy(src).to(device), src_w, h,
+             torch.full(dst_shape, -1, dtype=torch.int32, device=device),
+             dst_w, step, mx0)
+            for src, src_w, h, dst_shape, dst_w, step, mx0 in case["jobs"]]
+
+
+def grain_case(bd, layout, w, h, overlap=True, csfl=False, clip=False,
+               is_id=False, apply=None, seed=0):
+    """One frame's film grain inputs: random clean planes of a
+    Picture's padded shapes (w x h visible), random grain LUTs in the
+    grain range, scaling LUTs in 0..255, block offsets 0..255, a scaling
+    shift of 8..11 and chroma multipliers and offsets over their whole
+    ranges; apply (per plane: grained or copied) defaults to every
+    plane. Returns {planes, luts (3, 74, 82) int16, scal (3, 1 << bd)
+    uint8, off (n_rows, n_bx) int32, params (GrainFrame's fields)}."""
+    from .fg import LUT_ROWS
+    rng = np.random.default_rng(seed + 1000 * bd + 100 * layout + w + h)
+    sh, sv = _layout_ss(layout)
+    H, W = _pad128(h), _pad128(w)
+    n = 3 if layout else 1
+    shapes = [(H, W)] + [(H >> sv, W >> sh)] * (n - 1)
+    ctr = 128 << (bd - 8)
+    apply = tuple(apply if apply is not None else (True,) * n)
+    csfl = bool(csfl and layout)
+    return {
+        "planes": [rng.integers(0, 1 << bd, s).astype(np.int32)
+                   for s in shapes],
+        "luts": rng.integers(-ctr, ctr, (3, LUT_ROWS, 82)).astype(np.int16),
+        "scal": rng.integers(0, 256, (3, 1 << bd)).astype(np.uint8),
+        "off": rng.integers(0, 256, (-(-h // 32), -(-w // 32))).astype(
+            np.int32),
+        "params": dict(
+            w=w, h=h, sx=sh, sy=sv, bd=bd,
+            scaling_shift=int(rng.integers(8, 12)), overlap=overlap,
+            clip_range=clip, is_id=is_id, csfl=csfl, apply=apply,
+            scale_idx=(0, 0 if csfl else 1, 0 if csfl else 2)[:n],
+            uv_luma_mult=tuple(int(v) for v in rng.integers(-128, 128, 2)),
+            uv_mult=tuple(int(v) for v in rng.integers(-128, 128, 2)),
+            uv_offset=tuple(int(v) for v in rng.integers(-256, 256, 2)))}
+
+
+# film grain: (visible width, height) of the cases: odd sizes whose
+# chroma luma read goes one column past the luma width, blocks cut at
+# both edges, and whole blocks filling the padded planes' width
+GRAIN_GEOMETRIES = ((71, 49), (128, 64), (130, 97))
+# the per-frame flags in combination, a layout each: overlap off, chroma
+# scaling from luma, the restricted range with and without is_id,
+# copied planes
+GRAIN_VARIANTS = {
+    "mono-clip": dict(bd=8, layout=0, overlap=False, clip=True),
+    "420-csfl-clip": dict(bd=10, layout=1, overlap=False, csfl=True,
+                          clip=True),
+    "422-csfl-clip-id": dict(bd=12, layout=2, csfl=True, clip=True,
+                             is_id=True),
+    "444-clip-id-copy": dict(bd=10, layout=3, overlap=False, clip=True,
+                             is_id=True, apply=(False, True, True)),
+}
+
+
+def grain_variant(name):
+    """The GRAIN_VARIANTS case of `name`, 71x49."""
+    v = dict(GRAIN_VARIANTS[name])
+    return grain_case(v.pop("bd"), v.pop("layout"), 71, 49, seed=7, **v)
+
+
+def grain_cases():
+    """Every film grain case: each layout at bd 8/10/12 on each geometry
+    with overlap, then the GRAIN_VARIANTS."""
+    return [grain_case(bd, layout, w, h, seed=k)
+            for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
+            for k, (w, h) in enumerate(GRAIN_GEOMETRIES)] + \
+        [grain_variant(name) for name in GRAIN_VARIANTS]
+
+
+def grain_args(case, device):
+    """film_grain's arguments of a grain_case on `device`: (planes,
+    GrainFrame, luts, scal, off)."""
+    import torch
+    from .fg import GrainFrame
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return ([T(p) for p in case["planes"]], GrainFrame(**case["params"]),
+            T(case["luts"]), T(case["scal"]), T(case["off"]))

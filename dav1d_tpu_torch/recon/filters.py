@@ -1,14 +1,16 @@
 """In-loop filter chain on the device.
 
-Runs deblock -> CDEF -> loop restoration as one device-resident
-sequence (port of dav1d_tpu's recon/filters.py
+Runs deblock -> CDEF -> super-res -> loop restoration as one
+device-resident sequence (port of dav1d_tpu's recon/filters.py
 run_filter_chain_device): the chain starts from the picture's device
 planes (`pic.dev`, an inter frame's Stage B output) or uploads the host
 planes once, every filter consumes the previous filter's tensors (the
-pre-CDEF snapshot for LR is the deblock output kept alive), the final
-planes stay on the device as `pic.dev` for later frames' references,
-and pixels download once at the end, queued on the current stream and
-materialized by ops.device.fetch_pic_host.
+pre-CDEF snapshot for LR is the deblock output kept alive, resized with
+the planes on a super-res frame), the final planes stay on the device
+as `pic.dev` of the final picture (a new, output-width one on a
+super-res frame) for later frames' references, and pixels download
+once at the end, queued on the current stream and materialized by
+ops.device.fetch_pic_host.
 
 With utils.timing enabled, each stage synchronizes the device before
 its timer stops, so the timed sections hold their device work.
@@ -20,14 +22,12 @@ from ..utils import timing
 
 
 def run_filter_chain_device(pic, plan, inloop_filters, device):
-    """Apply the enabled in-loop filters on `device`; the picture's host
-    planes become current at its first host consumer. Returns pic."""
+    """Apply the enabled in-loop filters on `device`; the final
+    picture's host planes become current at its first host consumer.
+    Returns the final Picture: on a super-res frame a new one of the
+    output width (pic's device planes are dropped), else pic."""
     f = plan.f
     fh = f.frame_hdr
-    if fh.width[0] != fh.width[1]:
-        raise NotImplementedError(
-            "super-res frames not ported yet: ROADMAP item 4")
-
     lflf = fh.loopfilter
     do_deblock = bool(inloop_filters & 1) and \
         (lflf.level_y[0] or lflf.level_y[1])
@@ -35,9 +35,10 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
     do_cdef = bool(inloop_filters & 2) and f.seq_hdr.cdef and \
         any(cd.y_strength[i] or cd.uv_strength[i]
             for i in range(1 << cd.n_bits))
+    do_sr = fh.width[0] != fh.width[1]
     do_lr = bool(inloop_filters & 4) and \
         any(t != 0 for t in fh.restoration.type)
-    if not (do_deblock or do_cdef or do_lr):
+    if not (do_deblock or do_cdef or do_sr or do_lr):
         if pic.dev is not None:     # an inter frame: fetch its planes
             _keep_and_fetch(pic, pic.dev)
         return pic              # else the host planes from recon are final
@@ -63,14 +64,24 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
             planes = cdef_planes_device(planes, plan, pic.bpc)
             sync_if_timed(device)
 
+    out_pic = pic
+    if do_sr:
+        from ..ops.superres import superres_planes_device
+        with timing.phase("filters.superres"):
+            out_pic, planes, pre_cdef = superres_planes_device(
+                planes, pre_cdef, plan, pic)
+            sync_if_timed(device)
+        pic.dev = None          # the coded-width picture is dropped
+        pic.dev_c = None
+
     if do_lr:
         from ..ops.lr import lr_planes_device
         with timing.phase("filters.lr"):
             planes = lr_planes_device(planes, pre_cdef, plan, pic.bpc)
             sync_if_timed(device)
 
-    _keep_and_fetch(pic, planes)
-    return pic
+    _keep_and_fetch(out_pic, planes)
+    return out_pic
 
 
 def _keep_and_fetch(pic, planes):

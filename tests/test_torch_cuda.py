@@ -13,7 +13,12 @@ before left in one launch, ragged lap counts); the CDEF, Wiener and SGR kernels 
 (bd 8/10/12, every layout, every unit size and stripe height; CDEF
 also on tiles wholly outside the crop and on exact direction-cost
 ties; Wiener and SGR also in one launch over the items of every plane
-of a frame). Marked
+of a frame); the super-res kernel on its seeded cases (every plane and
+the pre-CDEF snapshot in one launch, odd widths, the 2x step, 8192
+columns, the zero padding written) and the film grain kernel on its
+(every layout at bd 8/10/12, odd sizes, overlap on and off, chroma
+scaling from luma, the restricted range with and without is_id, copied
+planes). Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -609,3 +614,102 @@ def test_filter_wrapper_checks(cuda):
         lr.sgr_frame_cuda(planes, (items, rowt[:-1].copy()), bd)
     with pytest.raises(ValueError):         # bit depth
         lr.sgr_frame_cuda(planes, (items, rowt), 9)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3],
+                         ids=["400", "420", "422", "444"])
+def test_superres_kernel_vs_plain(cuda, bd, layout):
+    # every geometry of the super-res cases (odd widths, the 2x step,
+    # 8192 columns), every plane and the pre-CDEF snapshot in one launch;
+    # the destinations start at -1: the kernel writes the zero padding
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import superres
+    cases = [c for c in kc.superres_cases()
+             if (c["bd"], c["layout"]) == (bd, layout)]
+    assert len(cases) == len(kc.SUPERRES_GEOMETRIES)
+    for case in cases:
+        jobs = kc.superres_args(case, cuda)
+        want = superres.resize_frame_plain(
+            [(s, sw, h, d.clone(), dw, st, m)
+             for s, sw, h, d, dw, st, m in jobs], bd)
+        before = superres.LAUNCHES["superres"]
+        got = superres.resize_frame(jobs, bd)
+        assert superres.LAUNCHES["superres"] == before + 1
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_superres_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import superres
+    jobs = kc.superres_args(kc.superres_case(8, 1, 53, 70, 21), cuda)
+    src, src_w, h, dst, dst_w, step, mx0 = jobs[0]
+    before = superres.LAUNCHES["superres"]
+    with pytest.raises(ValueError):         # dst is src
+        superres.resize_frame_cuda([(src, src_w, h, src, dst_w, step, mx0)],
+                                   8)
+    with pytest.raises(ValueError):         # not contiguous
+        superres.resize_frame_cuda([(src[:, 1:], src_w, h, dst, dst_w, step,
+                                     mx0)], 8)
+    with pytest.raises(ValueError):         # a CPU destination
+        superres.resize_frame_cuda([(src, src_w, h, dst.cpu(), dst_w, step,
+                                     mx0)], 8)
+    with pytest.raises(ValueError):         # bit depth
+        superres.resize_frame_cuda(jobs, 9)
+    assert superres.LAUNCHES["superres"] == before
+
+
+def _grain_kernel_vs_plain(cuda, case):
+    from dav1d_tpu_torch.ops import fg
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    args = kc.grain_args(case, cuda)
+    want = fg.film_grain_plain(*args)
+    before = fg.LAUNCHES["film_grain"]
+    got = fg.film_grain(*args)
+    assert fg.LAUNCHES["film_grain"] == before + 1
+    torch.cuda.synchronize()
+    for g, w, s in zip(got, want, args[0]):
+        assert g is not s
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("layout", [0, 1, 2, 3],
+                         ids=["400", "420", "422", "444"])
+@pytest.mark.parametrize("geo", range(3), ids=["71x49", "128x64", "130x97"])
+def test_film_grain_kernel_vs_plain(cuda, bd, layout, geo):
+    # every plane in one launch with overlap; odd sizes whose chroma
+    # reads the luma one column past its width, blocks cut at both edges
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _grain_kernel_vs_plain(cuda, kc.grain_case(
+        bd, layout, *kc.GRAIN_GEOMETRIES[geo], seed=geo))
+
+
+@pytest.mark.parametrize("name", ["mono-clip", "420-csfl-clip",
+                                  "422-csfl-clip-id", "444-clip-id-copy"])
+def test_film_grain_flags_kernel_vs_plain(cuda, name):
+    # overlap off, chroma scaling from luma, the restricted range with and
+    # without is_id, copied planes
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    _grain_kernel_vs_plain(cuda, kc.grain_variant(name))
+
+
+def test_film_grain_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import fg
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    planes, fr, luts, scal, off = kc.grain_args(kc.grain_case(8, 1, 71, 49),
+                                                cuda)
+    before = fg.LAUNCHES["film_grain"]
+    with pytest.raises(ValueError):         # a CPU plane
+        fg.film_grain_cuda([planes[0].cpu(), *planes[1:]], fr, luts, scal,
+                           off)
+    with pytest.raises(ValueError):         # not contiguous
+        fg.film_grain_cuda([planes[0][:, 1:], *planes[1:]], fr, luts, scal,
+                           off)
+    with pytest.raises(ValueError):         # scaling LUTs of int32
+        fg.film_grain_cuda(planes, fr, luts, scal.int(), off)
+    with pytest.raises(ValueError):         # offsets of another frame
+        fg.film_grain_cuda(planes, fr, luts, scal, off[:1])
+    assert fg.LAUNCHES["film_grain"] == before

@@ -13,10 +13,11 @@ streams with every in-loop filter on. The host golden walks: leftovers
 that are not pure intra (interintra, also at an odd frame size, blocks
 on scaled references, scaled and warped compounds) and intrabc frames,
 on the streams committed for chip_smoke.py (torch_port_cases
-GOLDEN_WALKS), each showing that its walk ran. Super-res, film grain and
-a missing native job emitter raise DecodeError naming their ROADMAP
-item. Every pass's jobs write disjoint pixels (the kernels rely on it):
-puts, warp tiles, compounds, each direction's OBMC blends, residuals."""
+GOLDEN_WALKS), each showing that its walk ran. Inter streams with
+super-res and with film grain to the golden md5s; a missing native job
+emitter raises DecodeError naming its ROADMAP item. Every pass's jobs
+write disjoint pixels (the kernels rely on it): puts, warp tiles,
+compounds, each direction's OBMC blends, residuals."""
 import os
 
 import numpy as np
@@ -90,13 +91,14 @@ LAYOUT_STREAMS = {
 }
 # the streams whose leftovers the golden inter walk replays
 LEFTOVER_WALKS = ("interintra", "interintra-odd-size")
-RAISES = {
-    "superres": (dict(w=96, h=96, n_frames=3, seed=80, superres_denom=12),
-                 "ROADMAP item 4"),
-    "film-grain": (dict(w=96, h=96, n_frames=3, seed=95, film_grain=dict(
+# inter streams with super-res (inter frames predict from references of
+# the other width through the host golden walk) and with film grain
+SUPERRES_GRAIN = {
+    "superres": dict(w=96, h=96, n_frames=3, seed=80, superres_denom=12),
+    "film-grain": dict(w=96, h=96, n_frames=3, seed=95, film_grain=dict(
         seed=1234, y_points=[(0, 64), (255, 48)], ar_coeff_lag=0,
         ar_coeffs_y=[], scaling_shift=9, uv_points=[[(0, 32)], [(16, 48)]],
-        ar_coeffs_uv=[[5], [7]], overlap_flag=0)), "ROADMAP item 6"),
+        ar_coeffs_uv=[[5], [7]], overlap_flag=0)),
 }
 
 
@@ -255,11 +257,14 @@ def test_inter_stream_md5s_match_dav1d_tpu_device_path():
     assert _port_md5s(data) == _jax_md5s(data)
 
 
-@pytest.mark.parametrize("name", sorted(RAISES))
-def test_unported_inter_tools_raise(name):
-    cfg, item = RAISES[name]
-    with pytest.raises(DecodeError, match=item):
-        _port_md5s(_stream(cfg))
+@pytest.mark.parametrize("name", sorted(SUPERRES_GRAIN))
+def test_superres_and_grain_inter_streams_match_golden(name, monkeypatch):
+    data = _stream(SUPERRES_GRAIN[name])
+    got = _port_md5s(data)
+    monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
+    want = _jax_md5s(data)
+    assert len(want) == SUPERRES_GRAIN[name]["n_frames"]
+    assert got == want
 
 
 def test_missing_native_emitter_raises(monkeypatch):

@@ -1,9 +1,10 @@
 """The keyframe/intra slice end to end: small synthetic intra streams with
 every in-loop filter on decode through dav1d_tpu's ObuStreamDecoder and
 through the port's public API (device="cpu", so the plain versions
-run), and every picture's md5 must be equal. Features the port does
-not have yet (super-res, film grain) raise DecodeError naming their
-ROADMAP item (inter frames: tests/test_torch_inter.py)."""
+run), and every picture's md5 must be equal; super-res and film grain
+streams, intra and inter, to the md5s of dav1d_tpu's golden numpy path
+(more of them: tests/test_torch_superres.py, tests/test_torch_fg.py;
+inter frames: tests/test_torch_inter.py)."""
 import pytest
 import torch
 
@@ -11,10 +12,10 @@ from dav1d_tpu.bitstream.ivf import IvfReader
 from dav1d_tpu.decoder import ObuStreamDecoder
 from dav1d_tpu.utils.muxers import Md5Muxer as JaxMd5
 from dav1d_tpu_torch import cli
-from dav1d_tpu_torch.api import DecodeError, Decoder, Settings
+from dav1d_tpu_torch.api import Decoder, Settings
 from dav1d_tpu_torch.utils.muxers import Md5Muxer
 
-from torch_port_cases import FILTERS, STREAMS, stream
+from torch_port_cases import FILTERS, STREAMS, golden_md5s, stream
 
 torch.set_num_threads(2)
 
@@ -78,11 +79,10 @@ def _decode_all(data, **settings):
     return pics
 
 
-def test_inter_frame_raises_decode_error():
+def test_inter_frames_with_superres_and_grain_match_golden(monkeypatch):
     # inter frames decode since the inter slice (tests/test_torch_inter
-    # .py), interintra among them since the host golden walks; inter
-    # streams with super-res or film grain, which are not ported yet,
-    # raise naming their ROADMAP item
+    # .py), interintra among them since the host golden walks, and
+    # inter streams with super-res or film grain since slice 10
     from tools.streamgen.gen import generate_stream
     from torch_port_cases import PYR
     data, _ = generate_stream(96, 96, n_frames=5, seed=25, inter_intra=1,
@@ -92,11 +92,12 @@ def test_inter_frame_raises_decode_error():
                  ar_coeffs_y=[], scaling_shift=9,
                  uv_points=[[(0, 32)], [(16, 48)]],
                  ar_coeffs_uv=[[5], [7]], overlap_flag=0)
-    for kw, item in ((dict(seed=80, superres_denom=12), "ROADMAP item 4"),
-                     (dict(seed=95, film_grain=grain), "ROADMAP item 6")):
+    for kw in (dict(seed=80, superres_denom=12),
+               dict(seed=95, film_grain=grain)):
         data, _ = generate_stream(96, 96, n_frames=3, **kw)
-        with pytest.raises(DecodeError, match=item):
-            _decode_all(data)
+        want = golden_md5s(data, monkeypatch)
+        assert len(want) == 3
+        assert _port_md5s(data) == want
 
 
 def test_key_only_skips_inter_frames():
@@ -105,25 +106,29 @@ def test_key_only_skips_inter_frames():
     assert len(_decode_all(data, decode_frame_type=3)) == 1
 
 
-def test_superres_raises_decode_error():
+def test_superres_intra_matches_golden(monkeypatch):
     from tools.streamgen.gen import generate_intra_stream
     data, _ = generate_intra_stream(128, 64, seed=5, superres_denom=12,
                                     **FILTERS)
-    with pytest.raises(DecodeError, match="ROADMAP item 4"):
-        _decode_all(data)
+    pics = _decode_all(data)
+    assert [(p.w, p.h) for p in pics] == [(128, 64)]
+    assert _port_md5s(data) == golden_md5s(data, monkeypatch)
 
 
-def test_film_grain_raises_decode_error():
+def test_film_grain_intra_matches_golden(monkeypatch):
     from tools.streamgen.gen import generate_intra_stream
     grain = dict(seed=1234, y_points=[(0, 64), (255, 48)], ar_coeff_lag=0,
                  ar_coeffs_y=[], scaling_shift=9,
                  uv_points=[[(0, 32)], [(16, 48)]],
                  ar_coeffs_uv=[[5], [7]], overlap_flag=0)
     data, _ = generate_intra_stream(64, 64, seed=6, film_grain=grain)
-    with pytest.raises(DecodeError, match="ROADMAP item 6"):
-        _decode_all(data)
-    # without grain application the frame decodes
-    assert len(_decode_all(data, apply_grain=False)) == 1
+    grained = _port_md5s(data)
+    assert grained == golden_md5s(data, monkeypatch)
+    # without grain application the frame decodes to dav1d_tpu's
+    # un-grained picture
+    clean = _port_md5s(data, apply_grain=False)
+    assert len(clean) == 1 and clean != grained
+    assert clean == golden_md5s(data, monkeypatch, apply_grain=False)
 
 
 def test_cuda_requested_without_a_card_raises():

@@ -1,8 +1,10 @@
 """Shared inputs of the PyTorch-port parity tests: small synthetic intra
 streams with every in-loop filter on (4:2:0 at 8, 10 and 12 bit, 4:2:2,
 4:4:4 and monochrome), parsed by both packages; the streams of the host
-golden walks (GOLDEN_WALKS); and the kernels' decompositions (deblock
-and CDEF tiles, the OBMC and warp assignments) in plain torch."""
+golden walks (GOLDEN_WALKS); the super-res and film grain streams
+(SUPERRES_STREAMS, GRAIN_STREAMS, BIG_POST_FILTERS); and the kernels'
+decompositions (deblock and CDEF tiles, the OBMC and warp assignments)
+in plain torch."""
 import os
 
 import numpy as np
@@ -87,6 +89,198 @@ def write_golden_walks():
     for name in GOLDEN_WALKS:
         with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
             fh.write(golden_walk_stream(name))
+
+
+# super-res and film grain (ROADMAP items 4 and 6): the configs of
+# tests/test_e2e_superres.py (its sr-* streams), tests/test_e2e_layouts
+# .py (its *-superres and *-grain streams) and tests/test_e2e_filmgrain
+# .py (every stream; names prefixed fg-), as (intra stream?, generator
+# arguments), and two 4:2:0 grain streams: of an odd luma width, whose
+# chroma reads the luma one column past it, and of a luma width that
+# fills the padded plane
+FG_FULL = dict(seed=1234, y_points=[(0, 64), (128, 96), (255, 48)],
+               ar_coeff_lag=2,
+               ar_coeffs_y=[3, -2, 5, 1, -4, 2, 0, 6, -1, 2, 4, -3],
+               scaling_shift=9,
+               uv_points=[[(0, 32), (255, 80)], [(16, 48), (200, 64)]],
+               ar_coeffs_uv=[[1, -1, 2, 0, 3, -2, 1, 0, 2, -1, 0, 1, 5],
+                             [0, 2, -3, 1, 0, 4, -1, 2, 0, 1, -2, 3, 7]],
+               uv_mult=[20, -10], uv_luma_mult=[60, 80],
+               uv_offset=[30, -40], overlap_flag=1,
+               clip_to_restricted_range=0)
+FG_CSFL = dict(seed=999, y_points=[(0, 40), (255, 120)], ar_coeff_lag=1,
+               ar_coeffs_y=[10, -5, 3, 2], chroma_scaling_from_luma=1,
+               ar_coeffs_uv=[[1, 2, 3, 4, 5], [5, 4, 3, 2, 1]],
+               overlap_flag=0, clip_to_restricted_range=1,
+               grain_scale_shift=1)
+FG_LAG3 = dict(seed=5, y_points=[(0, 80), (255, 100)], ar_coeff_lag=3,
+               ar_coeffs_y=list(range(-12, 12)), overlap_flag=1,
+               uv_points=[[(0, 60)], [(0, 50)]],
+               ar_coeffs_uv=[list(range(-12, 13)),
+                             list(range(12, -13, -1))],
+               uv_mult=[5, -5], uv_luma_mult=[70, 50],
+               uv_offset=[10, -10])
+# FG_FULL with chroma scaled by the luma alone, steeply: the chroma
+# grain follows every step of the luma average
+FG_STEEP = dict(FG_FULL, uv_points=[[(0, 0), (255, 255)], [(0, 255),
+                                                          (255, 0)]],
+                uv_mult=[0, 0], uv_luma_mult=[64, 64], uv_offset=[0, 0])
+# tests/test_e2e_layouts.py's grain and filter sets
+FG_LAYOUTS = dict(seed=77, y_points=[(0, 60), (255, 90)], ar_coeff_lag=2,
+                  ar_coeffs_y=[3, -2, 5, 1, -4, 2, 0, 6, -1, 2, 4, -3],
+                  uv_points=[[(0, 32), (255, 80)], [(16, 48), (200, 64)]],
+                  ar_coeffs_uv=[[1, -1, 2, 0, 3, -2, 1, 0, 2, -1, 0, 1, 5],
+                                [0, 2, -3, 1, 0, 4, -1, 2, 0, 1, -2, 3, 7]],
+                  uv_mult=[20, -10], uv_luma_mult=[60, 80],
+                  uv_offset=[30, -40], overlap_flag=1)
+LAYOUT_FILTERS = dict(lf_levels=(20, 18, 12, 10),
+                      cdef_params=(2, 1, [9, 5], [3, 2]), lr_types=(2, 2, 2))
+
+
+def _sr_pyr_refidx(fi):
+    m = {1: (0,) * 7, 2: (0, 0, 0, 0, 1, 1, 1), 3: (0, 0, 0, 0, 2, 2, 1)}
+    return m[min(fi, 3)]
+
+
+SR_PYR = dict(order_hints=[0, 8, 4, 2], refidx_fn=_sr_pyr_refidx,
+              refresh_fn=lambda fi: 1 << fi)
+SUPERRES_STREAMS = {
+    "sr-intra": (True, dict(w=96, h=96, qidx=120, seed=70, n_frames=2,
+                            superres_denom=12)),
+    "sr-intra-lr": (True, dict(w=96, h=96, qidx=120, seed=71, n_frames=2,
+                               superres_denom=12, lr_types=(2, 2, 2))),
+    "sr-intra-all-filters": (True, dict(
+        w=128, h=96, qidx=130, seed=72, n_frames=2, superres_denom=10,
+        lr_types=(1, 1, 1), lr_unit_shift=1,
+        cdef_params=(1, 1, [4, 6], [2, 1]), lf_levels=(18, 16, 10, 8))),
+    "sr-intra-hbd": (True, dict(w=96, h=96, qidx=120, seed=73, n_frames=2,
+                                hbd=1, superres_denom=16,
+                                lr_types=(2, 0, 0))),
+    "sr-intra-odd": (True, dict(w=70, h=50, qidx=120, seed=74, n_frames=2,
+                                superres_denom=13)),
+    "sr-inter": (False, dict(w=96, h=96, n_frames=3, seed=80,
+                             superres_denom=12)),
+    "sr-inter-filters": (False, dict(
+        w=96, h=96, n_frames=4, seed=81, superres_denom=14,
+        lf_levels=(20, 18, 12, 10), cdef_params=(2, 1, [9, 5], [3, 2]),
+        lr_types=(2, 2, 2))),
+    "sr-inter-pyr": (False, dict(w=96, h=96, n_frames=4, seed=82,
+                                 superres_denom=11, jnt_comp=1, **SR_PYR)),
+    "sr-inter-hbd": (False, dict(w=96, h=96, n_frames=3, seed=83, hbd=1,
+                                 superres_denom=12)),
+    "sr-bilin": (False, dict(w=96, h=96, n_frames=3, seed=90,
+                             subpel_filter_switchable=0, subpel_filter=3,
+                             superres_denom=12)),
+    "i444-superres": (False, dict(w=96, h=96, n_frames=3, seed=340,
+                                  layout=3, superres_denom=12)),
+    "i422-superres": (False, dict(w=96, h=96, n_frames=3, seed=341,
+                                  layout=2, superres_denom=12)),
+    "mono-superres": (False, dict(w=96, h=96, n_frames=3, seed=342,
+                                  monochrome=1, superres_denom=12)),
+}
+GRAIN_STREAMS = {
+    "fg-full": (True, dict(w=96, h=96, qidx=120, seed=30, n_frames=2,
+                           film_grain=FG_FULL)),
+    "fg-chroma-from-luma": (True, dict(w=96, h=96, qidx=120, seed=31,
+                                       n_frames=2, film_grain=FG_CSFL)),
+    "fg-inter": (False, dict(w=96, h=96, n_frames=3, seed=95,
+                             film_grain=FG_FULL,
+                             lf_levels=(20, 20, 14, 14))),
+    "fg-hbd": (True, dict(w=96, h=96, qidx=120, seed=32, n_frames=2,
+                          hbd=1, film_grain=FG_FULL)),
+    "fg-odd-size": (True, dict(w=70, h=50, qidx=120, seed=33, n_frames=2,
+                               film_grain=FG_FULL)),
+    "fg-lag3": (True, dict(w=96, h=96, qidx=150, seed=34, n_frames=2,
+                           film_grain=FG_LAG3)),
+    "i444-grain": (True, dict(w=96, h=96, qidx=120, seed=304, n_frames=2,
+                              layout=3, film_grain=FG_LAYOUTS)),
+    "i422-grain": (True, dict(w=96, h=96, qidx=120, seed=314, n_frames=2,
+                              layout=2, film_grain=FG_LAYOUTS)),
+    "i420-12b-grain": (True, dict(w=96, h=96, qidx=120, seed=335,
+                                  n_frames=2, hbd=2, film_grain=FG_LAYOUTS)),
+    "fg-odd-width-420": (True, dict(w=71, h=49, qidx=120, seed=36,
+                                    n_frames=2, film_grain=FG_STEEP,
+                                    **LAYOUT_FILTERS)),
+    "fg-full-width-420": (True, dict(w=128, h=64, qidx=120, seed=37,
+                                     n_frames=1, film_grain=FG_FULL)),
+}
+# the streams chip_smoke.py decodes on the card (committed under
+# GOLDEN_DIR, write_post_filters): its phases sr-1080p, fg-1080p and
+# fg-1080p-10b (1080p intra streams, every in-loop filter on; sr-1080p
+# is coded 960 wide and LR runs on the upscaled frame), and the small
+# streams of its post_filters phase
+BIG_POST_FILTERS = {
+    "sr-1080p": (True, dict(w=1920, h=1080, qidx=120, seed=72, n_frames=2,
+                            superres_denom=16, **FILTERS)),
+    "fg-1080p": (True, dict(w=1920, h=1080, qidx=120, seed=30, n_frames=2,
+                            film_grain=FG_FULL, **FILTERS)),
+    "fg-1080p-10b": (True, dict(w=1920, h=1080, qidx=120, seed=30,
+                                n_frames=2, hbd=1, film_grain=FG_CSFL,
+                                **FILTERS)),
+}
+POST_FILTERS = ("sr-inter-filters", "sr-intra-hbd", "i422-superres",
+                "mono-superres", "fg-inter", "fg-chroma-from-luma",
+                "fg-lag3", "i420-12b-grain", "i444-grain")
+POST_FILTER_CONFIGS = {**SUPERRES_STREAMS, **GRAIN_STREAMS,
+                       **BIG_POST_FILTERS}
+
+
+def post_filter_stream(name):
+    """The generated bytes of a SUPERRES_STREAMS, GRAIN_STREAMS or
+    BIG_POST_FILTERS stream."""
+    intra, cfg = POST_FILTER_CONFIGS[name]
+    cfg = dict(cfg)
+    w, h = cfg.pop("w"), cfg.pop("h")
+    gen = generate_intra_stream if intra else generate_stream
+    return gen(w, h, **cfg)[0]
+
+
+def write_post_filters(names=POST_FILTERS + tuple(BIG_POST_FILTERS)):
+    """Write the POST_FILTERS and BIG_POST_FILTERS streams to
+    GOLDEN_DIR/<name>.ivf:
+    python -c 'import sys; sys.path[:0] = ["tests", "."];
+    import torch_port_cases as c; c.write_post_filters()'"""
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for name in names:
+        with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
+            fh.write(post_filter_stream(name))
+
+
+def port_md5s(data, stream_md5=False, **settings):
+    """Per-picture md5s of the port's decode on the CPU (and, with
+    stream_md5, the md5 of one muxer over all of them)."""
+    from dav1d_tpu.bitstream.ivf import IvfReader
+    from dav1d_tpu_torch.api import Decoder, Settings
+    from dav1d_tpu_torch.utils.muxers import Md5Muxer
+    dec = Decoder(Settings(device="cpu", **settings))
+    out, whole = [], Md5Muxer()
+    for fr in IvfReader(data):
+        dec.send_data(fr.data)
+        for pic in dec.pictures():
+            m = Md5Muxer()
+            m.write_picture(pic)
+            whole.write_picture(pic)
+            out.append(m.digest())
+    return (out, whole.digest()) if stream_md5 else out
+
+
+def golden_md5s(data, monkeypatch, **settings):
+    """Per-picture md5s of dav1d_tpu's golden numpy path."""
+    from dav1d_tpu.api import Settings as JaxSettings
+    from dav1d_tpu.bitstream.ivf import IvfReader
+    from dav1d_tpu.decoder import ObuStreamDecoder
+    from dav1d_tpu.utils.muxers import Md5Muxer as JaxMd5
+    monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
+    dec = ObuStreamDecoder(settings=JaxSettings(n_threads=1, **settings))
+    out = []
+    for fr in IvfReader(data):
+        for _plan, pic in dec.decode_temporal_unit(fr.data):
+            if pic is not None:
+                m = JaxMd5()
+                m.write_picture(pic)
+                out.append(m.digest())
+    monkeypatch.delenv("DAV1D_TPU_BACKEND")
+    return out
 
 
 def stream(name):

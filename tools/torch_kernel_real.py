@@ -30,8 +30,10 @@ if not torch.cuda.is_available():
 card = cs.smi()
 cs.phase_build()
 cs.phase_kernel_real(torch, card)
+# the s31 main path's kernels (a checkout from before super-res and film
+# grain lists only those in KERNELS)
 cs.phase_kernel_real(torch, card, cs.STREAM_1080P, cs.MD5S_S31,
-                     cs.KERNELS[1:])
+                     getattr(cs, "MAIN_KERNELS", cs.KERNELS)[1:])
 
 # the checkout's package is imported by now; this checkout's chip_smoke
 # is loaded under another name for its measuring code only
