@@ -72,7 +72,11 @@ exits nonzero and prints no "ok" line:
                 launch's device us (median of 5 in a trace; the main
                 shapes over 5 traces, with each trace's median), the
                 floor below which a trace is retaken, the plain
-                version's ms and the bound
+                version's ms and the bound; then the small cases of
+                tests/test_torch_cuda.py, checked only (odd sizes, 8192
+                columns, planes padded to 4 columns whose last super-res
+                tile or grain unit the plane cuts, sources narrower than
+                a staged span), and the persistent grids' blocks a SM
 9. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s33 stream and of the s31 stream, decoded on cuda with
                 every launch of the inter frame checked against the
@@ -1891,7 +1895,12 @@ def phase_kernel_superres_grain(torch, card):
     kernel its max abs error and the times of the main path's shapes
     (sr-1080p: 4:2:0 8-bit from 960 with the snapshot; fg-1080p: 4:2:0
     8-bit with overlap; their device us the median of MAIN_ROUNDS
-    traces). Only the TIMED_* cases are timed: the rest are checked."""
+    traces). Only the TIMED_* cases are timed: the rest are checked,
+    and so are the small cases of tests/test_torch_cuda.py (kernel_cases
+    superres_cases, superres_edge_cases, grain_cases, grain_edge_cases:
+    odd sizes, 8192 columns, planes padded to 4 columns only, sources
+    narrower than a staged span). Emits the persistent kernels' blocks a
+    SM."""
     from dav1d_tpu_torch.ops import fg, superres
     from dav1d_tpu_torch.ops import kernel_cases as kc
     dev = torch.device("cuda")
@@ -1959,7 +1968,37 @@ def phase_kernel_superres_grain(torch, card):
                    fg.film_grain_cuda(*args),
                    lambda args=args: fg.film_grain_plain(*args),
                    _grain_work(*args), key == TIMED_GRAIN[0])
+    # the small cases of tests/test_torch_cuda.py, checked only: odd
+    # widths, 8192 columns, planes padded to 4 columns (last tiles and
+    # units cut by the plane), sources narrower than a staged span
+    small = {"superres": 0, "film_grain": 0}
+    for case in kc.superres_cases() + kc.superres_edge_cases():
+        jobs = kc.superres_args(case, dev)
+        want = superres.resize_frame_plain(
+            [(s, sw, h, d.clone(), dw, st, m)
+             for s, sw, h, d, dw, st, m in jobs], case["bd"])
+        got = superres.resize_frame_cuda(jobs, case["bd"])
+        torch.cuda.synchronize()
+        geo = [(j[1], j[4], tuple(j[3].shape)) for j in jobs]
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check_equal(torch, g, w, f"superres bd={case['bd']} "
+                         f"layout={case['layout']} {geo[i]} job {i}")
+        small["superres"] += 1
+    for case in kc.grain_cases() + kc.grain_edge_cases():
+        args = kc.grain_args(case, dev)
+        want = fg.film_grain_plain(*args)
+        got = fg.film_grain_cuda(*args)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check_equal(torch, g, w, f"film_grain {case['params']} "
+                         f"shapes {[tuple(p.shape) for p in args[0]]} "
+                         f"plane {i}")
+        small["film_grain"] += 1
+    occupancy = {"superres": superres.occupancy(),
+                 "film_grain_420": fg.occupancy(3, 1, 1),
+                 "film_grain_444": fg.occupancy(3, 0, 0)}
     emit({"phase": "kernel_superres_grain", "card": card, "cases": cases,
+          "small_cases_equal": small, "blocks_per_sm_and_sms": occupancy,
           "one_element_fill_us": fill,
           "max_abs_err": {k: v["max_abs_err"] for k, v in out.items()},
           "equal": True})

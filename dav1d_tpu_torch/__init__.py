@@ -2,9 +2,10 @@
 
 Host stages (OBU parsing, native Stage A, native intra reconstruction)
 are this package's own copies of dav1d_tpu's host code; the pixel work
-after reconstruction (the in-loop filter chain) runs on a torch device,
-with the deblock pass as a hand-written CUDA kernel (csrc/deblock.cu).
-This slice decodes key and intra frames; see ROADMAP.md for the rest.
+of inter prediction, residuals and the filter chain runs on a torch
+device, as hand-written CUDA kernels (csrc/) on a card.
+Key, intra and inter frames decode, with super-res and film grain;
+see ROADMAP.md for what is still to port.
 
 Public API mirrors dav1d's push/pull contract
 (reference include/dav1d/dav1d.h): see `dav1d_tpu_torch.api.Decoder`.

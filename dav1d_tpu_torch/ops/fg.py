@@ -42,6 +42,7 @@ from .fg_ref import (FG_BLOCK_SIZE, GRAIN_HEIGHT, GRAIN_WIDTH, _rand,
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"film_grain": 0}
 LUT_ROWS = GRAIN_HEIGHT + 1     # the chroma LUTs' rows (luma has one less)
+UNIT_W = 128                    # luma columns of a csrc/film_grain.cu unit
 
 _DEVICE_CACHE = {}
 
@@ -312,6 +313,42 @@ def check_frame(planes, fr, luts, scal, off):
                          f"{fr.scaling_shift}")
 
 
+def grain_units(shapes, sx, sy):
+    """csrc/film_grain.cu's units over planes of `shapes` (luma first):
+    unit u = (band k, column c), k = u // n_cols. Its lane loads and
+    stores luma rows (k << sy) + dy (dy < 1 << sy), columns c * 128 +
+    4 lane; chroma row k, columns c * (128 >> sx) + 4 (lane & 15) of
+    plane 1 + (lane >> 4) when sx, else c * 128 + 4 lane of both planes.
+    Returns (n_bands, n_cols, {plane: int64 (n, 4) array of (unit,
+    lane, row, column) per int4}), without the int4s outside a plane
+    (the kernel skips them)."""
+    if len(shapes) == 1:
+        sx = sy = 0                     # a single plane is luma
+    n_bands = n_cols = 0
+    for p, (rows, cols) in enumerate(shapes):
+        s_x = sx if p else 0
+        n_bands = max(n_bands, rows if p else -(-rows // (1 << sy)))
+        n_cols = max(n_cols, -(-cols // (UNIT_W >> s_x)))
+    u, lane = np.meshgrid(np.arange(n_bands * n_cols), np.arange(32),
+                          indexing="ij")
+    u, lane = u.ravel(), lane.ravel()
+    k, c = u // n_cols, u % n_cols
+    parts = {0: [(u, lane, (k << sy) + dy, c * UNIT_W + 4 * lane)
+                 for dy in range(1 << sy)]}
+    if len(shapes) == 3:
+        for p in (1, 2):
+            m = (lane >> 4) == p - 1 if sx else np.ones_like(lane, bool)
+            x = c * (UNIT_W >> 1) + 4 * (lane & 15) if sx else \
+                c * UNIT_W + 4 * lane
+            parts[p] = [(u[m], lane[m], k[m], x[m])]
+    out = {}
+    for p, ps in parts.items():
+        rows, cols = shapes[p]
+        a = np.concatenate([np.stack(t, 1) for t in ps])
+        out[p] = a[(a[:, 2] < rows) & (a[:, 3] < cols)]
+    return n_bands, n_cols, out
+
+
 def film_grain_plain(planes, fr, luts, scal, off):
     """film_grain_cuda's contract in plain torch: fgy_plain and
     fguv_plain on the visible area of each grained plane, copies
@@ -342,6 +379,9 @@ def _lib():
     if not _LIB:
         from .cuda_build import load_library
         lib = load_library("film_grain")
+        lib.film_grain_occupancy.restype = ct.c_int
+        lib.film_grain_occupancy.argtypes = [ct.c_int] * 3 + \
+            [ct.c_void_p] * 2
         lib.film_grain.restype = ct.c_int
         lib.film_grain.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_void_p]
         _LIB.append(lib)
@@ -352,7 +392,8 @@ def film_grain_cuda(planes, fr, luts, scal, off):
     """The grain of a frame in one launch of csrc/film_grain.cu: planes
     the clean int32 CUDA planes (1 or 3, contiguous), fr their
     GrainFrame, luts / scal grain_tables', off _block_offsets' table on
-    the device. Returns new planes of the same shapes: grained in the
+    the device; plane rows 16-byte aligned (a multiple of 4 columns;
+    raises otherwise). Returns new planes of the same shapes: grained in the
     visible area of each plane fr.apply marks, the source elsewhere.
     Launches on the current stream, does not synchronise."""
     check_frame(planes, fr, luts, scal, off)
@@ -363,6 +404,12 @@ def film_grain_cuda(planes, fr, luts, scal, off):
                      ("luts", luts), ("scal", scal), ("off", off))):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for p, t in enumerate(planes):
+        # the kernel's 16-byte loads and stores of 4 columns
+        if t.shape[1] % 4 or t.data_ptr() % 16:
+            raise ValueError(f"plane {p}: rows of {t.shape[1]} columns at "
+                             f"{t.data_ptr():#x}: the kernel needs 16-byte "
+                             f"aligned rows")
     out = [torch.empty_like(p) for p in planes]
     ptrs = [0] * 9
     dims = [0] * 12
@@ -383,6 +430,18 @@ def film_grain_cuda(planes, fr, luts, scal, off):
                            f"{rc}")
     LAUNCHES["film_grain"] += 1
     return out
+
+
+def occupancy(n_planes, sx, sy):
+    """(blocks a SM, SMs) of the kernel's persistent grid on the current
+    CUDA device, for n_planes planes subsampled by (sx, sy)."""
+    per_sm, sms = ct.c_int(), ct.c_int()
+    rc = _lib().film_grain_occupancy(n_planes, sx, sy, ct.byref(per_sm),
+                                     ct.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"film_grain occupancy query failed: CUDA error "
+                           f"{rc}")
+    return per_sm.value, sms.value
 
 
 def film_grain(planes, fr, luts, scal, off):

@@ -1,10 +1,10 @@
 """ctypes binding for the native inverse-transform engine
 (native/itxnat.cpp): host-side scalar residual computation straight
 from the Stage-A coefficient records — no Python per-block walk, no
-device roundtrip. This is the default residual path when the native
-library is present; the batched XLA kernels (ops/itx.py) remain the
-opt-in device backend (DAV1D_TPU_ITX=device) and ops/itx_ref.py the
-numpy golden (DAV1D_TPU_ITX=numpy).
+device roundtrip. This is the residual path of intra frames and host
+walks when the native library is present; ops/itx_ref.py is the numpy
+golden (DAV1D_TPU_ITX=numpy, or no native library). Inter frames'
+residuals are added on the device (ops/itx.py, csrc/itx_add.cu).
 """
 from __future__ import annotations
 

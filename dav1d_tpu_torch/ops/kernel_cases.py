@@ -830,7 +830,18 @@ SUPERRES_GEOMETRIES = ((53, 70, 21), (96, 128, 40), (64, 128, 9),
                        (157, 256, 12), (4101, 8192, 3))
 
 
-def superres_case(bd, layout, in_w, out_w, h, pre=True, seed=0):
+# super-res edge geometries of the kernel's tiling, in planes padded to
+# 4 columns only: a last tile cut by the output width and by the
+# plane's (1500 of 1500 columns, 17 rows: a tile of one row), and a
+# source narrower than one tile's staged span
+SUPERRES_EDGE_GEOMETRIES = ((1000, 1500, 17), (9, 16, 4))
+
+
+def _pad(n, m):
+    return -(-n // m) * m
+
+
+def superres_case(bd, layout, in_w, out_w, h, pre=True, seed=0, pad=128):
     """The resize jobs of one super-res frame: every plane of the layout
     from a coded width in_w to out_w over h rows, and (pre) the
     pre-CDEF snapshot's planes too, with the geometry of ops/superres.py
@@ -838,8 +849,9 @@ def superres_case(bd, layout, in_w, out_w, h, pre=True, seed=0):
     chroma's step and x0 from the rounded chroma widths). Sources are
     random pixels in planes padded as a Picture's (columns past src_w
     junk, which the clamped reads must not reach); destinations have the
-    output Picture's padded shape. Returns {jobs: [(src, src_w, h,
-    dst_shape, dst_w, step, mx0)], bd, layout}."""
+    output Picture's padded shape (with pad=4, planes padded to whole
+    16-byte rows only). Returns {jobs: [(src, src_w, h, dst_shape,
+    dst_w, step, mx0)], bd, layout}."""
     from .mc_ref import get_upscale_x0, scale_fac
     rng = np.random.default_rng(seed + 100 * bd + 10 * layout + in_w)
     sh, sv = _layout_ss(layout)
@@ -848,15 +860,17 @@ def superres_case(bd, layout, in_w, out_w, h, pre=True, seed=0):
             scale_fac((in_w + sh) >> sh, (out_w + sh) >> sh)]
     x0 = [get_upscale_x0(in_w, out_w, step[0]),
           get_upscale_x0((in_w + sh) >> sh, (out_w + sh) >> sh, step[1])]
-    Hs, Ws, Wd = _pad128(h), _pad128(bw4), _pad128(out_w)
+    Hs, Ws, Wd = _pad(h, pad), _pad(bw4, pad), _pad(out_w, pad)
     jobs = []
     for _src in range(2 if pre else 1):
         for p in range(3 if layout else 1):
             c = int(bool(p))
-            shape = (Hs >> (sv * c), Ws >> (sh * c))
+            def cols(n):            # whole 16-byte rows
+                return _pad((n + sh * c) >> (sh * c), 4)
+            shape = ((Hs + sv * c) >> (sv * c), cols(Ws))
             jobs.append((rng.integers(0, 1 << bd, shape).astype(np.int32),
                          bw4 >> (sh * c), (h + sv * c) >> (sv * c),
-                         (Hs >> (sv * c), Wd >> (sh * c)),
+                         ((Hs + sv * c) >> (sv * c), cols(Wd)),
                          (out_w + sh * c) >> (sh * c), step[c], x0[c]))
     return {"jobs": jobs, "bd": bd, "layout": layout}
 
@@ -868,6 +882,14 @@ def superres_cases():
     return [superres_case(bd, layout, *g, pre=bd != 10)
             for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
             for g in SUPERRES_GEOMETRIES]
+
+
+def superres_edge_cases():
+    """The SUPERRES_EDGE_GEOMETRIES in each layout at bd 8/10/12, planes
+    padded to 4 columns (with the pre-CDEF snapshot at bd 8)."""
+    return [superres_case(bd, layout, *g, pre=bd == 8, pad=4)
+            for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
+            for g in SUPERRES_EDGE_GEOMETRIES]
 
 
 def superres_args(case, device):
@@ -882,20 +904,23 @@ def superres_args(case, device):
 
 
 def grain_case(bd, layout, w, h, overlap=True, csfl=False, clip=False,
-               is_id=False, apply=None, seed=0):
+               is_id=False, apply=None, seed=0, pad=128):
     """One frame's film grain inputs: random clean planes of a
     Picture's padded shapes (w x h visible), random grain LUTs in the
     grain range, scaling LUTs in 0..255, block offsets 0..255, a scaling
     shift of 8..11 and chroma multipliers and offsets over their whole
     ranges; apply (per plane: grained or copied) defaults to every
-    plane. Returns {planes, luts (3, 74, 82) int16, scal (3, 1 << bd)
-    uint8, off (n_rows, n_bx) int32, params (GrainFrame's fields)}."""
+    plane; planes padded as a Picture's or, with pad=4, to whole 16-byte
+    rows only. Returns {planes, luts (3, 74, 82) int16, scal (3, 1 <<
+    bd) uint8, off (n_rows, n_bx) int32, params (GrainFrame's
+    fields)}."""
     from .fg import LUT_ROWS
     rng = np.random.default_rng(seed + 1000 * bd + 100 * layout + w + h)
     sh, sv = _layout_ss(layout)
-    H, W = _pad128(h), _pad128(w)
+    H, W = _pad(h, pad), _pad(w, pad)
     n = 3 if layout else 1
-    shapes = [(H, W)] + [(H >> sv, W >> sh)] * (n - 1)
+    shapes = [(H, W)] + [((H + sv) >> sv, _pad((W + sh) >> sh, 4))] * \
+        (n - 1)
     ctr = 128 << (bd - 8)
     apply = tuple(apply if apply is not None else (True,) * n)
     csfl = bool(csfl and layout)
@@ -947,6 +972,15 @@ def grain_cases():
             for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
             for k, (w, h) in enumerate(GRAIN_GEOMETRIES)] + \
         [grain_variant(name) for name in GRAIN_VARIANTS]
+
+
+def grain_edge_cases():
+    """The GRAIN_GEOMETRIES of odd sizes in each layout at bd 8/10/12,
+    planes padded to 4 columns: a unit's 128 columns cut by the plane,
+    and the chroma's luma read past an odd width in the last int4."""
+    return [grain_case(bd, layout, w, h, seed=k, pad=4)
+            for bd in (8, 10, 12) for layout in (0, 1, 2, 3)
+            for k, (w, h) in enumerate(GRAIN_GEOMETRIES) if (w | h) & 1]
 
 
 def grain_args(case, device):

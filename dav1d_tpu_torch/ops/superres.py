@@ -31,6 +31,9 @@ from .mc_ref import _resize_filter, get_upscale_x0, scale_fac
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"superres": 0}
 MAX_JOBS = 6            # (plane, source) pairs of a frame: 3 planes x 2
+# csrc/superres.cu's tiles: TILE_W output columns x TILE_ROWS rows, each
+# staging at most SPAN source columns from a multiple of 4
+TILE_W, TILE_ROWS, SPAN = 128, 32, 140
 
 
 def _resize_tables(dst_w, src_w, dx, mx0):
@@ -82,6 +85,21 @@ def resize_frame_plain(jobs, bd):
     return [j[3] for j in jobs]
 
 
+def tile_spans(dst_w, step, mx0):
+    """The staged source span of each tile column of a job, as
+    csrc/superres.cu `tile_of` computes it: int64 arrays (c0, lo, nvec)
+    of the tiles' first output column, their first staged source column
+    (a multiple of 4, before the clamp to the source) and their count of
+    4-column vectors. Output ox of a tile reads the staged columns
+    (mx0 + ox * step >> 14) - 4 - lo + [0, 8)."""
+    c0 = np.arange(0, dst_w, TILE_W, dtype=np.int64)
+    cl = np.minimum(c0 + TILE_W, dst_w) - 1
+    lo = ((mx0 + c0 * step) >> 14) - 4
+    hi = ((mx0 + cl * step) >> 14) + 3
+    lo &= ~3
+    return c0, lo, ((hi - lo) >> 2) + 1
+
+
 def check_jobs(jobs):
     """Raise unless every job (src, src_w, h, dst, dst_w, step, mx0)
     fits its tensors: src (>= h, >= src_w) and dst (>= h, >= dst_w)
@@ -121,6 +139,8 @@ def _lib():
         if rc != 0:
             raise RuntimeError(f"superres: filter upload failed: CUDA "
                                f"error {rc}")
+        lib.superres_occupancy.restype = ct.c_int
+        lib.superres_occupancy.argtypes = [ct.c_void_p, ct.c_void_p]
         lib.superres.restype = ct.c_int
         lib.superres.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
                                  ct.c_int, ct.c_void_p]
@@ -131,7 +151,8 @@ def _lib():
 def resize_frame_cuda(jobs, bd):
     """Resize a frame's planes in one launch of csrc/superres.cu: jobs
     [(src, src_w, h, dst, dst_w, step, mx0)], src and dst contiguous
-    int32 CUDA planes (dst not src). Each dst gets the resized rows
+    int32 CUDA planes (dst not src) with 16-byte aligned rows (a multiple
+    of 4 columns; raises otherwise). Each dst gets the resized rows
     [:h] of src in [:h, :dst_w] and zeros in the rest of its shape.
     Launches on the current stream, does not synchronise."""
     check_jobs(jobs)
@@ -145,6 +166,11 @@ def resize_frame_cuda(jobs, bd):
         for name, t in (("src", src), ("dst", dst)):
             if not t.is_contiguous():
                 raise ValueError(f"job {k}: {name} must be contiguous")
+            # the kernel's 16-byte copies and stores of 4 columns
+            if t.shape[1] % 4 or t.data_ptr() % 16:
+                raise ValueError(f"job {k}: {name} rows of {t.shape[1]} "
+                                 f"columns at {t.data_ptr():#x}: the "
+                                 f"kernel needs 16-byte aligned rows")
         if dst.data_ptr() == src.data_ptr():
             raise ValueError(f"job {k}: dst is src")
         ptrs += [src.data_ptr(), dst.data_ptr()]
@@ -157,6 +183,17 @@ def resize_frame_cuda(jobs, bd):
                            f"{rc}")
     LAUNCHES["superres"] += 1
     return [j[3] for j in jobs]
+
+
+def occupancy():
+    """(blocks a SM, SMs) of the kernel's persistent grid on the current
+    CUDA device."""
+    per_sm, sms = ct.c_int(), ct.c_int()
+    rc = _lib().superres_occupancy(ct.byref(per_sm), ct.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"superres occupancy query failed: CUDA error "
+                           f"{rc}")
+    return per_sm.value, sms.value
 
 
 def resize_frame(jobs, bd):

@@ -1,19 +1,20 @@
 """Keyframe / intra-frame reconstruction: the native host engine
 (native/intrarec.cpp), one C++ call per tile straight off the native
-Stage-A records. This package has no numpy fallback for it: a frame the
-engine cannot serve is an error."""
+Stage-A records; a frame the engine cannot serve (forced off by
+DAV1D_TPU_INTRA=numpy, no native Stage-A records, exotic plane views)
+falls back to the golden walk of recon/intra_ref.py, as in dav1d_tpu."""
 from __future__ import annotations
 
+from ..ops import itx_ref
 from . import intra_native
+from .intra_ref import IntraReconstructor
 
 
 def reconstruct_intra_frame(plan):
-    if not intra_native.available():
-        raise RuntimeError("the native intra engine (native/libstagea.so"
-                           ") is unavailable")
+    """The reconstructed host Picture of an intra frame's plan."""
     pic = intra_native.reconstruct_intra_frame_native(plan)
-    if pic is None:
-        raise RuntimeError("the native intra engine could not serve this "
-                           "frame (incomplete native Stage-A records or "
-                           "non-contiguous allocator planes)")
-    return pic
+    if pic is not None:
+        return pic
+    r = IntraReconstructor(plan)
+    itx_ref.precompute_residuals_plan(plan, r.bitdepth)
+    return r.run()

@@ -9,9 +9,8 @@ reference recon_tmpl.c:2111-2136) for cross-superblock-row intra.
 
 A copy of dav1d_tpu's recon/intra_ref.py: the golden walk that the
 inter reconstructor (recon/inter_ref.py) extends, for intrabc frames
-and the host replay of inter leftovers. Intra frames go to the native
-engine (recon/intra.py); the port has no fallback to this walk for
-them yet (ROADMAP item 9).
+and the host replay of inter leftovers, and the fallback of intra
+frames that the native engine (recon/intra.py) cannot serve.
 """
 from __future__ import annotations
 

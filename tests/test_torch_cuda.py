@@ -15,10 +15,12 @@ also on tiles wholly outside the crop and on exact direction-cost
 ties; Wiener and SGR also in one launch over the items of every plane
 of a frame); the super-res kernel on its seeded cases (every plane and
 the pre-CDEF snapshot in one launch, odd widths, the 2x step, 8192
-columns, the zero padding written) and the film grain kernel on its
-(every layout at bd 8/10/12, odd sizes, overlap on and off, chroma
-scaling from luma, the restricted range with and without is_id, copied
-planes). Marked
+columns, the zero padding written; planes padded to 4 columns, whose
+last tile the plane cuts, and sources narrower than a staged span) and
+the film grain kernel on its (every layout at bd 8/10/12, odd sizes,
+overlap on and off, chroma scaling from luma, the restricted range with
+and without is_id, copied planes; planes padded to 4 columns); both
+wrappers refuse rows that are not whole 16-byte vectors. Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -641,6 +643,26 @@ def test_superres_kernel_vs_plain(cuda, bd, layout):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_superres_edge_kernel_vs_plain(cuda, bd):
+    # planes padded to 4 columns only: a last tile cut by the output
+    # width and the plane's, a tile of one row, a source narrower than a
+    # tile's staged span (clamped at both edges)
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import superres
+    for case in kc.superres_edge_cases():
+        if case["bd"] != bd:
+            continue
+        jobs = kc.superres_args(case, cuda)
+        want = superres.resize_frame_plain(
+            [(s, sw, h, d.clone(), dw, st, m)
+             for s, sw, h, d, dw, st, m in jobs], bd)
+        got = superres.resize_frame(jobs, bd)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_superres_wrapper_checks(cuda):
     from dav1d_tpu_torch.ops import kernel_cases as kc
     from dav1d_tpu_torch.ops import superres
@@ -658,6 +680,17 @@ def test_superres_wrapper_checks(cuda):
                                      mx0)], 8)
     with pytest.raises(ValueError):         # bit depth
         superres.resize_frame_cuda(jobs, 9)
+    # rows that are not whole 16-byte vectors: a stride of 70 columns,
+    # and a plane starting 4 bytes into its buffer
+    odd = torch.zeros((h, 70), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        superres.resize_frame_cuda([(odd, src_w, h, dst, dst_w, step, mx0)],
+                                   8)
+    flat = torch.zeros(dst.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(dst.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        superres.resize_frame_cuda([(src, src_w, h, shifted, dst_w, step,
+                                     mx0)], 8)
     assert superres.LAUNCHES["superres"] == before
 
 
@@ -687,6 +720,16 @@ def test_film_grain_kernel_vs_plain(cuda, bd, layout, geo):
         bd, layout, *kc.GRAIN_GEOMETRIES[geo], seed=geo))
 
 
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_film_grain_edge_kernel_vs_plain(cuda, bd):
+    # planes padded to 4 columns only: units cut by the plane's width,
+    # the chroma's luma read past an odd width in the last int4
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    for case in kc.grain_edge_cases():
+        if case["params"]["bd"] == bd:
+            _grain_kernel_vs_plain(cuda, case)
+
+
 @pytest.mark.parametrize("name", ["mono-clip", "420-csfl-clip",
                                   "422-csfl-clip-id", "444-clip-id-copy"])
 def test_film_grain_flags_kernel_vs_plain(cuda, name):
@@ -712,4 +755,9 @@ def test_film_grain_wrapper_checks(cuda):
         fg.film_grain_cuda(planes, fr, luts, scal.int(), off)
     with pytest.raises(ValueError):         # offsets of another frame
         fg.film_grain_cuda(planes, fr, luts, scal, off[:1])
+    # rows that are not whole 16-byte vectors
+    odd = torch.zeros((planes[0].shape[0], 130), dtype=torch.int32,
+                      device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fg.film_grain_cuda([odd, *planes[1:]], fr, luts, scal, off)
     assert fg.LAUNCHES["film_grain"] == before

@@ -14,6 +14,8 @@ public API (device="cpu") to the md5s of dav1d_tpu's golden numpy path
 grain, with apply_grain=False to the un-grained md5s, and a frame
 shown again by show_existing_frame (an OBU appended here: the stream
 generator writes none)."""
+import os
+import re
 import struct
 
 import jax
@@ -168,6 +170,53 @@ def test_film_grain_checks():
         fg.film_grain([planes[0][:, :71], *planes[1:]], fr, luts, scal, off)
     with pytest.raises(ValueError, match="needs CUDA"):
         fg.film_grain_cuda(planes, fr, luts, scal, off)
+
+
+def test_unit_constant_is_the_kernels():
+    path = os.path.join(os.path.dirname(fg.__file__), "..", "csrc",
+                        "film_grain.cu")
+    with open(path) as fh:
+        assert re.search(r"constexpr int UNIT_W = (\d+);",
+                         fh.read()).group(1) == str(fg.UNIT_W)
+
+
+# (layout, luma rows, luma columns) of the unit plans checked: the
+# GRAIN_GEOMETRIES' padded planes, 1080p, and planes a unit does not
+# divide (rows of a band cut, columns not a multiple of 128)
+UNIT_SHAPES = [(layout, -(-h // 128) * 128, -(-w // 128) * 128)
+               for layout in (0, 1, 2, 3)
+               for w, h in kc.GRAIN_GEOMETRIES + ((1920, 1080),)] + \
+    [(1, 50, 132), (2, 33, 68), (3, 17, 260), (0, 9, 4)]
+
+
+@pytest.mark.parametrize("layout,rows,cols", UNIT_SHAPES)
+def test_units_store_every_int4_once(layout, rows, cols):
+    """csrc/film_grain.cu's units (fg.grain_units) load and store every
+    16-byte group of every plane exactly once, and the luma a chroma
+    int4 averages (row k << sy, columns x << sx ..) is loaded in its own
+    unit by the lanes it shuffles from: 2q and 2q + 1 when subsampled,
+    its own lane otherwise."""
+    sx, sy = kc._layout_ss(layout)
+    shapes = [(rows, cols)] + [((rows + sy) >> sy, (cols + sx) >> sx)] * \
+        (2 if layout else 0)
+    shapes = [(r, -(-c // 4) * 4) for r, c in shapes]
+    _, _, at = fg.grain_units(shapes, sx, sy)
+    for p, (r, c) in enumerate(shapes):
+        seen = np.zeros((r, c // 4), np.int64)
+        np.add.at(seen, (at[p][:, 2], at[p][:, 3] // 4), 1)
+        assert (seen == 1).all(), (p, shapes)
+    luma = {(u, ln): (y, x) for u, ln, y, x in at[0].tolist()
+            if y % (1 << sy) == 0}
+    for p in range(1, len(shapes)):
+        for u, ln, k, x in at[p].tolist():
+            if sx:          # lanes 2q and 2q + 1 hold luma 2x .. 2x + 7
+                q = ln & 15
+                for h in (0, 1):
+                    want = (k << sy, 2 * x + 4 * h)
+                    if want[1] < shapes[0][1]:
+                        assert luma[u, 2 * q + h] == want
+            else:           # the lane's own luma int4
+                assert luma[u, ln] == (k, x)
 
 
 @pytest.fixture

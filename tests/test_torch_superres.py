@@ -12,7 +12,9 @@ public API (device="cpu") to the md5s of dav1d_tpu's golden numpy path
 post_filters streams of chip_smoke.py: bytes equal to their generator,
 md5s (dav1d_tpu's and the port's) equal to the ones chip_smoke.py
 holds."""
+import functools
 import os
+import re
 
 import numpy as np
 import pytest
@@ -83,7 +85,7 @@ def test_resize_plane_plain_matches_dav1d_tpu(bd, layout):
 
 
 def test_resize_frame_plain_contract():
-    for case in kc.superres_cases():
+    for case in kc.superres_cases() + kc.superres_edge_cases():
         jobs = kc.superres_args(case, "cpu")
         srcs = [j[0].clone() for j in jobs]
         out = superres.resize_frame(jobs, case["bd"])
@@ -102,6 +104,109 @@ def test_resize_frame_plain_contract():
     with device_scope():
         want = np.asarray(jsr._resize_fn(h, dst_w, 10)(src[:h], idx, flt))
     assert np.array_equal(out[:h, :dst_w].numpy(), want)
+
+
+def _cu_constants(name):
+    """The `constexpr int NAME = value;` constants of csrc/<name>.cu."""
+    path = os.path.join(os.path.dirname(superres.__file__), "..", "csrc",
+                        f"{name}.cu")
+    with open(path) as fh:
+        return {k: int(v) for k, v in re.findall(
+            r"constexpr int (\w+) = (\d+);", fh.read())}
+
+
+def test_tile_constants_are_the_kernels():
+    c = _cu_constants("superres")
+    assert (c["TW"], c["RT"], c["SPAN"]) == (superres.TILE_W,
+                                             superres.TILE_ROWS,
+                                             superres.SPAN)
+
+
+@functools.lru_cache(maxsize=None)
+def _legal_geometries():
+    """(dst_w, step, mx0) of every super-res plane a frame can have:
+    output widths 1 to 8192, denominators 9 to 16 (the coded width as
+    the frame header computes it), luma and subsampled chroma (the
+    rounded widths of ops/superres.py frame_geometry)."""
+    out = set()
+    for out_w in range(1, 8193):
+        for d in range(9, 17):
+            in_w = max((out_w * 8 + (d >> 1)) // d, min(16, out_w))
+            for ss in (0, 1):
+                iw, ow = (in_w + ss) >> ss, (out_w + ss) >> ss
+                step = superres.scale_fac(iw, ow)
+                out.add((ow, step, superres.get_upscale_x0(iw, ow, step)))
+    return tuple(sorted(out))
+
+
+def _case_geometries():
+    cases = kc.superres_cases() + kc.superres_edge_cases() + [
+        kc.superres_case(8, layout, in_w, 1920, 8, pre=False)
+        for layout in (1, 3) for in_w in (960, 1280)]
+    return sorted({(j[4], j[5], j[6]) for c in cases for j in c["jobs"]})
+
+
+def test_tile_spans_fit_the_stage():
+    """Every legal geometry's tiles stage at most SPAN columns from a
+    multiple of 4; the spans are the kernel's (16-byte copies)."""
+    geos = _legal_geometries()
+    assert len(geos) > 10000
+    worst = 0
+    for dst_w, step, mx0 in geos:
+        c0, lo, nvec = superres.tile_spans(dst_w, step, mx0)
+        assert not (lo % 4).any()
+        worst = max(worst, int(nvec.max()))
+    assert 4 * worst <= superres.SPAN
+
+
+def test_taps_lie_in_their_staged_span():
+    """Every tap of every output lies in its tile's staged span, on the
+    kernel cases' geometries (up to 8192 columns, the 1080p ones and the
+    edge cases) and on every legal geometry of a sample of widths."""
+    sample = [g for g in _legal_geometries()
+              if g[0] % 97 in (0, 1) or g[0] < 64 or g[0] > 8100]
+    for dst_w, step, mx0 in _case_geometries() + sample:
+        c0, lo, nvec = superres.tile_spans(dst_w, step, mx0)
+        src_x, _ = superres.positions(dst_w, step, mx0)
+        tile = np.arange(dst_w) // superres.TILE_W
+        first = src_x.numpy() - 3 - lo[tile]          # staged column of tap 0
+        assert (first >= 0).all(), (dst_w, step, mx0)
+        assert (first + 7 < 4 * nvec[tile]).all(), (dst_w, step, mx0)
+        assert (4 * nvec <= superres.SPAN).all()
+
+
+def _tile_writes(H, W, h, dst_w):
+    """How often csrc/superres.cu writes each pixel of an H x W
+    destination: per tile of TILE_ROWS x TILE_W, a warp per row in
+    steps of 8; a live row (< h) by lanes at c0 + lane + 32 k (k < 4), a
+    zero row or padding tile as a lane's 16-byte store at c0 + 4 lane."""
+    n = np.zeros((H, W), np.int64)
+    TW, RT = superres.TILE_W, superres.TILE_ROWS
+    lane = np.arange(32)
+    for r0 in range(0, H, RT):
+        for c0 in range(0, W, TW):
+            pad = r0 >= h or c0 >= dst_w
+            for warp in range(8):
+                for r in range(r0 + warp, min(r0 + RT, H), 8):
+                    if pad or r >= h:
+                        for c in c0 + 4 * lane:
+                            if c < min(c0 + TW, W):
+                                n[r, c:c + 4] += 1
+                    else:
+                        for k in range(4):
+                            c = c0 + lane + 32 * k
+                            np.add.at(n[r], c[c < min(c0 + TW, W)], 1)
+    return n
+
+
+def test_tiles_write_every_pixel_once():
+    cases = kc.superres_edge_cases()[:8] + [
+        kc.superres_case(8, 1, *g, pre=False)
+        for g in kc.SUPERRES_GEOMETRIES[:4]]
+    for case in cases:
+        for _src, _src_w, h, (H, W), dst_w, _step, _mx0 in case["jobs"]:
+            assert W % 4 == 0
+            assert (_tile_writes(H, W, h, dst_w) == 1).all(), (H, W, h)
 
 
 def test_resize_frame_checks():

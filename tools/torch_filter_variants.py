@@ -2,7 +2,9 @@
 csrc/lr_wiener.cu, csrc/lr_sgr.cu, csrc/mc_obmc.cu, csrc/mc_warp.cu)
 against variants of their own sources on one GPU, on the inputs the
 decode of the s31 stream's first 2 temporal units gives the kernels
-for frame 2. A
+for frame 2; and the super-res and film grain kernels (csrc/superres.cu,
+csrc/film_grain.cu) on seeded inputs of sr-1080p's and fg-1080p's
+shapes (kernel_cases, as chip_smoke.py times them). A
 variant is the source with some lines replaced: a phase taken out
 (which attributes the kernel's time to its phases) or an earlier or
 other design choice put in (which measures that choice). Each variant
@@ -19,6 +21,7 @@ and the comma-separated variants to run of it (default: all).
     python tools/torch_filter_variants.py [out.json] [cdef lr_wiener
                                                       lr_sgr mc_obmc mc_warp]
     python tools/torch_filter_variants.py out.json lr_sgr:kernel,grid_mode
+    python tools/torch_filter_variants.py out.json superres film_grain
 """
 import ctypes as ct
 import json
@@ -32,8 +35,9 @@ os.chdir(ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
-from dav1d_tpu_torch.ops import cdef, cuda_build, lr, mc_obmc, \
-    mc_warp  # noqa: E402
+from dav1d_tpu_torch.ops import cdef, cuda_build, fg, lr, mc_obmc, \
+    mc_warp, superres  # noqa: E402
+from dav1d_tpu_torch.ops import kernel_cases as kc  # noqa: E402
 from dav1d_tpu_torch.ops.cdef_ref import UV_DIRS, cdef_dirs  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "filter_variants")
@@ -321,6 +325,140 @@ WARP = {
     "warps16": [("constexpr int WARPS = 8;", "constexpr int WARPS = 16;")],
 }
 
+# super-res: another tile height and ring depth; the filter cut to one
+# tap (the staging, set-up and stores alone); no staging (the set-up,
+# taps and stores on whatever shared memory holds); neither staging nor
+# taps (the stores and the tiles' bookkeeping); streaming stores; a
+# branch an output, a block barrier a tile (the designs before); two
+# neighbouring outputs a lane; 4 blocks a SM whatever the registers;
+# the staging of spans inside the source without the clamp test
+SR_RT = "constexpr int RT = 32;"
+SR_NS = "constexpr int NSTAGE = 3;"
+SR_LOOP = ("    for (int r = warp; r < T.rows; r += WARPS) {\n        int32_t *out",
+           "    zeros(J.dst, T.r0 + T.rows, r_end")
+SR_BRANCHES = """    for (int r = warp; r < T.rows; r += WARPS) {
+        int32_t *out = J.dst + (size_t)(T.r0 + r) * J.W + T.c0 + lane;
+        const int32_t *s = buf[r];
+#pragma unroll
+        for (int k = 0; k < 4; k++) {
+            if (k >= n_col) break;
+            int v = 0;
+            if (k < n_on) {
+                const int32_t *x = s + base[k];
+                int acc = 64;
+#pragma unroll
+                for (int i = 0; i < 8; i++) acc += f[k][i] * x[i];
+                v = min(max(acc >> 7, 0), px_max);
+            }
+            out[32 * k] = v;
+        }
+    }
+"""
+SR_BOUNDS = "__global__ void __launch_bounds__(THREADS)\nsuperres_kernel"
+SR_STAGE = ("        for (int v = lane; v < T.nvec; v += 32) {",
+            "        if (T.lo >= 0 && T.lo + 4 * T.nvec <= J.src_w) {\n"
+            "            for (int v = lane; v < T.nvec; v += 32)\n"
+            "                cp_async16(&buf[r][4 * v], row + T.lo + 4 * v);\n"
+            "            continue;\n        }\n"
+            "        for (int v = lane; v < T.nvec; v += 32) {")
+# a lane filters 2 neighbouring outputs (ox, ox + 1) of 2 column pairs
+# (ox = c0 + 2 lane + 64 q): one 9-column window for both, the second
+# output's taps shifted by its position step (0 or 1) at set-up, stored
+# as one 8-byte store; the stage padded by 4 words for the window's
+# ninth read
+SR_FILTER = ("    const int px_max = (1 << a.bd) - 1;\n    int f[4][8], base[4];",
+             "    zeros(J.dst, T.r0 + T.rows, r_end")
+SR_PAIRS = """    const int px_max = (1 << a.bd) - 1;
+    int f0[2][8], g1[2][9], base[2];
+#pragma unroll
+    for (int q = 0; q < 2; q++) {
+        const int ox = T.c0 + 2 * lane + 64 * q;
+        const long long P0 = (long long)J.mx0 + (long long)ox * J.step;
+        const long long P1 = P0 + J.step;
+        const bool on0 = ox < J.dst_w, on1 = ox + 1 < J.dst_w;
+        const int ph0 = on0 ? (int)((P0 & 0x3fff) >> 8) : 0;
+        const int ph1 = on1 ? (int)((P1 & 0x3fff) >> 8) : 0;
+        const int d = on1 ? (int)((P1 >> 14) - (P0 >> 14)) : 0;
+        base[q] = on0 ? (int)(P0 >> 14) - 4 - T.lo : 0;
+        const int4 a0 = *(const int4 *)&bank[ph0][0];
+        const int4 a1 = *(const int4 *)&bank[ph0][4];
+        const int4 b0 = *(const int4 *)&bank[ph1][0];
+        const int4 b1 = *(const int4 *)&bank[ph1][4];
+        const int t0[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const int t1[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; i++) f0[q][i] = t0[i];
+#pragma unroll
+        for (int i = 0; i < 9; i++)
+            g1[q][i] = d ? (i ? t1[i - 1] : 0) : (i < 8 ? t1[i] : 0);
+    }
+    const int col = 2 * lane;
+    for (int r = warp; r < T.rows; r += WARPS) {
+        int32_t *out = J.dst + (size_t)(T.r0 + r) * J.W + T.c0 + col;
+        const int32_t *s = buf[r];
+        int v[2][2];
+#pragma unroll
+        for (int q = 0; q < 2; q++) {
+            const int32_t *x = s + base[q];
+            int w[9];
+#pragma unroll
+            for (int i = 0; i < 9; i++) w[i] = x[i];
+            int u0 = 64, u1 = 64;
+#pragma unroll
+            for (int i = 0; i < 8; i++) u0 += f0[q][i] * w[i];
+#pragma unroll
+            for (int i = 0; i < 9; i++) u1 += g1[q][i] * w[i];
+            v[q][0] = min(max(u0 >> 7, 0), px_max);
+            v[q][1] = min(max(u1 >> 7, 0), px_max);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; q++) {
+            const int ox = T.c0 + col + 64 * q;
+            if (ox < c_end)
+                *(int2 *)(out + 64 * q) =
+                    make_int2(ox < J.dst_w ? v[q][0] : 0,
+                              ox + 1 < J.dst_w ? v[q][1] : 0);
+        }
+    }
+"""
+# a block barrier a tile in place of the warp's (the first design)
+SR_BLOCK_SYNC = [("        __syncwarp();                   // tile t staged; "
+                  "stage i-1 free", "        __syncthreads();")]
+SUPERRES = {
+    "kernel": [],
+    "block_sync": SR_BLOCK_SYNC,
+    "pairs": [(SR_FILTER, SR_PAIRS),
+              ("constexpr int SMEM = (64 * 8 + NSTAGE * RT * SPAN) * 4;",
+               "constexpr int SMEM = (64 * 8 + NSTAGE * RT * SPAN + 4) * 4;")],
+    "rt16_ns4": [(SR_RT, "constexpr int RT = 16;"),
+                 (SR_NS, "constexpr int NSTAGE = 4;")],
+    "ns2": [(SR_NS, "constexpr int NSTAGE = 2;")],
+    "one_tap": [("for (int i = 0; i < 8; i++) acc += f[k][i] * x[i];",
+                 "acc += f[k][0] * x[0];")],
+    "no_stage": [("if (t < a.ntiles) stage(a, tile_of(a, t), stages[s]);",
+                  ""),
+                 ("            stage(a, tile_of(a, tn), stages[(i + NSTAGE "
+                  "- 1) % NSTAGE]);", "            (void)tn;")],
+    "store_only": [("if (t < a.ntiles) stage(a, tile_of(a, t), stages[s]);",
+                    ""),
+                   ("            stage(a, tile_of(a, tn), stages[(i + NSTAGE "
+                    "- 1) % NSTAGE]);", "            (void)tn;"),
+                   ("for (int i = 0; i < 8; i++) acc += f[k][i] * x[i];",
+                    "(void)x;")],
+    "cs_stores": [("out[32 * k] = k < n_on ? v[k] : 0;",
+                   "__stcs(out + 32 * k, k < n_on ? v[k] : 0);")],
+    "branches": [(SR_LOOP, SR_BRANCHES)],
+    "b4": [(SR_BOUNDS, SR_BOUNDS.replace("(THREADS)", "(THREADS, 4)"))],
+    "stage_fast": [SR_STAGE],
+}
+# film grain: 4 blocks a SM whatever the registers
+FILM_GRAIN = {
+    "kernel": [],
+    "b4": [("__global__ void __launch_bounds__(THREADS)\nfilm_grain_kernel",
+            "__global__ void __launch_bounds__(THREADS, 4)\n"
+            "film_grain_kernel")],
+}
+
 
 def variant(name, kernel, edits):
     """Build csrc/<kernel>.cu with `edits` applied (pairs (old, new);
@@ -424,19 +562,38 @@ def main():
         spy_c, spy_lr("wiener"), spy_lr("sgr")
     mc_obmc.obmc_planes, mc_warp.warp_planes = spy_o, spy_w
     try:
-        cs._decode(cs.STREAM_1080P, timed=False, n_tu=2)
+        # super-res and film grain run on seeded 1080p inputs instead
+        if any(a.partition(":")[0] not in ("superres", "film_grain")
+               for a in todo):
+            cs._decode(cs.STREAM_1080P, timed=False, n_tu=2)
     finally:
         cdef.cdef_planes, lr.wiener_frame, lr.sgr_frame = \
             run["cdef"], run["wiener"], run["sgr"]
         mc_obmc.obmc_planes, mc_warp.warp_planes = run["obmc"], run["warp"]
+    dev = torch.device("cuda")
+    # sr-1080p's and fg-1080p's shapes (chip_smoke.py TIMED_*[0])
+    sr_jobs = kc.superres_args(kc.superres_case(8, 1, 960, 1920, 1080), dev)
+    fg_args = kc.grain_args(kc.grain_case(8, 1, 1920, 1080), dev)
+
+    def setup_superres(lib):
+        superres._LIB.clear()
+        load_as(lib, superres._lib)
+
+    def setup_grain(lib):
+        fg._LIB.clear()
+        load_as(lib, fg._lib)
 
     def lr_frame(kind):
-        planes, tables, bd = rec[kind]
-        wmax = lr.check_frame(planes, tables, kind)
-        items, rowt, blocks = lr.upload_tables(
-            [*tables, lr.item_blocks(tables[0])], "cuda")
+        up = []                 # the recorded tables, uploaded at first use
 
         def fn():
+            if not up:
+                planes, tables, bd = rec[kind]
+                up[:] = [lr.check_frame(planes, tables, kind),
+                         *lr.upload_tables([*tables, lr.item_blocks(
+                             tables[0])], "cuda")]
+            planes, _, bd = rec[kind]
+            wmax, items, rowt, blocks = up
             dsts = [p[2].clone() for p in planes]
             lr._frame_launch(kind, [(s, q, d, w, m) for (s, q, _, w, _), d, m
                                     in zip(planes, dsts, wmax)], items,
@@ -492,7 +649,13 @@ def main():
         "lr_sgr": (SGR, lr_frame("sgr"), "lr_sgr_kernel",
                    setup_lr("lr_sgr")),
         "mc_obmc": (OBMC, obmc, "mc_obmc_kernel", setup_obmc),
-        "mc_warp": (WARP, warp, "mc_warp_kernel", setup_warp)}
+        "mc_warp": (WARP, warp, "mc_warp_kernel", setup_warp),
+        "superres": (SUPERRES, lambda: [d.clone() for d in
+                                        superres.resize_frame_cuda(sr_jobs,
+                                                                   8)],
+                     "superres_kernel", setup_superres),
+        "film_grain": (FILM_GRAIN, lambda: fg.film_grain_cuda(*fg_args),
+                       "film_grain_kernel", setup_grain)}
     lines = []
     for arg in todo:
         kernel, _, only = arg.partition(":")

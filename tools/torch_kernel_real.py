@@ -1,10 +1,14 @@
-"""Run chip_smoke.py's build and kernel_real phases (every kernel's
-device time on the tables and planes of frame 2 of the s7 stream, then
-of the s31 stream) of the checkout at argv[1], or of this one, on one
-GPU, then time the deblock of one synthetic 1080p 4:2:0 frame through
-that checkout's ops/lf.py with this checkout's measuring code
-(chip_smoke.deblock_frame_times: all device work, kernels alone,
-wrapper and plain); prints their JSON lines.
+"""Run chip_smoke.py's build phase and its kernel timing phases of the
+checkout at argv[1], or of this one, on one GPU: kernel_real (every
+kernel's device time on the tables and planes of frame 2 of the s7
+stream, then of the s31 stream), kernel_superres_grain (the super-res
+and film grain kernels at sr-1080p's and fg-1080p's shapes; checkouts
+from before those kernels skip it) and the deblock of one synthetic
+1080p 4:2:0 frame through that checkout's ops/lf.py with this
+checkout's measuring code (chip_smoke.deblock_frame_times: all device
+work, kernels alone, wrapper and plain); prints their JSON lines.
+Further arguments pick phases: real, superres_grain, deblock (all by
+default).
 
 To compare two commits on one card, unpack the other into a git-ignored
 directory and run them in turns in one call:
@@ -14,11 +18,13 @@ directory and run them in turns in one call:
     python tools/torch_kernel_real.py .
 """
 import importlib.util
+import json
 import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+phases = set(sys.argv[2:]) or {"real", "superres_grain", "deblock"}
 sys.path.insert(0, root)
 os.chdir(root)
 import numpy as np  # noqa: E402
@@ -28,12 +34,18 @@ import chip_smoke as cs  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("needs a CUDA device")
 card = cs.smi()
+print(json.dumps({"checkout": root}), flush=True)
 cs.phase_build()
-cs.phase_kernel_real(torch, card)
-# the s31 main path's kernels (a checkout from before super-res and film
-# grain lists only those in KERNELS)
-cs.phase_kernel_real(torch, card, cs.STREAM_1080P, cs.MD5S_S31,
-                     getattr(cs, "MAIN_KERNELS", cs.KERNELS)[1:])
+if "real" in phases:
+    cs.phase_kernel_real(torch, card)
+    # the s31 main path's kernels (a checkout from before super-res and
+    # film grain lists only those in KERNELS)
+    cs.phase_kernel_real(torch, card, cs.STREAM_1080P, cs.MD5S_S31,
+                         getattr(cs, "MAIN_KERNELS", cs.KERNELS)[1:])
+if "superres_grain" in phases and hasattr(cs, "phase_kernel_superres_grain"):
+    cs.phase_kernel_superres_grain(torch, card)
+if "deblock" not in phases:
+    sys.exit(0)
 
 # the checkout's package is imported by now; this checkout's chip_smoke
 # is loaded under another name for its measuring code only
