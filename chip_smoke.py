@@ -7,10 +7,10 @@ exits nonzero and prints no "ok" line:
 
 1. device     - the card, its power limit, torch's CUDA version,
                 nvcc/ninja
-2. build      - native/libstagea.so (make) and the eleven sm_90a kernels
+2. build      - native/libstagea.so (make) and the twelve sm_90a kernels
                 (deblock, mc_put, mc_comp, itx_add, mc_warp, mc_obmc,
-                cdef, lr_wiener, lr_sgr, superres, film_grain; one nvcc
-                each), all started together
+                cdef, lr_wiener, lr_sgr, superres, film_grain, ipred;
+                one nvcc each), all started together
 3. kernel     - the deblock kernel against its plain torch version on
                 the card (torch.equal), bd 8/10/12, luma/chroma, each
                 direction alone (the other direction's edges inactive,
@@ -77,7 +77,17 @@ exits nonzero and prints no "ok" line:
                 columns, planes padded to 4 columns whose last super-res
                 tile or grain unit the plane cuts, sources narrower than
                 a staged span), and the persistent grids' blocks a SM
-9. kernel_real- the first 2 temporal units of the s7 stream, then of the
+9. kernel_ipred - the intra-leftover kernel against level_plain
+                (torch.equal) on every ops/kernel_cases.py ipred_case
+                (bd 8/10/12; 4:2:0, 4:2:2, 4:4:4, monochrome; every
+                family at every geometry 4..64 it takes over every plane
+                in one launch; units cut by the plane's right and bottom
+                edges; constant fills and tlf); then every level of the
+                first inter frame of s31 and of s7 with the leftovers
+                forced onto the device, each launch on its captured
+                planes: torch.equal, device us per level and a frame,
+                the plain version's ms, the bound
+10. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s33 stream and of the s31 stream, decoded on cuda with
                 every launch of the inter frame checked against the
                 plain version on the same inputs (s7: put, compound,
@@ -94,12 +104,12 @@ exits nonzero and prints no "ok" line:
                 them (torch.equal); and the deblock of that frame's
                 planes and maps (torch.equal, device time beside the
                 synthetic frame's)
-10. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
+11. slice      - the 1080p keyframe of bench_streams/1920x1080_8b_flt_s31
                 _enc.ivf through Decoder(Settings(decode_frame_type=3))
                 on cuda: one picture, the expected md5, per-stage wall
                 ms, and the kernel launch counts of this path's run
-11. hbd       - the same for the 4K 10-bit keyframe
-12. inter     - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
+12. hbd       - the same for the 4K 10-bit keyframe
+13. inter     - all 8 frames of bench_streams/1920x1080_8b_flt_s7.ivf
                 through Decoder(Settings()) on cuda: per-picture and
                 stream md5s, the launch counts of this run (put,
                 compound, residual, deblock, CDEF, Wiener and SGR > 0;
@@ -113,33 +123,45 @@ exits nonzero and prints no "ok" line:
                 is retaken, and after 3 each stage's CUDA-event ms are
                 given instead, noted in the credit's `timer`) beside
                 their bounds per picture
-13. inter_hbd - the same for the first 2 temporal units of
+14. inter_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s11.ivf (4K 10-bit)
-14. inter_main - the main path: all 8 frames of the primary bench stream
+15. inter_main - the main path: all 8 frames of the primary bench stream
                 bench_streams/1920x1080_8b_flt_s31_enc.ivf, as inter,
                 each of its nine kernels launched (count > 0)
-15. inter_main_hbd - the same for the first 2 temporal units of
+16. inter_main_hbd - the same for the first 2 temporal units of
                 bench_streams/3840x2160_10b_flt_s33_enc.ivf (4K 10-bit)
-16. golden_walks - the GOLDEN_WALKS streams (tests/data/torch_golden/:
+17. golden_walks - the GOLDEN_WALKS streams (tests/data/torch_golden/:
                 interintra, blocks on scaled references with 8-tap and
                 bilinear filters, scaled compounds, warped compounds of
                 global motion, 4:4:4 intrabc frames) decoded on cuda to
                 their golden md5s, i444-intrabc's frames through the
                 host intrabc walk, every other stream's leftover blocks
                 through the host golden inter walk
-17. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
+18. leftovers  - s31, s7 and s21_realistic decoded whole with the
+                leftovers forced onto the device (DAV1D_TPU_LO=device)
+                and onto the host (=host): the same pictures, s31 and s7
+                on their recorded md5s, s21_realistic's stream md5 on
+                its recorded prefix; on the device route the ipred
+                kernel launched, no fallback, no row fetched back; per
+                frame both routes' stage ms beside the leftover, level
+                and unit counts, untimed walls in turns; then the five
+                LO_STREAMS (GOLDEN_DIR) under =device to their golden
+                md5s
+19. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
                 grain streams (GOLDEN_DIR, BIG_POST_FILTERS) as the
                 stream phases, their kernel launched; the timed decode
                 with the grain LUTs' memo cold (stage fg.luts)
-18. post_filters - the small super-res and film grain streams
+20. post_filters - the small super-res and film grain streams
                 (POST_FILTERS) decoded on cuda to their golden md5s,
                 each launching its kernel
-19. kernels   - the per-kernel summary line (launches from inter_main,
+21. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame,
                 super-res's and film grain's from their 1080p cases of
-                kernel_superres_grain)
+                kernel_superres_grain; ipred's launches from s31's
+                device-route decode in leftovers, its times from s31
+                frame 1 in kernel_ipred)
 
 then the card's name and power limit, and the final {"ok": true, ...}
 line.
@@ -306,8 +328,45 @@ BIG_POST_FILTERS = {
         "30047250a6628f71f575a778c05edbcd",
         "37b401d960f8b38484d601c444cfc9e6"],
         "7f2ad11159b13f62a4c68705e1bb6847")}
+# the intra-leftover streams of the leftovers phase (tests/
+# torch_port_cases.py LO_STREAMS: the configs of tests/test_lo_device.py),
+# committed under GOLDEN_DIR: per picture and over the stream, the md5s
+# of dav1d_tpu's golden numpy path (the recipe of MD5S_S7)
+LO_STREAMS = {
+    "lo-base": ([
+        "c906785a93e8a9d93b24337f8c7b3641",
+        "92ab5684d1e68404bdec59009d66532c",
+        "bc942e38bcc6ee6d25ad22adfc51d091",
+        "85aa2c2eadf36d6313feafe454fb4b46",
+        "e42f587f345ff1c16aac054ddc83711a"],
+        "5e87399e27bd981cb785061d8250501a"),
+    "lo-dense": ([
+        "beca61e863abb95d3b252c43c4b45584",
+        "594899087e2954d972cfadd0ad703dfe",
+        "a65f4cca26e3f68acea1162ce2958799",
+        "c31c2ffbb48315ea186ad4c3d7616456",
+        "ea6dd5a7d1d3ac31d6e03291a61e6ada"],
+        "cf10ca2b761b2df9f1d5763b076723af"),
+    "lo-444": ([
+        "59f99a8daec927c475d0403ab3b1aa67",
+        "6235cc095c44c6aa248d0aae9158e7f8",
+        "959d9a4e2b9707bdaeaf8cf822ec50b6",
+        "7887fb85b3c062fc447772ea1e661dc0"],
+        "e69b1feff882fbbecbd43067e12f91a1"),
+    "lo-422-hbd": ([
+        "be9566fec58caae6b2952aa39bfee7b6",
+        "4fda2ce8778d3955fa296741cfc9d7a0",
+        "926d6e6e40a0719c2aa68091587ebcfe",
+        "b72e1c5e82c74978e95e1bc7bae6c703"],
+        "da547a124006071b45d7f68eaa101e8e"),
+    "lo-multitile": ([
+        "88be97e22317daceb314947a2b85a1e3",
+        "cf84a97dd9f9bed7d52e9d8fea6ed19b",
+        "9cc350126feb60d38acc2a15818765b6",
+        "3ed1498a87d35d35e6e920c77b807d2a"],
+        "2503f1161c70844b20fd4a8a95cf8ec2")}
 KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc",
-           "cdef", "lr_wiener", "lr_sgr", "superres", "film_grain")
+           "cdef", "lr_wiener", "lr_sgr", "superres", "film_grain", "ipred")
 # the in-loop filter kernels after the deblock; every stream phase's
 # stream runs all three (counted on the CPU: every s7, s11, s31 and s33
 # frame, the keyframes included, has CDEF and both Wiener and SGR units)
@@ -325,7 +384,8 @@ KERNEL_NAMES = {"deblock": ("deblock_",), "mc_put": ("mc_put_kernel",),
                 "lr_wiener": ("lr_wiener_kernel",),
                 "lr_sgr": ("lr_sgr_kernel",),
                 "superres": ("superres_kernel",),
-                "film_grain": ("film_grain_kernel",)}
+                "film_grain": ("film_grain_kernel",),
+                "ipred": ("ipred_kernel",)}
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
@@ -608,9 +668,10 @@ def phase_kernel(torch, card):
 
 
 def _launch_dicts():
-    from dav1d_tpu_torch.ops import cdef, fg, itx, lf, lr, mc, superres
+    from dav1d_tpu_torch.ops import cdef, fg, ipred, itx, lf, lr, mc, \
+        superres
     return (lf.LAUNCHES, mc.LAUNCHES, itx.LAUNCHES, cdef.LAUNCHES,
-            lr.LAUNCHES, superres.LAUNCHES, fg.LAUNCHES)
+            lr.LAUNCHES, superres.LAUNCHES, fg.LAUNCHES, ipred.LAUNCHES)
 
 
 def _counts_reset():
@@ -2032,6 +2093,284 @@ def phase_post_filters(torch):
               "launches": {k: v for k, v in launches.items() if v}})
 
 
+# the intra leftovers (ROADMAP item 5b): bytes of a level's units as
+# the kernel must move them (int32): the unit row, the index row span
+# it gathers (C -/+ 2 max(w, h), cut to the row) and the edge pixel each
+# entry names, a CFL unit's luma rect, and the w x h outputs written
+IPRED_OPS_PER_PX = 20
+# the leftovers phase's streams: (name, path, per-picture md5s or None,
+# stream md5 or its recorded prefix, rounds of untimed walls)
+LO_BENCH = (("s31", STREAM_1080P, MD5S_S31, MD5_S31, 2),
+            ("s7", STREAM_S7, MD5S_S7, MD5_S7, 1),
+            ("s21_realistic", "bench_streams/1920x1080_8b_flt_s21_realistic"
+             ".ivf", None, "63042eb1", 1))
+LO_STAGES = ("inter.lo_build", "inter.lo_device", "inter.fetch_region",
+             "inter.leftovers", "inter.region_upload")
+
+
+def _lo_env(mode):
+    """DAV1D_TPU_LO set to `mode` inside the block, restored after."""
+    from unittest import mock
+    return mock.patch.dict(os.environ, {"DAV1D_TPU_LO": mode})
+
+
+def _ipred_work(units, ss_hor, ss_ver):
+    """(bytes, ops) of one level's units (numpy (n, NCOL))."""
+    import numpy as np
+    from dav1d_tpu_torch.ops import ipred
+    u = units.astype(np.int64)
+    w, h = u[:, 2], u[:, 3]
+    span = 2 * np.minimum(2 * np.maximum(w, h), ipred.C) + 1
+    luma = np.where(u[:, 1] == ipred.FAM_CFL,
+                    (u[:, 10] << ss_ver) * (u[:, 11] << ss_hor), 0)
+    return (int(4 * (ipred.NCOL + 2 * span + w * h + luma).sum()),
+            int(IPRED_OPS_PER_PX * (w * h).sum()))
+
+
+def _ipred_levels(path):
+    """The first inter frame of `path` (2 temporal units) decoded on
+    cuda with its leftovers forced onto the device: per ipred launch,
+    (the planes before the level, units, idx, bd, ss_hor, ss_ver) as
+    device copies."""
+    from dav1d_tpu_torch.ops import ipred
+    levels = []
+    orig = ipred.ipred_level
+
+    def spy(planes, units, idx, *args):
+        levels.append(([p.clone() for p in planes], units.clone(),
+                       idx.clone()) + args)
+        return orig(planes, units, idx, *args)
+    ipred.ipred_level = spy
+    try:
+        with _lo_env("device"):
+            _decode(path, timed=False, n_tu=2)
+    finally:
+        ipred.ipred_level = orig
+    return levels
+
+
+def _queued_event_us(torch, fns):
+    """Device us of each fn()'s launch, from CUDA events recorded
+    around it while the stream is held by a sleep kernel until every
+    launch is queued: the launches then run back to back, so an event
+    pair spans the launch's device time, not the host's work between
+    launches."""
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in fns]
+    torch.cuda._sleep(200_000_000)
+    for (a, b), fn in zip(evs, fns):
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return [1e3 * a.elapsed_time(b) for a, b in evs]
+
+
+def _ipred_frame_us(torch, levels, rounds=3):
+    """Device us of each level's ipred launch, replayed on its captured
+    planes (the kernel's writes never touch what it reads, so a replay
+    gives the same planes): `rounds` torch.profiler traces of two
+    passes over the frame's levels, the second timed; per level the
+    median. A trace without every launch of the second pass is taken
+    again, up to 3 times; then that round's times are CUDA events'
+    around each launch queued behind a sleep kernel (_queued_event_us).
+    Returns ([us per level], timer, per trace the launches it missed,
+    negative for a trace retaken)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dav1d_tpu_torch.ops import ipred
+    fns = [lambda a=lv: ipred.level_cuda(a[0], a[1], a[2], *a[3:])
+           for lv in levels]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    per, timer, missed = [], "profiler", []
+    for _ in range(rounds):
+        for _attempt in range(3):
+            # a pass before the timed one inside the trace: the traces
+            # on the card drop the first launches of a trace (2-3 seen)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for fn in fns + fns:
+                    fn()
+                torch.cuda.synchronize()
+            d = sorted((e.time_range.start, e.time_range.elapsed_us())
+                       for e in prof.events()
+                       if e.device_type == cuda and "ipred_kernel" in e.name)
+            if len(levels) <= len(d) <= 2 * len(levels):
+                per.append([t for _, t in d[-len(levels):]])
+                missed.append(2 * len(levels) - len(d))
+                break
+            missed.append(-len(d))
+        else:
+            timer = "queued_events"
+            per.append(_queued_event_us(torch, fns))
+    return [sorted(r[i] for r in per)[rounds // 2]
+            for i in range(len(levels))], timer, missed
+
+
+def phase_kernel_ipred(torch, card):
+    """The intra-leftover kernel against level_plain (torch.equal): every
+    ops/kernel_cases.py ipred_case (bd 8/10/12; 4:2:0, 4:2:2, 4:4:4 and
+    monochrome; every family at every geometry it takes, 4..64, over
+    every plane in one launch; units cut by the plane's right and bottom
+    edges; the constant fills and tlf); then every level of the first
+    inter frame of s31 and of s7 with the leftovers forced onto the
+    device, each launch on its captured planes (kernel and plain on the
+    card), with its device us, the frame's, the plain version's ms and
+    the bound. Returns the kernels-line numbers (s31's frame)."""
+    import numpy as np
+    from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    dev = torch.device("cuda")
+    err = n_units = 0
+    for case in kc.ipred_cases():
+        args = (case["bd"], case["ss_hor"], case["ss_ver"])
+        got, units, idx = kc.ipred_args(case, dev)
+        want = [p.clone() for p in got]
+        ipred.level_cuda(got, units, idx, *args)
+        ipred.level_plain(want, units, idx, *args)
+        torch.cuda.synchronize()
+        for pi, (a, b) in enumerate(zip(got, want)):
+            err = max(err, _check_equal(torch, a, b, f"ipred bd={args[0]} "
+                                        f"ss={args[1:]} plane {pi}"))
+        n_units += len(units)
+    emit({"phase": "kernel_ipred", "card": card, "cases": len(
+        kc.IPRED_LAYOUTS), "units": n_units, "max_abs_err": err,
+        "equal": True})
+    out = {}
+    for name, path in (("s31", STREAM_1080P), ("s7", STREAM_S7)):
+        levels = _ipred_levels(path)
+        if not levels:
+            raise AssertionError(f"kernel_ipred {name}: no level launched")
+        plain_ms, work = [], [0, 0]
+        for li, (planes, units, idx, *args) in enumerate(levels):
+            got = [p.clone() for p in planes]
+            want = [p.clone() for p in planes]
+            ipred.level_cuda(got, units, idx, *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ipred.level_plain(want, units, idx, *args)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            for pi, (a, b) in enumerate(zip(got, want)):
+                err = max(err, _check_equal(torch, a, b, f"ipred {name} "
+                                            f"level {li} plane {pi}"))
+            b, o = _ipred_work(units.cpu().numpy(), args[1], args[2])
+            work[0] += b
+            work[1] += o
+        us, timer, missed = _ipred_frame_us(torch, levels)
+        bound = _bound(*work)
+        n = [len(lv[1]) for lv in levels]
+        big = int(np.argmax(n))
+        emit({"phase": "kernel_ipred", "card": card, "stream": name,
+              "frame": 1, "levels": len(levels), "units": sum(n),
+              "largest_level_units": n[big],
+              "largest_level_us": us[big], "level_us_median": sorted(
+                  us)[len(us) // 2], "level_us_max": max(us),
+              "frame_us": sum(us), "timer": timer,
+              "trace_missed_launches": missed,
+              "plain_ms": sum(plain_ms), "bytes": work[0], "ops": work[1],
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "max_abs_err": err, "equal": True})
+        out[name] = {"ms": sum(us) / 1e3, "plain_ms": sum(plain_ms),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "max_abs_err": err}
+    return out["s31"]
+
+
+def _lo_decode(torch, path):
+    """One timed decode of `path` on cuda (stage syncs on): per inter
+    frame with leftovers, its leftover count, whether the device served
+    it (levels, units) and the ms of each LO_STAGES stage; the picture
+    md5s, the stream md5 and the ipred launches."""
+    from dav1d_tpu_torch.recon import inter_device
+    from dav1d_tpu_torch.utils import timing
+    frames = []
+    orig = inter_device.DeviceInterReconstructor.run_native
+
+    def spy(self, jobs):
+        before = {k: timing._T.get(k, 0.0) for k in LO_STAGES}
+        out = orig(self, jobs)
+        if len(self.leftovers):
+            plan = self._dev_lo
+            frames.append({
+                "n_leftovers": len(self.leftovers),
+                "levels": len(plan.levels) if plan else None,
+                "units": plan.n_units if plan else None,
+                **{k.split(".")[1]: (timing._T.get(k, 0.0) - before[k]) * 1e3
+                   for k in LO_STAGES}})
+        return out
+    inter_device.DeviceInterReconstructor.run_native = spy
+    _counts_reset()
+    try:
+        pics, digest, wall, stages, md5s = _decode(path, timed=True)
+    finally:
+        inter_device.DeviceInterReconstructor.run_native = orig
+    return frames, md5s, digest, wall, _counts()["ipred"]
+
+
+def phase_leftovers(torch, card):
+    """s31, s7 and s21_realistic decoded whole on cuda with the
+    leftovers forced onto the device and then onto the host
+    (DAV1D_TPU_LO=device, =host): the same pictures, s31 and s7 on their
+    recorded md5s and s21_realistic's stream md5 on its recorded prefix;
+    on the device route the ipred kernel launched, no fallback and no
+    row fetched back on any frame; per frame both routes' stage ms
+    beside the leftover, level and unit counts (one decode with stage
+    syncs each), and untimed walls of the routes in turns. Then the
+    LO_STREAMS (GOLDEN_DIR) under =device to their golden md5s. Returns
+    the ipred launches of s31's device-route decode (counts set to 0
+    just before it, read just after)."""
+    from dav1d_tpu_torch.recon import ipred_device
+    launches = 0
+    for name, path, pic_md5s, md5, rounds in LO_BENCH:
+        runs = {}
+        for mode in ("device", "host"):
+            with _lo_env(mode):
+                stats = dict(ipred_device.STATS)
+                frames, md5s, digest, wall, launched = _lo_decode(torch,
+                                                                  path)
+                stats = {k: ipred_device.STATS[k] - stats[k]
+                         for k in stats}
+            if not digest.startswith(md5) or \
+                    (pic_md5s and md5s != pic_md5s):
+                raise AssertionError(f"leftovers {name} {mode}: md5 "
+                                     f"{digest} {md5s}")
+            runs[mode] = {"frames": frames, "md5s": md5s, "stats": stats,
+                          "ipred_launches": launched, "synced_wall_ms": wall,
+                          "wall_ms": []}
+        # untimed walls, the routes in turns (device, host, host, device)
+        for mode in ("device", "host", "host", "device") * rounds:
+            with _lo_env(mode):
+                _, d2, untimed, _, _ = _decode(path, timed=False)
+            if d2 != digest:
+                raise AssertionError(f"leftovers {name} {mode}: md5 {d2} "
+                                     f"on an untimed decode")
+            runs[mode]["wall_ms"].append(untimed)
+        dv = runs["device"]
+        if dv["md5s"] != runs["host"]["md5s"]:
+            raise AssertionError(f"leftovers {name}: device != host")
+        if not dv["ipred_launches"] or dv["stats"]["fallbacks"] or \
+                any(f["levels"] is None or f["fetch_region"] or
+                    f["region_upload"] for f in dv["frames"]):
+            raise AssertionError(f"leftovers {name}: device route not "
+                                 f"taken on every frame: {dv}")
+        emit({"phase": "leftovers", "card": card, "stream": name,
+              "md5": digest, **runs})
+        launches = launches or dv["ipred_launches"]   # s31's, first
+    for name, (pic_md5s, md5) in LO_STREAMS.items():
+        with _lo_env("device"):
+            _counts_reset()
+            _, digest, _, _, md5s = _decode(f"{GOLDEN_DIR}/{name}.ivf",
+                                            timed=False)
+        if md5s != pic_md5s or digest != md5 or not _counts()["ipred"]:
+            raise AssertionError(f"leftovers {name}: {md5s} {digest}")
+    emit({"phase": "leftovers", "card": card, "lo_streams": len(LO_STREAMS),
+          "equal": True})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2053,6 +2392,7 @@ def main():
         lines[k]["max_abs_err"] = e
     for k, r in phase_kernel_superres_grain(torch, card).items():
         lines[k].update(r)
+    lines["ipred"].update(phase_kernel_ipred(torch, card))
     for args in ((), (STREAM_4K10, MD5S_S33, MAIN_KERNELS[1:]),  # s7, s33,
                  (STREAM_1080P, MD5S_S31, MAIN_KERNELS[1:])):    # s31
         for k, r in phase_kernel_real(torch, card, *args).items():
@@ -2080,6 +2420,9 @@ def main():
                  (2176, 3840), "uint16", pic_md5s=MD5S_S33,
                  need=MAIN_KERNELS, repeats=INTER_REPEATS, n_tu=2)
     phase_golden_walks(torch)
+    # the leftovers' own path: s31 with DAV1D_TPU_LO=device (the port's
+    # default keeps them on the host route)
+    lines["ipred"]["launches"] = phase_leftovers(torch, card)
     # s31 runs neither super-res nor film grain: their launches come
     # from the streams of their own phases
     for name, (pic_md5s, md5) in BIG_POST_FILTERS.items():
@@ -2114,7 +2457,9 @@ def main():
                "superres": ("dav1d_tpu_torch/csrc/superres.cu",
                             "dav1d_tpu/ops/superres.py:41"),
                "film_grain": ("dav1d_tpu_torch/csrc/film_grain.cu",
-                              "dav1d_tpu/ops/fg.py:131")}
+                              "dav1d_tpu/ops/fg.py:131"),
+               "ipred": ("dav1d_tpu_torch/csrc/ipred.cu",
+                         "dav1d_tpu/ops/ipred.py:50")}
     # library_ms is null for every kernel: no single PyTorch call
     # computes a deblock pass, a clamped-window 8-tap put, a masked
     # compound, an integer AV1 inverse transform, an affine-warped 8x8
@@ -2122,8 +2467,9 @@ def main():
     # filter, a Wiener filter over row-table windows, a self-guided
     # filter with its x_by_x lookup, a super-res upscale with its
     # per-column phases or a film grain synthesis with its LUT gathers
-    # and overlap blends (film_grain also replaces dav1d_tpu/ops/fg.py
-    # :172, the chroma program)
+    # and overlap blends, or a level of intra predictions from gathered
+    # edges (film_grain also replaces dav1d_tpu/ops/fg.py:172, the chroma
+    # program; ipred the other seven programs of dav1d_tpu/ops/ipred.py)
     emit({"kernels": [{
         "name": k, "route": "cuda", "source": sources[k][0],
         "replaces": sources[k][1], **{f: lines[k][f] for f in (

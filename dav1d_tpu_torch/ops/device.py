@@ -69,11 +69,14 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
     mc_wedge_lut32       (1056, 32, 32) int8 wedge masks, class 32
     mc_warp_filter       (193, 8) int32 dav1d_mc_warp_filter
     mc_obmc_masks        (64,) int32 dav1d_obmc_masks
+    ipred_sm_weights     (128,) int32 dav1d_sm_weights
+    ipred_filter_taps    (5, 8, 7) int32 filter-intra taps per kind
     """
     from .lf_ref import calc_eih
     from .cdef import proj_matrix
     from .mc import filter_banks_from
     from .mc_fused import _wedge_lut
+    from .ipred import filter_tap_matrices
     dev = torch.device(device)
     e = np.stack([calc_eih(s)[0] for s in range(8)]).astype(np.int32)
     i = np.stack([calc_eih(s)[1] for s in range(8)]).astype(np.int32)
@@ -94,6 +97,10 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
             d["dav1d_mc_warp_filter"], np.int32)).to(dev),
         "mc_obmc_masks": torch.from_numpy(np.asarray(
             d["dav1d_obmc_masks"], np.int32)).to(dev),
+        "ipred_sm_weights": torch.from_numpy(np.asarray(
+            d["dav1d_sm_weights"], np.int32)).to(dev),
+        "ipred_filter_taps": torch.from_numpy(filter_tap_matrices(
+            d["dav1d_filter_intra_taps"])).to(dev),
     }
 
 
@@ -101,7 +108,8 @@ def tables_from_numpy(d: dict, device="cpu") -> dict:
 def _tables_on(device: str) -> dict:
     names = ("dav1d_sgr_x_by_x", "dav1d_sgr_params",
              "dav1d_mc_subpel_filters", "dav1d_mc_warp_filter",
-             "dav1d_obmc_masks")
+             "dav1d_obmc_masks", "dav1d_sm_weights",
+             "dav1d_filter_intra_taps")
     return tables_from_numpy({k: tables.get(k) for k in names}, device)
 
 

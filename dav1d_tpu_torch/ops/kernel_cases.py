@@ -991,3 +991,130 @@ def grain_args(case, device):
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return ([T(p) for p in case["planes"]], GrainFrame(**case["params"]),
             T(case["luts"]), T(case["scal"]), T(case["off"]))
+
+
+# intra leftover levels (ops/ipred.py): the (w, h) of every transform
+# size (4..64, ratio up to 4); filter-intra and CFL go to 32x32
+IPRED_SIZES = sorted({(4 * t.w, 4 * t.h) for t in lv.TXFM_INFO})
+IPRED_SMALL = [(w, h) for w, h in IPRED_SIZES if w <= 32 and h <= 32]
+IPRED_MODES = (0, 1, 2, 3, 4, 5, 9, 10, 11, 12)   # the splat family
+CFL_DC_MODES = (0, 3, 4, 5)                       # DC, LEFT, TOP, 128
+# (bd, ss_hor, ss_ver, planes): 4:2:0, 4:4:4 and monochrome at 8 bit,
+# 4:2:2 at 10, 4:2:0 at 12
+IPRED_LAYOUTS = ((8, 1, 1, 3), (8, 0, 0, 3), (8, 1, 1, 1), (10, 1, 0, 3),
+                 (12, 1, 1, 3))
+IPRED_READ_ROWS = 64          # every edge and luma rect reads rows above
+IPRED_STRIP = 32              # right-edge units live in this strip
+
+
+def _ipred_params(rng, fam, w, h, deriv):
+    """p0 .. p7 of one unit of `fam` (ops/ipred.py), the upsample flags
+    only where the reference allows them (w + h <= 16)."""
+    from . import ipred
+    p = [0] * 8
+    d = lambda: int(deriv[rng.integers(1, len(deriv))])
+    small = w + h <= 16
+    if fam == ipred.FAM_S:
+        p[0] = int(rng.choice(IPRED_MODES))
+    elif fam == ipred.FAM_F:
+        p[0] = int(rng.integers(0, 5))
+    elif fam in (ipred.FAM_Z1, ipred.FAM_Z3):
+        up = int(small and rng.integers(0, 2))
+        p[:3] = [d() << up, 0 if up else int(rng.integers(0, 4)), up]
+    elif fam == ipred.FAM_Z2:
+        ua = int(small and rng.integers(0, 2))
+        ul = int(small and rng.integers(0, 2))
+        p = [d() << ua, d() << ul, 0 if ua else int(rng.integers(0, 4)),
+             0 if ul else int(rng.integers(0, 4)),
+             int(rng.integers(1, w + 9)), int(rng.integers(1, h + 9)), ua,
+             ul]
+    return p
+
+
+def ipred_case(bd, ss_hor, ss_ver, n_planes, seed, width=512):
+    """One level of leftover units over every plane: each family at
+    every geometry it takes (splat, Z1, Z2, Z3 at every transform size,
+    filter-intra at those up to 32x32, CFL at chroma sizes up to 32x32
+    on the chroma planes), random parameters and tlf, units cut by the
+    plane's right and bottom edges. Every unit writes below row
+    IPRED_READ_ROWS and its index row names pixels above it (or the four
+    constants), CFL luma rects lie above it too, and no two units write
+    the same pixel: the level scheduler's guarantee. Returns {"bd",
+    "ss_hor", "ss_ver", "planes": [int32 (H, W)], "units": (n, NCOL)
+    int32, "idx": (n, 321) int32}."""
+    from . import ipred
+    from .. import tables
+    rng = np.random.default_rng(seed)
+    deriv = tables.get("dav1d_dr_intra_derivative")
+    R = IPRED_READ_ROWS
+    rows, shapes = [], []
+    for pl in range(n_planes):
+        W = width >> (ss_hor if pl else 0)
+        units = [(fam, w, h) for fam in (ipred.FAM_S, ipred.FAM_Z1,
+                                         ipred.FAM_Z2, ipred.FAM_Z3)
+                 for w, h in IPRED_SIZES]
+        units += [(ipred.FAM_F, w, h) for w, h in IPRED_SMALL]
+        if pl:
+            units += [(ipred.FAM_CFL, w, h) for w, h in IPRED_SMALL
+                      if (w << ss_hor) <= 64 and (h << ss_ver) <= R]
+        order = rng.permutation(len(units))
+        units = [units[i] for i in order]
+        py, px, used = pack([(h, w) for _, w, h in units],
+                            W - IPRED_STRIP, align=4)
+        py = py + R
+        # the right edge: units half past the plane in the strip; the
+        # bottom edge: a shelf the plane cuts through the middle
+        right = [(fam, 16, 8) for fam in range(6) if fam != ipred.FAM_CFL
+                 or pl]
+        bottom = [(fam, 8, 16) for fam in range(6) if fam != ipred.FAM_CFL
+                  or pl]
+        H = R + used + 8
+        geo = [(f, w, h, int(y), int(x)) for (f, w, h), y, x in
+               zip(units, py, px)]
+        geo += [(f, w, h, R + 8 * i, W - 8) for i, (f, w, h) in
+                enumerate(right)]
+        geo += [(f, w, h, H - 8, 16 * i) for i, (f, w, h) in
+                enumerate(bottom)]
+        shapes.append((H, W))
+        for fam, w, h, y, x in geo:
+            p = _ipred_params(rng, fam, w, h, deriv)
+            if fam == ipred.FAM_CFL:
+                Wy = width
+                nh = 4 * int(rng.integers(1, h // 4 + 1))
+                nw = 4 * int(rng.integers(1, w // 4 + 1))
+                p[:6] = [4 * int(rng.integers(0, (R - (h << ss_ver)) // 4 + 1)),
+                         4 * int(rng.integers(0, (Wy - (w << ss_hor)) // 4
+                                              + 1)),
+                         nh, nw, int(rng.integers(-16, 17)),
+                         int(rng.choice(CFL_DC_MODES))]
+            tlf = 0 if fam == ipred.FAM_CFL else int(rng.integers(0, 2))
+            rows.append([pl, fam, w, h, y, x, tlf, 0] + p)
+    planes = [rng.integers(0, 1 << bd, s).astype(np.int32) for s in shapes]
+    units = np.asarray(rows, np.int64)
+    n = len(units)
+    idx = np.empty((n, ipred.EDGE_LEN), np.int64)
+    for i, pl in enumerate(units[:, 0]):
+        H, W = shapes[pl]
+        idx[i] = rng.integers(0, R * W, ipred.EDGE_LEN)
+        const = rng.random(ipred.EDGE_LEN) < 0.15
+        idx[i, const] = H * W + rng.integers(0, 4, int(const.sum()))
+    order = np.argsort(ipred.unit_class(units), kind="stable")
+    units, idx = units[order], idx[order]
+    units[:, 7] = np.arange(n)
+    return {"bd": bd, "ss_hor": ss_hor, "ss_ver": ss_ver, "planes": planes,
+            "units": units.astype(np.int32), "idx": idx.astype(np.int32)}
+
+
+def ipred_cases():
+    """ipred_case for every IPRED_LAYOUTS entry."""
+    return [ipred_case(bd, sh, sv, n, seed=90 + k)
+            for k, (bd, sh, sv, n) in enumerate(IPRED_LAYOUTS)]
+
+
+def ipred_args(case, device):
+    """(planes, units, idx) of a case as tensors on `device`."""
+    import torch
+    dev = torch.device(device)
+    return ([torch.from_numpy(p.copy()).to(dev) for p in case["planes"]],
+            torch.from_numpy(case["units"]).to(dev),
+            torch.from_numpy(case["idx"]).to(dev))

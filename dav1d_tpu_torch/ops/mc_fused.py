@@ -22,9 +22,11 @@ What existed only for the TPU is gone: segments as while_loops over
 fixed chunks, pow2 buffer ladders, the PAD apron and the
 block-gather-and-roll windows, used-prefix and int16 / lo-hi pool
 uploads. Here the puts are one kernel launch for every plane and each
-other pass one launch per plane, the job tables, their block tables and
-the int32 coefficient pool cross to the device in one copy, and the
-kernels read the reference planes in place. As dav1d_tpu bins residual
+other pass one launch per plane, the job tables, their block tables,
+the leftover levels' tables of a frame whose intra leftovers run on the
+device (recon/ipred_device.py) and the int32 coefficient pool cross to
+the device in one copy, and the kernels read the reference planes in
+place. As dav1d_tpu bins residual
 jobs into one segment per transform size, the host sorts each plane's
 put, compound and residual jobs by class and cuts them into
 class-uniform kernel blocks (ops/mc.py put_blocks, comp_blocks,
@@ -156,7 +158,12 @@ def execute(recon, jobs):
                     int((t[:, 5] + itx.CF_LEN[t[:, 0]]).max()) > len(pool):
                 raise ValueError("residual job reads past the "
                                  "coefficient pool")
-        T, pool_d = _upload(tables, pool, dev)
+        # the leftover levels' tables (recon/ipred_device.py) cross in
+        # the same copy; their residuals read the same pool
+        lo = recon.lo_tables or {}
+        T, pool_d = _upload({**tables, **lo}, pool, dev)
+        recon.lo_views = {k: T[k] for k in lo}
+        recon.cf_pool_dev = pool_d
         planes = [torch.zeros(p.shape, dtype=torch.int32, device=dev)
                   for p in pic.planes]
         sync_if_timed(dev)

@@ -5,15 +5,25 @@ the native job emitter (native/interjobs.cpp, bound in
 inter_jobs_native) writes the frame's job tables straight from the
 Stage-A pools, ops/mc_fused.execute runs them on the device (puts,
 warps, compounds luma before chroma, OBMC top then left laps,
-residuals), and the leftover blocks replay on the host in decode order:
+residuals), and then the leftover blocks take one of two routes:
 
-  the leftover rows are fetched from the device after the residual
-  pass; runs of pure-intra leftovers go through native/intrarec.cpp
-  (the golden walk where it declines), the other leftovers (interintra,
-  blocks on scaled references, bilinear or warped compounds) through
-  the golden InterReconstructor (recon/inter_ref.py) that this class
-  extends, reading every reference picture's host planes; the replayed
-  rows go back up before the filter chain.
+- on the device (recon/ipred_device.py) under DAV1D_TPU_LO=device, or
+  under the default DAV1D_TPU_LO=auto for a frame with at most
+  DAV1D_TPU_LO_LIMIT leftovers (the port's default limit is 0: on the
+  H100 the host route measured cheaper on every frame), when every
+  leftover is pure intra without a palette: the plan is built before
+  the inter passes (phase inter.lo_build), its level tables cross in
+  the frame's one upload, and after the residual pass the levels run
+  on the device planes (inter.lo_device): no mid-frame round trip;
+- on the host otherwise (DAV1D_TPU_LO=host forces it): the leftover
+  rows are fetched from the device after the residual pass
+  (inter.fetch_region), runs of pure-intra leftovers go through
+  native/intrarec.cpp (the golden walk where it declines), the other
+  leftovers (interintra, blocks on scaled references, bilinear or
+  warped compounds) through the golden InterReconstructor
+  (recon/inter_ref.py) that this class extends, reading every reference
+  picture's host planes (inter.leftovers); the replayed rows go back up
+  before the filter chain (inter.region_upload).
 
 Correctness of the split (as in dav1d_tpu): inter prediction never
 reads the current picture, and intra edges only read raster-earlier
@@ -58,6 +68,10 @@ class DeviceInterReconstructor(InterReconstructor):
         self.leftovers = np.zeros((0, 3), np.int64)
         self._lo_region = None   # (r0, r1) luma rows the host replay needs
         self._region_spans = None
+        self._dev_lo = None      # the device leftover plan, when served
+        self.lo_tables = None    # its level tables (host), for the upload
+        self.lo_views = {}       # the same on the device
+        self.cf_pool_dev = None  # the frame's coefficient pool on the device
 
     def _leftover_region(self, lo):
         """Luma row span the host leftover replay touches: block rects
@@ -81,15 +95,29 @@ class DeviceInterReconstructor(InterReconstructor):
         return r0, r1
 
     def run_native(self, jobs):
-        """Execute the emitter's job tables on the device, then replay
-        the leftover blocks on the host."""
+        """Execute the emitter's job tables on the device, then the
+        leftover blocks: on the device when recon/ipred_device.py serves
+        the frame, else replayed on the host."""
+        from . import ipred_device
         lo = self.leftovers = np.asarray(jobs["leftovers"],
                                          np.int64).reshape(-1, 3)
         if len(lo):
-            self._lo_region = self._leftover_region(lo)
+            with timing.phase("inter.lo_build"):
+                self._dev_lo = ipred_device.build(self, lo.tolist())
+                if self._dev_lo is not None:
+                    self.lo_tables = ipred_device.level_tables(
+                        self._dev_lo, *self._cf_bases(),
+                        len(self.pic.planes))
+            if self._dev_lo is None:
+                self._lo_region = self._leftover_region(lo)
         from ..ops import mc_fused
         mc_fused.execute(self, jobs)
         if not len(lo):
+            return self.pic
+        if self._dev_lo is not None:
+            with timing.phase("inter.lo_device"):
+                ipred_device.execute(self, self._dev_lo)
+                sync_if_timed(self.device)
             return self.pic
         with timing.phase("inter.leftovers"):
             self._replay_leftovers()
@@ -193,26 +221,33 @@ class DeviceInterReconstructor(InterReconstructor):
             lut[i] = ids[id(pic)]
         return per_plane, lut
 
+    def _cf_bases(self):
+        """(bases, length): each tile's offset in the frame's
+        coefficient pool (_build_cf_pool) and the pool's length."""
+        tiles = self.plan.native_tiles
+        bases = np.zeros(max(len(tiles), 1), np.int64)
+        pos = 0
+        for t in tiles:
+            bases[t["tile_idx"]] = pos
+            pos += int(t.get("cf_used", len(t["cf_pool"])))
+        return bases, pos
+
     def _build_cf_pool(self):
         """Concatenate the per-tile Stage-A coefficient pools (used
         span only) into one int32 frame pool; returns (pool, bases)."""
         tiles = self.plan.native_tiles
-        bases = np.zeros(max(len(tiles), 1), np.int64)
-        parts = []
-        pos = 0
-        for t in tiles:
-            used = int(t.get("cf_used", len(t["cf_pool"])))
-            bases[t["tile_idx"]] = pos
-            parts.append(t["cf_pool"][:used])
-            pos += used
+        bases, _ = self._cf_bases()
+        parts = [t["cf_pool"][:int(t.get("cf_used", len(t["cf_pool"])))]
+                 for t in tiles]
         if not parts:
             return np.zeros(0, np.int32), bases
         return np.concatenate(parts).astype(np.int32, copy=False), bases
 
     def _finish_device_planes(self, planes):
-        """Keep the planes on the device; with leftovers, bring the rows
-        the host replay touches down first (after the residual pass)."""
-        if len(self.leftovers):
+        """Keep the planes on the device; with leftovers for the host
+        replay, bring the rows it touches down first (after the residual
+        pass)."""
+        if len(self.leftovers) and self._dev_lo is None:
             r0, r1 = self._lo_region
             spans = []
             for i, hp in enumerate(self.pic.planes):

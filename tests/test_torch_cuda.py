@@ -20,7 +20,11 @@ last tile the plane cuts, and sources narrower than a staged span) and
 the film grain kernel on its (every layout at bd 8/10/12, odd sizes,
 overlap on and off, chroma scaling from luma, the restricted range with
 and without is_id, copied planes; planes padded to 4 columns); both
-wrappers refuse rows that are not whole 16-byte vectors. Marked
+wrappers refuse rows that are not whole 16-byte vectors; the intra
+leftover kernel on its seeded levels (ops/kernel_cases.py ipred_cases:
+every family and geometry over every plane in one launch, units cut by
+the plane edges, bd 8/10/12, every layout) and two small leftover
+streams decoded on the card to their golden md5s. Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -761,3 +765,73 @@ def test_film_grain_wrapper_checks(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fg.film_grain_cuda([odd, *planes[1:]], fr, luts, scal, off)
     assert fg.LAUNCHES["film_grain"] == before
+
+
+@pytest.mark.parametrize("k", range(5), ids=["8-420", "8-444", "8-mono",
+                                             "10-422", "12-420"])
+def test_ipred_kernel_vs_plain(cuda, k):
+    # one level over every plane: every family at every geometry it
+    # takes, units cut by the plane's right and bottom edges, the
+    # constant fills and tlf (kernel_cases.IPRED_LAYOUTS[k])
+    from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    case = kc.ipred_cases()[k]
+    args = (case["bd"], case["ss_hor"], case["ss_ver"])
+    want, units, idx = kc.ipred_args(case, "cpu")
+    ipred.level_plain(want, units, idx, *args)
+    planes, units, idx = kc.ipred_args(case, cuda)
+    before = ipred.LAUNCHES["ipred"]
+    ipred.ipred_level(planes, units, idx, *args)
+    torch.cuda.synchronize()
+    assert ipred.LAUNCHES["ipred"] == before + 1
+    for got, w in zip(planes, want):
+        assert torch.equal(got.cpu(), w)
+
+
+def test_ipred_wrapper_checks(cuda):
+    from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    planes, units, idx = kc.ipred_args(kc.ipred_cases()[0], cuda)
+    before = ipred.LAUNCHES["ipred"]
+    with pytest.raises(ValueError):         # a CPU plane
+        ipred.level_cuda([planes[0].cpu(), *planes[1:]], units, idx, 8, 1, 1)
+    with pytest.raises(TypeError):          # int64 units
+        ipred.level_cuda(planes, units.long(), idx, 8, 1, 1)
+    with pytest.raises(ValueError):         # index rows of another length
+        ipred.level_cuda(planes, units, idx[:, :320].contiguous(), 8, 1, 1)
+    with pytest.raises(ValueError):         # not contiguous
+        ipred.level_cuda([planes[0][:, 1:], *planes[1:]], units, idx, 8, 1,
+                         1)
+    with pytest.raises(ValueError):         # bit depth
+        ipred.level_cuda(planes, units, idx, 9, 1, 1)
+    assert ipred.LAUNCHES["ipred"] == before
+
+
+@pytest.mark.parametrize("name", ["lo-dense", "lo-422-hbd"])
+def test_lo_stream_on_cuda(cuda, name, monkeypatch):
+    # a small intra-leftover stream through the public API on the card,
+    # its leftovers on the device, to dav1d_tpu's golden md5s
+    import os
+    import chip_smoke
+    from dav1d_tpu_torch.api import Decoder, Settings
+    from dav1d_tpu_torch.bitstream.ivf import IvfReader
+    from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.recon import ipred_device
+    from dav1d_tpu_torch.utils.muxers import Md5Muxer
+    monkeypatch.setenv("DAV1D_TPU_LO", "device")
+    path = os.path.join(chip_smoke.ROOT, chip_smoke.GOLDEN_DIR,
+                        f"{name}.ivf")
+    before = (ipred.LAUNCHES["ipred"], dict(ipred_device.STATS))
+    dec = Decoder(Settings())
+    md5s = []
+    for fr in IvfReader(open(path, "rb").read()):
+        dec.send_data(fr.data)
+        for pic in dec.pictures():
+            m = Md5Muxer()
+            m.write_picture(pic)
+            md5s.append(m.digest())
+    dec.close()
+    assert md5s == chip_smoke.LO_STREAMS[name][0]
+    assert ipred.LAUNCHES["ipred"] > before[0]
+    assert ipred_device.STATS["frames"] > before[1]["frames"]
+    assert ipred_device.STATS["fallbacks"] == before[1]["fallbacks"]

@@ -6,7 +6,10 @@ decodes through the port's API with device="cpu" (the plain versions of
 the kernels) to the md5s of dav1d_tpu's golden numpy path
 (DAV1D_TPU_BACKEND=numpy, Settings(n_threads=1),
 dav1d_tpu.utils.muxers.Md5Muxer over the same stream): per picture,
-and for one muxer over the whole stream. Tolerance: none (md5-equal).
+and for one muxer over the whole stream; and its first inter frame with
+the leftover blocks on the device route (DAV1D_TPU_LO=device: the plan
+of recon/ipred_device.py, ops/ipred.py level_plain, no row fetched
+back). Tolerance: none (md5-equal).
 The file stands alone so that `--dist loadfile` gives it a worker."""
 import os
 
@@ -15,6 +18,7 @@ import torch
 from dav1d_tpu_torch.api import Decoder, Settings
 from dav1d_tpu_torch.bitstream.ivf import IvfReader
 from dav1d_tpu_torch.ops import mc_fused
+from dav1d_tpu_torch.recon import inter_device, ipred_device
 from dav1d_tpu_torch.utils.muxers import Md5Muxer
 
 torch.set_num_threads(2)
@@ -69,3 +73,18 @@ def test_s31_whole_stream():
     md5s, stream = _decode(8)
     assert md5s == MD5S
     assert stream == MD5_STREAM
+
+
+def test_s31_leftovers_on_the_device_route(monkeypatch):
+    fetches = []
+    fetch = inter_device.fetch_rows
+    monkeypatch.setattr(inter_device, "fetch_rows",
+                        lambda *a: fetches.append(1) or fetch(*a))
+    monkeypatch.setenv("DAV1D_TPU_LO", "device")
+    before = dict(ipred_device.STATS)
+    md5s, _ = _decode(2)
+    assert md5s == MD5S[:2]
+    assert ipred_device.STATS["frames"] == before["frames"] + 1
+    assert ipred_device.STATS["units"] > before["units"]
+    assert ipred_device.STATS["fallbacks"] == before["fallbacks"]
+    assert not fetches

@@ -675,3 +675,38 @@ def warp_assigned_plain(planes, jobs, bd, wf, warps=8):
             done[i] += 1
     assert (done == 1).all()
     return [p for _, p, _, _ in planes]
+
+
+# the intra-leftover streams (ROADMAP item 5b): the five CONFIGS of
+# tests/test_lo_device.py (inter frames whose leftover blocks use CFL
+# and the directional modes; 4:4:4, 4:2:2 at 10 bit, 2x2 tiles) as
+# lo-<name>, and a screen-content stream whose inter frame has a
+# palette leftover (the device plan declines it: the host route).
+# Committed under GOLDEN_DIR (write_lo_streams); chip_smoke.py holds
+# their golden md5s.
+LO_STREAMS = {
+    "lo-base": dict(w=96, h=96, n_frames=5, seed=3),
+    "lo-dense": dict(w=160, h=128, n_frames=5, seed=13, qidx=60),
+    "lo-444": dict(w=96, h=96, n_frames=4, seed=7, layout=3),
+    "lo-422-hbd": dict(w=96, h=96, n_frames=4, seed=9, layout=2, hbd=1),
+    "lo-multitile": dict(w=128, h=128, n_frames=4, seed=46,
+                         tile_log2_cols=1, tile_log2_rows=1),
+}
+LO_PALETTE = dict(w=64, h=64, n_frames=3, seed=0, screen_content=1)
+
+
+def lo_stream(name):
+    """The generated bytes of a LO_STREAMS stream."""
+    cfg = dict(LO_STREAMS[name])
+    w, h = cfg.pop("w"), cfg.pop("h")
+    return generate_stream(w, h, **cfg)[0]
+
+
+def write_lo_streams():
+    """Write every LO_STREAMS stream to GOLDEN_DIR/<name>.ivf:
+    python -c 'import sys; sys.path[:0] = ["tests", "."];
+    import torch_port_cases as c; c.write_lo_streams()'"""
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for name in LO_STREAMS:
+        with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
+            fh.write(lo_stream(name))
