@@ -2093,10 +2093,9 @@ def phase_post_filters(torch):
               "launches": {k: v for k, v in launches.items() if v}})
 
 
-# the intra leftovers (ROADMAP item 5b): bytes of a level's units as
-# the kernel must move them (int32): the unit row, the index row span
-# it gathers (C -/+ 2 max(w, h), cut to the row) and the edge pixel each
-# entry names, a CFL unit's luma rect, and the w x h outputs written
+# integer ops of an intra-leftover output (a few tens: the smooth and
+# directional blends, the filter-intra taps, CFL's scaling), a lower
+# bound; the bytes are counted per family by _ipred_work
 IPRED_OPS_PER_PX = 20
 # the leftovers phase's streams: (name, path, per-picture md5s or None,
 # stream md5 or its recorded prefix, rounds of untimed walls)
@@ -2114,16 +2113,54 @@ def _lo_env(mode):
     return mock.patch.dict(os.environ, {"DAV1D_TPU_LO": mode})
 
 
-def _ipred_work(units, ss_hor, ss_ver):
-    """(bytes, ops) of one level's units (numpy (n, NCOL))."""
+def _ipred_work(units, idx, shapes, ss_hor, ss_ver):
+    """(bytes, ops) of one level: units (n, NCOL) and idx (m, 321)
+    numpy, shapes each plane's (H, W). Per unit its row, the index
+    entries its family's arithmetic reads, one pixel for each of those
+    entries that names a pixel of its plane (one of the four constants
+    reads no memory), a CFL unit's luma rect and its outputs inside the
+    plane, all int32. The entries read (top C + 1 .., left C - 1 ..,
+    corner C): DC w + h, TOP_DC and V w, LEFT_DC and H h, DC_128 none
+    (CFL the same by its DC mode); Paeth, filter-intra and Z2 w + h and
+    the corner; smooth w + h (its right and bottom are the edges' last),
+    smooth V w and the bottom, smooth H h and the right; Z1 w + min(w, h)
+    of the top (Z3 h + min(w, h) of the left), and the corner when
+    filtered or upsampled. For Z1, Z2 and Z3 that is the span their
+    edge filter and upsampling read; a steep angle's interpolation
+    alone reaches fewer."""
     import numpy as np
     from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.ops import ipred_ref as r
     u = units.astype(np.int64)
-    w, h = u[:, 2], u[:, 3]
-    span = 2 * np.minimum(2 * np.maximum(w, h), ipred.C) + 1
-    luma = np.where(u[:, 1] == ipred.FAM_CFL,
+    fam, w, h, mode = u[:, 1], u[:, 2], u[:, 3], u[:, 8]
+    s = fam == ipred.FAM_S
+    z1, z3 = fam == ipred.FAM_Z1, fam == ipred.FAM_Z3
+    dc = np.where(s, mode, np.where(fam == ipred.FAM_CFL, u[:, 13], -1))
+    both = np.isin(dc, (r.DC_PRED, r.PAETH_PRED, r.SMOOTH_PRED)) | \
+        (fam == ipred.FAM_F) | (fam == ipred.FAM_Z2)
+    top = np.where(z1, w + np.minimum(w, h), np.where(
+        both | np.isin(dc, (r.TOP_DC_PRED, r.VERT_PRED, r.SMOOTH_V_PRED)),
+        w, 0))
+    left = np.where(z3, h + np.minimum(w, h), np.where(
+        both | np.isin(dc, (r.LEFT_DC_PRED, r.HOR_PRED, r.SMOOTH_H_PRED)),
+        h, 0))
+    corner = (s & (mode == r.PAETH_PRED)) | (fam == ipred.FAM_F) | \
+        (fam == ipred.FAM_Z2) | ((z1 | z3) & ((u[:, 9] > 0) | (u[:, 10] > 0)))
+    k = np.arange(ipred.EDGE_LEN)[None] - ipred.C
+    read = ((k > 0) & (k <= top[:, None])) | \
+        ((k < 0) & (-k <= left[:, None])) | \
+        ((k == 0) & corner[:, None]) | \
+        ((k == w[:, None]) & (s & (mode == r.SMOOTH_H_PRED))[:, None]) | \
+        ((k == -h[:, None]) & (s & (mode == r.SMOOTH_V_PRED))[:, None])
+    H, W = (np.array([sh[i] for sh in shapes], np.int64)[u[:, 0]]
+            for i in (0, 1))
+    q = idx[u[:, 7]].astype(np.int64)
+    pixel = read & (q >= 0) & (q < (H * W)[:, None])
+    luma = np.where(fam == ipred.FAM_CFL,
                     (u[:, 10] << ss_ver) * (u[:, 11] << ss_hor), 0)
-    return (int(4 * (ipred.NCOL + 2 * span + w * h + luma).sum()),
+    out = np.clip(W - u[:, 5], 0, w) * np.clip(H - u[:, 4], 0, h)
+    return (int(4 * (ipred.NCOL * len(u) + read.sum() + pixel.sum() +
+                     luma.sum() + out.sum())),
             int(IPRED_OPS_PER_PX * (w * h).sum()))
 
 
@@ -2149,66 +2186,6 @@ def _ipred_levels(path):
     return levels
 
 
-def _queued_event_us(torch, fns):
-    """Device us of each fn()'s launch, from CUDA events recorded
-    around it while the stream is held by a sleep kernel until every
-    launch is queued: the launches then run back to back, so an event
-    pair spans the launch's device time, not the host's work between
-    launches."""
-    evs = [(torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True)) for _ in fns]
-    torch.cuda._sleep(200_000_000)
-    for (a, b), fn in zip(evs, fns):
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return [1e3 * a.elapsed_time(b) for a, b in evs]
-
-
-def _ipred_frame_us(torch, levels, rounds=3):
-    """Device us of each level's ipred launch, replayed on its captured
-    planes (the kernel's writes never touch what it reads, so a replay
-    gives the same planes): `rounds` torch.profiler traces of two
-    passes over the frame's levels, the second timed; per level the
-    median. A trace without every launch of the second pass is taken
-    again, up to 3 times; then that round's times are CUDA events'
-    around each launch queued behind a sleep kernel (_queued_event_us).
-    Returns ([us per level], timer, per trace the launches it missed,
-    negative for a trace retaken)."""
-    from torch.profiler import ProfilerActivity, profile
-    from dav1d_tpu_torch.ops import ipred
-    fns = [lambda a=lv: ipred.level_cuda(a[0], a[1], a[2], *a[3:])
-           for lv in levels]
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    per, timer, missed = [], "profiler", []
-    for _ in range(rounds):
-        for _attempt in range(3):
-            # a pass before the timed one inside the trace: the traces
-            # on the card drop the first launches of a trace (2-3 seen)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for fn in fns + fns:
-                    fn()
-                torch.cuda.synchronize()
-            d = sorted((e.time_range.start, e.time_range.elapsed_us())
-                       for e in prof.events()
-                       if e.device_type == cuda and "ipred_kernel" in e.name)
-            if len(levels) <= len(d) <= 2 * len(levels):
-                per.append([t for _, t in d[-len(levels):]])
-                missed.append(2 * len(levels) - len(d))
-                break
-            missed.append(-len(d))
-        else:
-            timer = "queued_events"
-            per.append(_queued_event_us(torch, fns))
-    return [sorted(r[i] for r in per)[rounds // 2]
-            for i in range(len(levels))], timer, missed
-
-
 def phase_kernel_ipred(torch, card):
     """The intra-leftover kernel against level_plain (torch.equal): every
     ops/kernel_cases.py ipred_case (bd 8/10/12; 4:2:0, 4:2:2, 4:4:4 and
@@ -2217,8 +2194,9 @@ def phase_kernel_ipred(torch, card):
     edges; the constant fills and tlf); then every level of the first
     inter frame of s31 and of s7 with the leftovers forced onto the
     device, each launch on its captured planes (kernel and plain on the
-    card), with its device us, the frame's, the plain version's ms and
-    the bound. Returns the kernels-line numbers (s31's frame)."""
+    card), with its device us (_launch_us, a level at a time: s31's over
+    MAIN_ROUNDS traces), the frame's, the plain version's ms and the
+    bound. Returns the kernels-line numbers (s31's frame)."""
     import numpy as np
     from dav1d_tpu_torch.ops import ipred
     from dav1d_tpu_torch.ops import kernel_cases as kc
@@ -2239,11 +2217,12 @@ def phase_kernel_ipred(torch, card):
         kc.IPRED_LAYOUTS), "units": n_units, "max_abs_err": err,
         "equal": True})
     out = {}
+    fill = _fill_us(torch)
     for name, path in (("s31", STREAM_1080P), ("s7", STREAM_S7)):
         levels = _ipred_levels(path)
         if not levels:
             raise AssertionError(f"kernel_ipred {name}: no level launched")
-        plain_ms, work = [], [0, 0]
+        plain_ms, work, us, by_events = [], [0, 0], [], 0
         for li, (planes, units, idx, *args) in enumerate(levels):
             got = [p.clone() for p in planes]
             want = [p.clone() for p in planes]
@@ -2256,10 +2235,18 @@ def phase_kernel_ipred(torch, card):
             for pi, (a, b) in enumerate(zip(got, want)):
                 err = max(err, _check_equal(torch, a, b, f"ipred {name} "
                                             f"level {li} plane {pi}"))
-            b, o = _ipred_work(units.cpu().numpy(), args[1], args[2])
+            b, o = _ipred_work(units.cpu().numpy(), idx.cpu().numpy(),
+                               [tuple(p.shape) for p in planes], *args[1:])
             work[0] += b
             work[1] += o
-        us, timer, missed = _ipred_frame_us(torch, levels)
+            # replayed on the captured planes: a level's writes never
+            # touch what it reads, so every replay gives the same planes
+            t, _, timer = _launch_us(
+                torch, lambda a=(planes, units, idx, *args):
+                ipred.level_cuda(*a), "ipred_kernel", fill,
+                MAIN_ROUNDS if name == "s31" else 1, n=8)
+            us.append(t)
+            by_events += timer == "events"
         bound = _bound(*work)
         n = [len(lv[1]) for lv in levels]
         big = int(np.argmax(n))
@@ -2268,8 +2255,8 @@ def phase_kernel_ipred(torch, card):
               "largest_level_units": n[big],
               "largest_level_us": us[big], "level_us_median": sorted(
                   us)[len(us) // 2], "level_us_max": max(us),
-              "frame_us": sum(us), "timer": timer,
-              "trace_missed_launches": missed,
+              "frame_us": sum(us), "levels_timed_by_events": by_events,
+              "one_element_fill_us": fill,
               "plain_ms": sum(plain_ms), "bytes": work[0], "ops": work[1],
               "bound_ms": bound[0], "bound_by": bound[1],
               "max_abs_err": err, "equal": True})

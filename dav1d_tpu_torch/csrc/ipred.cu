@@ -20,13 +20,17 @@
 // level scheduler), so blocks run in any order; a CFL unit reads the
 // luma plane's rect, written at a lower level.
 //
-// Bound: memory. A unit reads its index row span and the pixels it
-// names once (4 bytes each), a CFL unit its luma rect, and writes its
-// w x h outputs once; the arithmetic is a few tens of integer
-// operations an output. A 4x4 unit moves ~0.3 KB; s7's first inter
-// frame, 12246 units in 110 levels, 12.1 MB: 3.6 us of HBM time for
-// the frame, under 0.1 us a level, so a launch is bound by its launch
-// and its longest block (s31 frame 1: 26.8 us in 5 launches).
+// Bound: memory. A unit must read its row, the index entries its
+// family's arithmetic uses and the pixels they name once (4 bytes
+// each; an entry naming a constant reads no pixel), a CFL unit its
+// luma rect, and write its w x h outputs once (chip_smoke.py
+// _ipred_work counts them); the arithmetic is a few tens of integer
+// operations an output. A 4x4 DC unit moves 192 bytes; a level of
+// even s7's densest frame moves well under a microsecond of HBM time,
+// so a launch is bound by its launch and its longest block. The
+// kernel stages a wider span (C -/+ 2 max(w, h)) than most families
+// read: one loop for every family, and all of it in one cache line
+// or two for the common small units.
 //
 // Design: a block a unit (units are 4x4 to 64x64, the 4x4 ones the
 // most common), 64 threads; ptxas: 40 registers, no spills, 6428 bytes
