@@ -137,7 +137,14 @@ exits nonzero and prints no "ok" line:
                 their golden md5s, i444-intrabc's frames through the
                 host intrabc walk, every other stream's leftover blocks
                 through the host golden inter walk
-18. leftovers  - s31, s7 and s21_realistic decoded whole with the
+18. collector - s31's first 3 temporal units (full 1920x1080 width)
+                decoded on cuda on the native emitter's route and on the
+                Python collector walk (DAV1D_TPU_INTERJOBS=python), each
+                picture on MD5S_S31; per inter frame each route's
+                inter.* stage ms (inter.emit_jobs against inter.walk);
+                then the GOLDEN_WALKS and LO_STREAMS streams under
+                DAV1D_TPU_INTERJOBS=python to their golden md5s
+19. leftovers  - s31, s7 and s21_realistic decoded whole with the
                 leftovers forced onto the device (DAV1D_TPU_LO=device)
                 and onto the host (=host): the same pictures, s31 and s7
                 on their recorded md5s, s21_realistic's stream md5 on
@@ -147,14 +154,14 @@ exits nonzero and prints no "ok" line:
                 and unit counts, untimed walls in turns; then the five
                 LO_STREAMS (GOLDEN_DIR) under =device to their golden
                 md5s
-19. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
+20. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
                 grain streams (GOLDEN_DIR, BIG_POST_FILTERS) as the
                 stream phases, their kernel launched; the timed decode
                 with the grain LUTs' memo cold (stage fg.luts)
-20. post_filters - the small super-res and film grain streams
+21. post_filters - the small super-res and film grain streams
                 (POST_FILTERS) decoded on cuda to their golden md5s,
                 each launching its kernel
-21. kernels   - the per-kernel summary line (launches from inter_main,
+22. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame,
@@ -2358,6 +2365,110 @@ def phase_leftovers(torch, card):
     return launches
 
 
+# the collector phase's routes for s31's first COLLECTOR_TU temporal
+# units: (name, environment); the emitter route (the default) is the
+# one the collector walk is held against
+COLLECTOR_TU = 3
+COLLECTOR_ROUTES = (("emitter", {}),
+                    ("collector", {"DAV1D_TPU_INTERJOBS": "python"}))
+# the kernels both routes run on s31's inter frames
+COLLECTOR_KERNELS = ("mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc")
+
+
+def _env(env):
+    """os.environ updated with `env` inside the block, restored after."""
+    from unittest import mock
+    return mock.patch.dict(os.environ, env)
+
+
+def _route_decode(path, timed, n_tu=None):
+    """One decode of `path` on cuda (stage syncs on when timed): the
+    decode's (pictures, md5, wall ms, stage ms, picture md5s) and per
+    inter frame its route (emitter, collector walk) and its inter.*
+    stage ms."""
+    from dav1d_tpu_torch.recon import inter_device
+    from dav1d_tpu_torch.utils import timing
+    cls = inter_device.DeviceInterReconstructor
+    orig = (inter_device.reconstruct_inter_frame_device, cls.run)
+    frames = []
+
+    def frame(plan, refp, device):
+        before = dict(timing._T)
+        frames.append({"route": "emitter"})
+        pic = orig[0](plan, refp, device)
+        frames[-1]["stage_ms"] = {
+            k: (v - before.get(k, 0.0)) * 1e3 for k, v in timing._T.items()
+            if k.startswith("inter.") and v != before.get(k, 0.0)}
+        return pic
+
+    def walk(self):
+        frames[-1]["route"] = "collector"
+        return orig[1](self)
+    inter_device.reconstruct_inter_frame_device = frame
+    cls.run = walk
+    try:
+        out = _decode(path, timed=timed, n_tu=n_tu)
+    finally:
+        inter_device.reconstruct_inter_frame_device = orig[0]
+        cls.run = orig[1]
+    return out, frames
+
+
+def phase_collector(torch, card):
+    """The route of inter frames the native emitter does not serve
+    (ROADMAP item 9b): s31's first
+    COLLECTOR_TU temporal units (1920x1080, a keyframe and inter frames
+    with warp and OBMC) decoded on cuda on each of COLLECTOR_ROUTES,
+    each picture on MD5S_S31, every inter frame on its route, the
+    collector walk launching the kernels of the emitter route; per inter frame each route's inter.* stage ms and
+    over the decode every stage's ms (one decode with stage syncs,
+    after a warm one), and an untimed wall.
+    Then the GOLDEN_WALKS and LO_STREAMS streams (GOLDEN_DIR) under
+    DAV1D_TPU_INTERJOBS=python to their golden md5s, their inter frames
+    on the collector walk. The environment is restored after each
+    run."""
+    want = MD5S_S31[:COLLECTOR_TU]
+    n_inter = COLLECTOR_TU - 1
+    for name, env in COLLECTOR_ROUTES:
+        with _env(env):
+            _route_decode(STREAM_1080P, False, COLLECTOR_TU)      # warm
+            _counts_reset()
+            (pics, _, wall, stages, md5s), frames = _route_decode(
+                STREAM_1080P, True, COLLECTOR_TU)
+            launches = _counts()
+            (_, _, untimed, _, md5s2), _ = _route_decode(
+                STREAM_1080P, False, COLLECTOR_TU)
+        if md5s != want or md5s2 != want:
+            raise AssertionError(f"collector {name}: md5s {md5s} {md5s2} "
+                                 f"!= {want}")
+        if len(frames) != n_inter or \
+                any(f["route"] != name for f in frames):
+            raise AssertionError(f"collector {name}: frames took "
+                                 f"{[f['route'] for f in frames]}")
+        for k in COLLECTOR_KERNELS:
+            if not launches[k]:
+                raise AssertionError(f"collector {name}: the {k} kernel "
+                                     f"never launched")
+        emit({"phase": "collector", "card": card, "route": name,
+              "env": env, "stream": STREAM_1080P, "pictures": len(pics),
+              "md5s": md5s, "frames": frames, "synced_wall_ms": wall,
+              "stage_ms": stages, "wall_ms": untimed,
+              "launches": {k: v for k, v in launches.items() if v}})
+    streams = {**GOLDEN_WALKS, **LO_STREAMS}
+    with _env({"DAV1D_TPU_INTERJOBS": "python"}):
+        for name, (pic_md5s, md5) in streams.items():
+            (_, digest, _, _, md5s), frames = _route_decode(
+                f"{GOLDEN_DIR}/{name}.ivf", False)
+            if md5s != pic_md5s or digest != md5:
+                raise AssertionError(f"collector {name}: md5s {md5s} "
+                                     f"{digest} != {pic_md5s} {md5}")
+            if any(f["route"] != "collector" for f in frames):
+                raise AssertionError(f"collector {name}: a frame took the "
+                                     f"emitter route")
+    emit({"phase": "collector", "card": card, "streams": len(streams),
+          "equal": True})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2407,6 +2518,7 @@ def main():
                  (2176, 3840), "uint16", pic_md5s=MD5S_S33,
                  need=MAIN_KERNELS, repeats=INTER_REPEATS, n_tu=2)
     phase_golden_walks(torch)
+    phase_collector(torch, card)
     # the leftovers' own path: s31 with DAV1D_TPU_LO=device (the port's
     # default keeps them on the host route)
     lines["ipred"]["launches"] = phase_leftovers(torch, card)

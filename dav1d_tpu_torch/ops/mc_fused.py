@@ -43,7 +43,7 @@ import torch
 
 from ..utils import timing
 from . import itx, mc, mc_obmc, mc_warp
-from .device import sync_if_timed
+from .device import sync_if_timed, upload_planes
 
 
 # dense per-class wedge mask LUTs: every (layout, bs, sign, idx) combo
@@ -142,7 +142,9 @@ def _upload(tables, pool, device):
 
 def execute(recon, jobs):
     """Run the frame's MC and residual passes on recon.device; the
-    planes go to recon._finish_device_planes."""
+    planes go to recon._finish_device_planes. They start from zeros, or
+    from the host planes after the collector walk's eager replays wrote
+    blocks there (recon.had_eager)."""
     f = recon.f
     pic = recon.pic
     dev = recon.device
@@ -164,8 +166,11 @@ def execute(recon, jobs):
         T, pool_d = _upload({**tables, **lo}, pool, dev)
         recon.lo_views = {k: T[k] for k in lo}
         recon.cf_pool_dev = pool_d
-        planes = [torch.zeros(p.shape, dtype=torch.int32, device=dev)
-                  for p in pic.planes]
+        if recon.had_eager:
+            planes = upload_planes(pic.planes, dev)
+        else:
+            planes = [torch.zeros(p.shape, dtype=torch.int32, device=dev)
+                      for p in pic.planes]
         sync_if_timed(dev)
     bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
     per_plane = [(refs[pi], planes[pi], *bounds[pi])

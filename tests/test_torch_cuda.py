@@ -24,8 +24,9 @@ wrappers refuse rows that are not whole 16-byte vectors; the intra
 leftover kernel on its seeded levels (ops/kernel_cases.py ipred_cases:
 every family and geometry over every plane in one launch, units cut by
 the plane edges, bd 8/10/12, every layout) and two small leftover
-streams decoded on the card to their golden md5s. Marked
-`cuda`: it
+streams decoded on the card to their golden md5s; a golden-walk stream
+on the Python collector walk (DAV1D_TPU_INTERJOBS=python) to its golden
+md5s. Marked `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
 
@@ -835,3 +836,27 @@ def test_lo_stream_on_cuda(cuda, name, monkeypatch):
     assert ipred.LAUNCHES["ipred"] > before[0]
     assert ipred_device.STATS["frames"] > before[1]["frames"]
     assert ipred_device.STATS["fallbacks"] == before[1]["fallbacks"]
+
+
+def test_collector_walk_on_cuda(cuda, monkeypatch):
+    # a golden-walk stream whose collector walk replays blocks eagerly
+    # (its device planes then start from the host planes), decoded on
+    # the card to dav1d_tpu's golden md5s
+    import os
+    import chip_smoke
+    from dav1d_tpu_torch.api import Decoder, Settings
+    from dav1d_tpu_torch.bitstream.ivf import IvfReader
+    from dav1d_tpu_torch.utils.muxers import Md5Muxer
+    monkeypatch.setenv("DAV1D_TPU_INTERJOBS", "python")
+    path = os.path.join(chip_smoke.ROOT, chip_smoke.GOLDEN_DIR,
+                        "gmv-compound.ivf")
+    dec = Decoder(Settings())
+    md5s = []
+    for fr in IvfReader(open(path, "rb").read()):
+        dec.send_data(fr.data)
+        for pic in dec.pictures():
+            m = Md5Muxer()
+            m.write_picture(pic)
+            md5s.append(m.digest())
+    dec.close()
+    assert md5s == chip_smoke.GOLDEN_WALKS["gmv-compound"][0]

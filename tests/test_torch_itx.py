@@ -4,7 +4,9 @@ the 19 transform sizes with every valid (row kind, column kind) pair,
 and res_jobs_fn for the lossless WHT. Bit-exact (tolerance 0) at bd 8
 and 10, on seeded coefficients from ops/kernel_cases.py (dense small,
 sparse at the decoder's full range, DC only) added into a random
-plane.
+plane. dav1d_tpu's programs run op by op (jax.disable_jit: the same
+integer operations without XLA's compile of each size's program, most
+of these tests' time).
 
 Also the premise of the CUDA kernel's int32 arithmetic at bd 8 and 10:
 ops/itx.py `residual` (the ops/itx_core.py butterflies with the rect2
@@ -19,6 +21,8 @@ rotation constant passes 2^31), which is why the kernel keeps int64 at
 bd 12."""
 from functools import lru_cache
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -59,11 +63,14 @@ def test_itx_plain_vs_res_tx_fn(bd, tx):
     rk, ck = itx.res_tx_kinds(tx)
     assert len(jobs) == len(rk) * len(ck)
     fn = mc_jobs.res_tx_fn(1, tx, bd)
-    ref = case["plane"].copy()
-    for j in jobs:
-        row = np.array([[0, tx, 0, j[3], j[4], j[5]]], np.int32)
-        ref = np.asarray(fn(case["pool"], row, j[1:3].astype(np.int32),
-                            ref))
+    ref = jnp.asarray(case["plane"])
+    pool = jnp.asarray(case["pool"])
+    with jax.disable_jit():
+        for j in jobs:
+            row = np.array([[0, tx, 0, j[3], j[4], j[5]]], np.int32)
+            ref = fn(pool, jnp.asarray(row),
+                     jnp.asarray(j[1:3].astype(np.int32)), ref)
+    ref = np.asarray(ref)
     got = _port(case, jobs, bd)
     assert not np.array_equal(ref, case["plane"])
     assert np.array_equal(got, ref)
@@ -76,7 +83,9 @@ def test_wht_plain_vs_res_jobs_fn(bd):
     rows = wht.copy()
     rows[:, 1], rows[:, 2] = 0, jlv.WHT_WHT
     fn = mc_jobs.res_jobs_fn(len(wht), 0, jlv.WHT_WHT, bd)
-    ref = np.asarray(fn(case["pool"], rows, case["plane"].copy()))
+    with jax.disable_jit():
+        ref = np.asarray(fn(jnp.asarray(case["pool"]), jnp.asarray(rows),
+                            jnp.asarray(case["plane"])))
     got = _port(case, wht, bd, wht=True)
     assert not np.array_equal(ref, case["plane"])
     assert np.array_equal(got, ref)

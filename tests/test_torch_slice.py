@@ -1,10 +1,14 @@
 """The keyframe/intra slice end to end: small synthetic intra streams with
-every in-loop filter on decode through dav1d_tpu's ObuStreamDecoder and
-through the port's public API (device="cpu", so the plain versions
-run), and every picture's md5 must be equal; super-res and film grain
+every in-loop filter on decode through dav1d_tpu's ObuStreamDecoder
+(its md5s recorded in JAX_MD5S with the hash of the stream they were
+recorded from; one stream also decoded live) and through the port's public API
+(device="cpu", so the plain versions run), and every picture's md5 must
+be equal; super-res and film grain
 streams, intra and inter, to the md5s of dav1d_tpu's golden numpy path
 (more of them: tests/test_torch_superres.py, tests/test_torch_fg.py;
 inter frames: tests/test_torch_inter.py)."""
+import hashlib
+
 import pytest
 import torch
 
@@ -35,21 +39,44 @@ def _port_md5s(data, **settings):
     return out
 
 
-def _jax_md5s(data):
-    dec = ObuStreamDecoder()
-    out = []
-    for fr in IvfReader(data):
-        for _plan, pic in dec.decode_temporal_unit(fr.data):
-            if pic is not None:
-                out.append(_md5(pic, JaxMd5))
-    return out
+# every picture's md5 (dav1d_tpu's Md5Muxer) of the STREAMS decoded by
+# dav1d_tpu's ObuStreamDecoder() (its device path), recorded once: those
+# decodes compile their filter programs for 7-13 s a stream on a CPU.
+# Beside them the md5 of the stream's bytes they were recorded from: a
+# change of the stream generator fails the test instead of comparing
+# against stale md5s (record them again from dav1d_tpu then).
+JAX_MD5S = {
+    "10bit-420": ("5c504b901df0b37ce5da3f066952ce06",
+                  ["34f89ac33659aede00bb0df539015a28",
+                   "e74d64420cbc45a1bd84ad83de62e47a"]),
+    "12bit-420": ("47722d9093b7b9865b24af8592c7ad7d",
+                  ["e52a5ad228aa598374c6c3df6e7c6c80",
+                   "1d332cdc6d7ac82e9c791a69c019a6f7"]),
+    "8bit-420": ("5366cc8c1db64e84c43f3e368ed43589",
+                 ["e0eff6abb54cc9bb2238b28f9cd34818",
+                  "00e09b75284ff30381817a47fcd1b1ed"]),
+    "8bit-422": ("df675c900966a1cd6ff1438d8355dff9",
+                 ["3c313e6b682c47ebd8a9bb000576fa6b",
+                  "8f435388bba64c1f0f4131b04e3c149e"]),
+    "8bit-444-tiles": ("59e6cee3c8d3286ea73c0b7206fe1a24",
+                       ["a851f3bcdc8eff03e092c2c44d62a0e0",
+                        "0bf7510646ab9e8e8664409f933e40d7"]),
+    "8bit-mono": ("d6dd12cdee08c181c0dcc8bc03c39013",
+                  ["5556cda4c37bb7ddcd5b9a11520150d8",
+                   "8e228c08ab5f4879f2e0b6d95da65b5c"])}
+# the stream dav1d_tpu also decodes live, on its golden numpy path
+# (compiles nothing)
+LIVE = "8bit-420"
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
-def test_intra_stream_md5s_match_dav1d_tpu(name):
+def test_intra_stream_md5s_match_dav1d_tpu(name, monkeypatch):
     data = stream(name)
-    ref = _jax_md5s(data)
+    data_md5, ref = JAX_MD5S[name]
+    assert hashlib.md5(data).hexdigest() == data_md5
     assert len(ref) == STREAMS[name]["n_frames"]
+    if name == LIVE:
+        assert golden_md5s(data, monkeypatch) == ref
     assert _port_md5s(data) == ref
     # the synchronous decoder (no Stage-B worker) agrees too
     assert _port_md5s(data, n_threads=1) == ref

@@ -710,3 +710,76 @@ def write_lo_streams():
     for name in LO_STREAMS:
         with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
             fh.write(lo_stream(name))
+
+
+# the golden md5s of the GOLDEN_WALKS and LO_STREAMS streams committed
+# under GOLDEN_DIR, as chip_smoke.py holds them (dav1d_tpu's golden
+# numpy path: DAV1D_TPU_BACKEND=numpy, Settings(n_threads=1),
+# dav1d_tpu.utils.muxers.Md5Muxer): per picture, and over the stream
+COMMITTED_MD5S = {
+    "interintra": ([
+        "b51d9fe04f7b1ccda13f06c37c4d02a7",
+        "bb082a011dfad46646abc50b00223c09",
+        "c9694df0a7d74d45682707a660ef440c",
+        "858ff9c3524b8d239a18f97739a0f68d",
+        "e901f9863a40740c31d979c444973cf0"],
+        "082cc584f3404d73a4470fe63e04f663"),
+    "scaled-ref": ([
+        "3a7b61513ad272ec99fad7569eeee006",
+        "1d09e5943b3b265c2c6d454f54cf7ff6",
+        "1f80038e5848d9789015ce697b359adf"],
+        "3deb78aea7a4adaa2ad81f348df5c161"),
+    "scaled-ref-bilin": ([
+        "fc370c12cc1686efc7a11cf6665600ff",
+        "5ee7278384fda49bde370bf140188200",
+        "a6f5a4989e5350fe5dc5888ff59f9ed1"],
+        "aa7f923769e695e542ead4b731386a0f"),
+    "scaled-ref-compound": ([
+        "de905a63f314787e5b62b570a27d261a",
+        "376e147ebb3a9c44f7d952363ffaca29",
+        "d8349135dd7437c042269b79d78a0f4f",
+        "19b6fd60f1009ec7d99322cce55b6f90"],
+        "dbe88cf410ac60997573bb2be5ca15c5"),
+    "gmv-compound": ([
+        "c592adce0c1ce94510b3cb0b99c0b1f2",
+        "fd5c4363073048b8f999e019c3126afc",
+        "9373ccbd697084195846ab77f58803c7",
+        "e92965be78ad51615be9ddb3b013a759"],
+        "0c6952401fb7efa5c3b3b2ef74ec19f4"),
+    "i444-intrabc": ([
+        "d5ba24a049e6d0e44d9a01a11b49b424",
+        "39df4a5e05d890c910eef9d5442e01f5"],
+        "4e0798ea6c5711b258752c57151ab9f9"),
+    "lo-base": ([
+        "c906785a93e8a9d93b24337f8c7b3641",
+        "92ab5684d1e68404bdec59009d66532c",
+        "bc942e38bcc6ee6d25ad22adfc51d091",
+        "85aa2c2eadf36d6313feafe454fb4b46",
+        "e42f587f345ff1c16aac054ddc83711a"],
+        "5e87399e27bd981cb785061d8250501a"),
+    "lo-dense": ([
+        "beca61e863abb95d3b252c43c4b45584",
+        "594899087e2954d972cfadd0ad703dfe",
+        "a65f4cca26e3f68acea1162ce2958799",
+        "c31c2ffbb48315ea186ad4c3d7616456",
+        "ea6dd5a7d1d3ac31d6e03291a61e6ada"],
+        "cf10ca2b761b2df9f1d5763b076723af"),
+    "lo-444": ([
+        "59f99a8daec927c475d0403ab3b1aa67",
+        "6235cc095c44c6aa248d0aae9158e7f8",
+        "959d9a4e2b9707bdaeaf8cf822ec50b6",
+        "7887fb85b3c062fc447772ea1e661dc0"],
+        "e69b1feff882fbbecbd43067e12f91a1"),
+    "lo-422-hbd": ([
+        "be9566fec58caae6b2952aa39bfee7b6",
+        "4fda2ce8778d3955fa296741cfc9d7a0",
+        "926d6e6e40a0719c2aa68091587ebcfe",
+        "b72e1c5e82c74978e95e1bc7bae6c703"],
+        "da547a124006071b45d7f68eaa101e8e"),
+    "lo-multitile": ([
+        "88be97e22317daceb314947a2b85a1e3",
+        "cf84a97dd9f9bed7d52e9d8fea6ed19b",
+        "9cc350126feb60d38acc2a15818765b6",
+        "3ed1498a87d35d35e6e920c77b807d2a"],
+        "2503f1161c70844b20fd4a8a95cf8ec2")}
+
