@@ -144,7 +144,20 @@ exits nonzero and prints no "ok" line:
                 inter.* stage ms (inter.emit_jobs against inter.walk);
                 then the GOLDEN_WALKS and LO_STREAMS streams under
                 DAV1D_TPU_INTERJOBS=python to their golden md5s
-19. leftovers  - s31, s7 and s21_realistic decoded whole with the
+19. sharded   - the sharded decode (ROADMAP item 10) on meshes of
+                logical shards round-robin over the cards present (every
+                shard on cuda:0 with one card: the cost of sharding, not
+                a scaling result): s31's first 3 temporal units without
+                a mesh and on 2 and 4 shards, each picture on MD5S_S31,
+                every main-path kernel launched, no ipred; untimed walls
+                in turns, stage ms; the mesh streams (MESH_MD5S) at 1,
+                2, 4 and 8 shards on their recorded md5s; on s31 frame 1
+                at 4 shards the sharded deblock, CDEF and LR held to
+                their single-device kernels over every shard's owned
+                columns (torch.equal), itx_sharded_check, and per kernel
+                the launches, device us of a shard launch and the bound
+                over its ext planes' bytes, beside the frame unsharded
+20. leftovers  - s31, s7 and s21_realistic decoded whole with the
                 leftovers forced onto the device (DAV1D_TPU_LO=device)
                 and onto the host (=host): the same pictures, s31 and s7
                 on their recorded md5s, s21_realistic's stream md5 on
@@ -154,14 +167,14 @@ exits nonzero and prints no "ok" line:
                 and unit counts, untimed walls in turns; then the five
                 LO_STREAMS (GOLDEN_DIR) under =device to their golden
                 md5s
-20. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
+21. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
                 grain streams (GOLDEN_DIR, BIG_POST_FILTERS) as the
                 stream phases, their kernel launched; the timed decode
                 with the grain LUTs' memo cold (stage fg.luts)
-21. post_filters - the small super-res and film grain streams
+22. post_filters - the small super-res and film grain streams
                 (POST_FILTERS) decoded on cuda to their golden md5s,
                 each launching its kernel
-22. kernels   - the per-kernel summary line (launches from inter_main,
+23. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame,
@@ -372,6 +385,14 @@ LO_STREAMS = {
         "9cc350126feb60d38acc2a15818765b6",
         "3ed1498a87d35d35e6e920c77b807d2a"],
         "2503f1161c70844b20fd4a8a95cf8ec2")}
+# the mesh streams (tests/torch_port_cases.py MESH_STREAMS, committed
+# under GOLDEN_DIR): dav1d_tpu's single_device_md5 of each, equal to its
+# golden numpy path's (tools/torch_mesh_md5s.py)
+MESH_MD5S = {
+    "mesh-rich-256x128": "e58bd925214ebb07514cf2030a08a6fb",
+    "mesh-inter-256x128": "a994827964462d5ed40d03700766e0ba",
+    "mesh-superres-192x96": "a7dbabe6b32a4b54ff0eeee1492d2f5c",
+}
 KERNELS = ("deblock", "mc_put", "mc_comp", "itx_add", "mc_warp", "mc_obmc",
            "cdef", "lr_wiener", "lr_sgr", "superres", "film_grain", "ipred")
 # the in-loop filter kernels after the deblock; every stream phase's
@@ -1544,11 +1565,12 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
     return res
 
 
-def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0):
+def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
+            mesh=None):
     """Decode `path` (its first n_tu temporal units; keyframes only
-    with frame_type=3; n_threads as Settings takes it) on cuda through
-    the public API; returns (pictures, stream md5, wall ms, stage ms,
-    per-picture md5s)."""
+    with frame_type=3; n_threads as Settings takes it; column-sharded
+    over `mesh` when given) on cuda through the public API; returns
+    (pictures, stream md5, wall ms, stage ms, per-picture md5s)."""
     import torch
     from dav1d_tpu_torch.api import Decoder, Settings
     from dav1d_tpu_torch.bitstream.ivf import IvfReader
@@ -1559,8 +1581,10 @@ def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0):
     timing.ENABLED = timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    settings = Settings(n_threads=n_threads) if frame_type is None else \
-        Settings(decode_frame_type=frame_type, n_threads=n_threads)
+    settings = Settings(n_threads=n_threads, sharding_mesh=mesh) \
+        if frame_type is None else \
+        Settings(decode_frame_type=frame_type, n_threads=n_threads,
+                 sharding_mesh=mesh)
     dec = Decoder(settings)
     mux = Md5Muxer()
     pics, md5s = [], []
@@ -2469,6 +2493,269 @@ def phase_collector(torch, card):
           "equal": True})
 
 
+SHARDED_TU = 3                  # s31's first pictures on the meshes
+SHARDED_COUNTS = (2, 4)         # s31's meshes (None: no mesh, the base)
+MESH_COUNTS = (1, 2, 4, 8)      # the mesh streams' meshes
+SHARDED_PROFILE = 4             # the mesh of the per-launch device times
+# the kernel of each wrapper the sharded path calls, and the bytes of a
+# call's ext planes: each input plane read once, each output written
+# once (int32), the deblock's and CDEF's maps
+_EXT_BYTES = {
+    ("lf", "deblock_frame", "deblock"):
+        lambda e, *_: sum(8 * p.numel() + 4 * v[0].numel()
+                          for p, _l, v, _h in e),
+    ("cdef", "cdef_planes", "cdef"):
+        lambda planes, maps, *_: sum(8 * p.numel() for p in planes) +
+        4 * maps.numel(),
+    ("lr", "wiener_frame", "lr_wiener"):
+        lambda planes, *_: sum(12 * p[0].numel() for p in planes),
+    ("lr", "sgr_frame", "lr_sgr"):
+        lambda planes, *_: sum(12 * p[0].numel() for p in planes),
+    ("mc", "put_planes", "mc_put"):
+        lambda planes, *_: sum(4 * p[1].numel() for p in planes),
+    ("mc_warp", "warp_planes", "mc_warp"):
+        lambda planes, *_: sum(4 * p[1].numel() for p in planes),
+    ("mc", "comp", "mc_comp"): lambda refs, jobs, plane, *_:
+        8 * plane.numel(),
+    ("mc_obmc", "obmc_planes", "mc_obmc"):
+        lambda planes, *_: sum(8 * p[1].numel() for p in planes),
+    ("itx", "itx_add", "itx_add"): lambda pool, jobs, plane, *_:
+        8 * plane.numel(),
+    ("superres", "resize_frame", "superres"):
+        lambda jobs, *_: sum(4 * (j[0].numel() + j[3].numel())
+                             for j in jobs),
+}
+
+
+def _mesh_of(n):
+    """A ("gop", "tile") mesh of n shards round-robin over the cards
+    present (every shard on cuda:0 with one card)."""
+    import numpy as np
+    from dav1d_tpu_torch.parallel.sharded import Mesh, round_robin
+    devs = np.array(round_robin(n, "cuda"), dtype=object)
+    gop = 2 if n % 2 == 0 else 1
+    return Mesh(devs.reshape(gop, n // gop), ("gop", "tile"))
+
+
+class _ExtBytes:
+    """Inside the block, the wrappers of _EXT_BYTES count their calls and
+    their ext planes' bytes per kernel (self.calls, self.bytes)."""
+
+    def __enter__(self):
+        from dav1d_tpu_torch.ops import cdef, itx, lf, lr, mc, mc_obmc, \
+            mc_warp, superres
+        mods = {"lf": lf, "cdef": cdef, "lr": lr, "mc": mc, "itx": itx,
+                "mc_warp": mc_warp, "mc_obmc": mc_obmc,
+                "superres": superres}
+        self.calls, self.bytes, self.saved = {}, {}, []
+        for (m, fn, k), count in _EXT_BYTES.items():
+            orig = getattr(mods[m], fn)
+            self.saved.append((mods[m], fn, orig))
+
+            def wrap(*a, _o=orig, _k=k, _c=count, **kw):
+                self.calls[_k] = self.calls.get(_k, 0) + 1
+                self.bytes[_k] = self.bytes.get(_k, 0) + _c(*a)
+                return _o(*a, **kw)
+            setattr(mods[m], fn, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self.saved:
+            setattr(mod, fn, orig)
+
+
+def _sharded_frame1(torch, mesh):
+    """s31's frame 1 decoded on `mesh` after its keyframe
+    (n_threads=1), under the profiler: per kernel its launches, the
+    median device us of a launch, and the ext bytes of its calls."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from dav1d_tpu_torch.api import Decoder, Settings
+    from dav1d_tpu_torch.bitstream.ivf import IvfReader
+    tus = list(IvfReader(open(os.path.join(ROOT, STREAM_1080P),
+                              "rb").read()))[:2]
+    dec = Decoder(Settings(n_threads=1, sharding_mesh=mesh))
+    dec.send_data(tus[0].data)
+    list(dec.pictures())
+    torch.cuda.synchronize()
+    with _ExtBytes() as eb, profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        dec.send_data(tus[1].data)
+        list(dec.pictures())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dec.close()
+    us, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += e.time_range.elapsed_us()
+        for k, keys in KERNEL_NAMES.items():
+            if any(n in e.name for n in keys):
+                us.setdefault(k, []).append(e.time_range.elapsed_us())
+    out = {}
+    for k, n in eb.calls.items():
+        per = eb.bytes[k] / n
+        out[k] = {"calls": n, "launches": len(us.get(k, [])),
+                  "us": statistics.median(us[k]) if k in us else None,
+                  "ext_bytes_per_call": per,
+                  "bound_us": per / HBM_BYTES_PER_S * 1e6}
+    return {"kernels": out, "device_busy_ms": busy / 1e3,
+            "profiled_wall_ms": wall,
+            "idle_share": 1 - busy / 1e3 / wall if wall else None}
+
+
+def _window_checks(torch, mesh):
+    """s31's frame 1 decoded on `mesh` with the sharded deblock's, CDEF's
+    and LR's inputs and outputs kept; each stage's single-device kernel
+    (ops/lf.py deblock_planes_device, ops/cdef.py cdef_planes_device,
+    ops/lr.py lr_planes_device) run on the gathered inputs, and every
+    shard's output torch.equal to it over its owned columns (shard 0,
+    the interior shards, the last). Returns {stage: shards checked}."""
+    from dav1d_tpu_torch.ops import cdef, lf, lr
+    from dav1d_tpu_torch.parallel.sharded import tile_devices
+    from dav1d_tpu_torch.recon import sharded_stageb as sb
+    names = ("deblock_planes_sharded", "cdef_planes_sharded",
+             "lr_planes_sharded")
+    orig = {k: getattr(sb, k) for k in names}
+    rec = {}
+
+    def spy(name):
+        def fn(*a):
+            out = orig[name](*a)
+            rec[name] = (a, out)        # the last frame's: frame 1
+            return out
+        return fn
+    for k in names:
+        setattr(sb, k, spy(k))
+    try:
+        _decode(STREAM_1080P, timed=False, n_tu=2, n_threads=1, mesh=mesh)
+    finally:
+        for k in names:
+            setattr(sb, k, orig[k])
+    dev = tile_devices(mesh)[0]         # the decode's device
+    out = {}
+    for name, single in (("deblock_planes_sharded",
+                          lambda fl, a: lf.deblock_planes_device(fl, a[1],
+                                                                 a[2])),
+                         ("cdef_planes_sharded",
+                          lambda fl, a: cdef.cdef_planes_device(fl, a[1],
+                                                                a[2])),
+                         ("lr_planes_sharded",
+                          lambda fl, a: lr.lr_planes_device(
+                              fl, [sb.gather(p, f.shape[1], dev)
+                                   for p, f in zip(a[1], fl)], a[2],
+                              a[3]))):
+        if name not in rec:             # the stage is off on this frame
+            continue
+        a, got = rec[name]
+        plan = a[2] if name == "lr_planes_sharded" else a[1]
+        f = plan.f
+        aw = (f.frame_hdr.width[1] + 127) & ~127
+        widths = [aw] + [(aw + f.ss_hor) >> f.ss_hor] * (len(a[0]) - 1)
+        full = [sb.gather(p, w, dev) for p, w in zip(a[0], widths)]
+        want = single(full, a)
+        torch.cuda.synchronize()
+        for pi, (g, w) in enumerate(zip(got, want)):
+            sw = g[0].shape[1]
+            for s, t in enumerate(g):
+                c0, c1 = s * sw, min((s + 1) * sw, w.shape[1])
+                if c1 > c0 and not torch.equal(t[:, :c1 - c0].to(dev),
+                                               w[:, c0:c1]):
+                    raise AssertionError(f"sharded {name} plane {pi} "
+                                         f"shard {s} != one device's")
+        out[name.split("_")[0]] = list(range(len(got[0])))
+    return out, rec["deblock_planes_sharded"][0][1]
+
+
+def phase_sharded(torch, card):
+    """The sharded decode (ROADMAP item 10) on the card: meshes of
+    logical shards, round-robin over the cards present (all on cuda:0
+    with one card), so on one card the cost of sharding, not a scaling
+    result. s31's first SHARDED_TU pictures (full 1920x1080 width)
+    without a mesh and on SHARDED_COUNTS shards, each picture on
+    MD5S_S31, every MAIN_KERNELS kernel launched under the mesh and no
+    ipred launch (the leftovers replay on the host), untimed walls in
+    turns (INTER_REPEATS each, the first round warming), per-stage ms of
+    a synchronized decode; the mesh
+    streams (MESH_MD5S) at MESH_COUNTS shards on their recorded md5s,
+    super-res launched on its stream; on s31 frame 1 at SHARDED_PROFILE
+    shards each sharded filter stage held to its single-device kernel
+    over every shard's owned columns, itx_sharded_check, and per kernel
+    its launches, device us of a launch, and the bound over its ext
+    planes' bytes, with the device's busy ms and idle share, beside the
+    same frame without a mesh."""
+    import statistics
+    from dav1d_tpu_torch.parallel.sharded import itx_sharded_check
+    want = MD5S_S31[:SHARDED_TU]
+    counts = (None,) + SHARDED_COUNTS
+    meshes = {n: None if n is None else _mesh_of(n) for n in counts}
+    walls = {n: [] for n in counts}
+    for r in range(INTER_REPEATS):          # untimed walls, in turns
+        for n in counts if r % 2 == 0 else counts[::-1]:
+            _, _, untimed, _, md5s = _decode(STREAM_1080P, False,
+                                             n_tu=SHARDED_TU, mesh=meshes[n])
+            if md5s != want:
+                raise AssertionError(f"sharded {n}: md5s {md5s} != {want}")
+            walls[n].append(untimed)
+    for n in counts:
+        mesh = meshes[n]
+        _counts_reset()
+        _, _, wall, stages, md5s = _decode(STREAM_1080P, True,
+                                           n_tu=SHARDED_TU, mesh=mesh)
+        launches = _counts()
+        if md5s != want:
+            raise AssertionError(f"sharded {n}: md5s {md5s} != {want}")
+        for k in MAIN_KERNELS:
+            if not launches[k]:
+                raise AssertionError(f"sharded {n}: the {k} kernel never "
+                                     "launched")
+        if launches["ipred"]:
+            raise AssertionError(f"sharded {n}: ipred launched")
+        emit({"phase": "sharded", "card": card, "stream": STREAM_1080P,
+              "shards": n, "mesh": None if mesh is None else
+              [str(d) for d in mesh.devices.reshape(-1)],
+              "label": "one card: the cost of sharding, not scaling",
+              "pictures": len(md5s), "md5s": md5s,
+              "synced_wall_ms": wall,
+              "wall_ms": statistics.median(walls[n]),
+              "walls_ms": walls[n],
+              "stage_ms": {k: v for k, v in stages.items()
+                           if k.startswith(("inter.", "filters.",
+                                            "deblock.", "stage_a",
+                                            "intra."))},
+              "launches": {k: v for k, v in launches.items() if v}})
+    streams = {}
+    for name, md5 in MESH_MD5S.items():
+        path = f"{GOLDEN_DIR}/{name}.ivf"
+        for n in MESH_COUNTS:
+            _counts_reset()
+            _, digest, wall, _, _ = _decode(path, False, n_threads=1,
+                                            mesh=_mesh_of(n))
+            launches = _counts()
+            if digest != md5:
+                raise AssertionError(f"sharded {name} at {n}: {digest} != "
+                                     f"{md5}")
+            if "superres" in name and not launches["superres"]:
+                raise AssertionError(f"sharded {name}: super-res never "
+                                     "launched")
+            streams[f"{name}@{n}"] = {
+                "wall_ms": wall,
+                "launches": {k: v for k, v in launches.items() if v}}
+    mesh = _mesh_of(SHARDED_PROFILE)
+    checked, plan1 = _window_checks(torch, mesh)
+    energy = itx_sharded_check(plan1, 8, mesh)
+    if not energy > 0:
+        raise AssertionError("itx_sharded_check: no residual energy")
+    emit({"phase": "sharded", "card": card, "mesh_streams": streams,
+          "window_checks": checked, "itx_sharded_check_energy": energy,
+          "frame1": _sharded_frame1(torch, mesh),
+          "frame1_no_mesh": _sharded_frame1(torch, None),
+          "frame1_shards": SHARDED_PROFILE})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2519,6 +2806,7 @@ def main():
                  need=MAIN_KERNELS, repeats=INTER_REPEATS, n_tu=2)
     phase_golden_walks(torch)
     phase_collector(torch, card)
+    phase_sharded(torch, card)
     # the leftovers' own path: s31 with DAV1D_TPU_LO=device (the port's
     # default keeps them on the host route)
     lines["ipred"]["launches"] = phase_leftovers(torch, card)

@@ -57,8 +57,9 @@ class Settings:
     logger: object = None      # callable(str); None = stderr; False = off
     allocator: object = None   # Dav1dPicAllocator equivalent — see
                                # recon/picture.py for the contract
-    sharding_mesh: object = None  # multi-device decode: not ported
-                               # yet (ROADMAP item 10); must stay None
+    sharding_mesh: object = None  # parallel.sharded.Mesh: column-shard
+                               # inter Stage B and the filter chain over
+                               # its shards (devices of `device`'s type)
     device: str = "cuda"       # torch device of the pixel pipeline;
                                # "cuda" raises when no card is usable
 

@@ -522,8 +522,11 @@ extern "C" int deblock_blocks_per_sm() {
 extern "C" int deblock_frame(const void *const *ptrs, const int *dims,
                              int n, const void *lut_e, const void *lut_i,
                              int bd, void *stream) {
-    static bool attr = false;
-    if (!attr) {
+    static bool attr[64];               // set per device
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!attr[dev]) {
         cudaFuncSetAttribute(deblock_frame_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
@@ -531,7 +534,7 @@ extern "C" int deblock_frame(const void *const *ptrs, const int *dims,
         cudaFuncSetAttribute(deblock_frame_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
-        attr = true;
+        attr[dev] = true;
     }
     if (n < 1 || n > MAX_PLANES) return (int)cudaErrorInvalidValue;
     Args a = {};

@@ -9,8 +9,10 @@ PyTorch port of dav1d_tpu's decoder.py: key and intra frames
 reconstruct on the host (native engine), inter frames run Stage B on
 the settings' device (recon/inter_device.py), intrabc frames on the
 host (recon/inter_ref.py), and every frame runs the in-loop filter
-chain (super-res among it) and film grain there. The sharding mesh
-raises NotImplementedError naming its ROADMAP item.
+chain (super-res among it) and film grain there. With a sharding mesh
+(Settings.sharding_mesh, a parallel/sharded.py Mesh) inter Stage B and
+the filter chain run column-sharded over its shards
+(recon/sharded_stageb.py).
 """
 from __future__ import annotations
 
@@ -90,9 +92,14 @@ class ObuStreamDecoder:
         self.pipeline = None
         self._tile_pool = None        # lazy Stage-A tile thread pool
         self.device = None
+        self.shard_devices = None       # the mesh's shards, when sharded
         if do_recon:
             from .ops.device import resolve_device
             self.device = resolve_device(self.settings.device)
+            if self.settings.sharding_mesh is not None:
+                from .parallel.sharded import resolve_mesh
+                self.shard_devices = resolve_mesh(
+                    self.settings.sharding_mesh, self.device)
         if do_recon and self.n_threads > 1:
             from .parallel.executor import ReconPipeline
             # one Stage-B frame in flight: the depth that suits the card
@@ -667,6 +674,7 @@ class ObuStreamDecoder:
         if any(peek(s.pic) is pic for s in self.refs):
             return
         pic.dev = None
+        pic.dev_rep = None
 
     def _recon_and_finish_inner(self, plan, refp, fh, seq, key_or_intra):
         from .parallel.executor import resolve
@@ -674,17 +682,22 @@ class ObuStreamDecoder:
             for slot in refp:
                 if slot is not None and hasattr(slot.pic, "result"):
                     slot.pic = resolve(slot.pic)
-        if self.settings.sharding_mesh is not None:
-            raise NotImplementedError(
-                "sharded decode not ported yet: ROADMAP item 10")
-        from .recon.filters import run_filter_chain_device
+        shards = self.shard_devices
         if key_or_intra and not fh.allow_intrabc:
             from .recon.intra import reconstruct_intra_frame
             with timing.phase("intra.frame_recon"):
                 pic = reconstruct_intra_frame(plan)
         elif not key_or_intra:
-            from .recon.inter_device import reconstruct_inter_frame_device
-            pic = reconstruct_inter_frame_device(plan, refp, self.device)
+            if shards is not None:
+                from .recon.sharded_stageb import \
+                    reconstruct_inter_frame_sharded
+                pic = reconstruct_inter_frame_sharded(plan, refp,
+                                                      self.device, shards)
+            else:
+                from .recon.inter_device import \
+                    reconstruct_inter_frame_device
+                pic = reconstruct_inter_frame_device(plan, refp,
+                                                     self.device)
         else:
             # intrabc frames copy from the picture being decoded: an
             # inherently sequential walk (reference recon_tmpl.c:1583),
@@ -692,9 +705,15 @@ class ObuStreamDecoder:
             from .recon.inter_ref import reconstruct_inter_frame
             with timing.phase("intrabc.frame_recon"):
                 pic = reconstruct_inter_frame(plan, refp)
-        pic = run_filter_chain_device(pic, plan,
-                                      self.settings.inloop_filters,
-                                      self.device)
+        ilf = self.settings.inloop_filters
+        if shards is not None:
+            # multi-device: the whole Stage-B pipeline column-sharded
+            from .recon.sharded_stageb import run_filter_chain_sharded
+            pic = run_filter_chain_sharded(pic, plan, ilf, self.device,
+                                           shards)
+        else:
+            from .recon.filters import run_filter_chain_device
+            pic = run_filter_chain_device(pic, plan, ilf, self.device)
         if self.pipeline is None:
             # synchronous decode (bare ObuStreamDecoder): callers read
             # host planes right away. Pipelined decode defers the

@@ -268,25 +268,27 @@ def cdef_planes_plain(planes, maps, Hy, Wy, layout, bd, damping, proj):
 _LIB = []
 
 
+def _set_tables(lib):
+    lib.cdef_set_tables.restype = ct.c_int
+    lib.cdef_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
+    dirs = np.ascontiguousarray(cdef_dirs(), np.int32)
+    uv = np.ascontiguousarray(UV_DIRS, np.int32)
+    if dirs.shape != (12, 2, 2) or uv.shape != (2, 8):
+        raise ValueError(f"CDEF tables of shapes {dirs.shape}, {uv.shape}")
+    rc = lib.cdef_set_tables(dirs.ctypes.data, uv.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"cdef: table upload failed: CUDA error {rc}")
+
+
 def _lib():
+    from .cuda_build import load_library, per_device
     if not _LIB:
-        from .cuda_build import load_library
         lib = load_library("cdef")
-        lib.cdef_set_tables.restype = ct.c_int
-        lib.cdef_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
-        dirs = np.ascontiguousarray(cdef_dirs(), np.int32)
-        uv = np.ascontiguousarray(UV_DIRS, np.int32)
-        if dirs.shape != (12, 2, 2) or uv.shape != (2, 8):
-            raise ValueError(f"CDEF tables of shapes {dirs.shape}, "
-                             f"{uv.shape}")
-        rc = lib.cdef_set_tables(dirs.ctypes.data, uv.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"cdef: table upload failed: CUDA error {rc}")
         lib.cdef_frame.restype = ct.c_int
         lib.cdef_frame.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
                                    ct.c_void_p]
         _LIB.append(lib)
-    return _LIB[0]
+    return per_device(_LIB[0], _set_tables)
 
 
 def check_args(planes, maps, Hy, Wy, layout, bd):

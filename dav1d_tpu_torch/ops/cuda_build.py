@@ -26,6 +26,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
 _LIBS = {}
+_READY = set()      # (library handle id, CUDA device) set up (per_device)
 
 
 def nvcc() -> str:
@@ -125,3 +126,30 @@ def load_library(name: str) -> ct.CDLL:
             build([name])
             lib = _LIBS[name] = ct.CDLL(lib_path(name))
         return lib
+
+
+def per_device(lib, setup):
+    """`lib` after `setup(lib)` (a library's __constant__ tables and
+    kernel attributes, which each CUDA device holds for itself) has run
+    once on the current CUDA device: a wrapper passes its handle
+    through here before each launch."""
+    import torch
+    key = (id(lib), torch.cuda.current_device())
+    if key not in _READY:
+        with _LOCK:
+            if key not in _READY:
+                setup(lib)
+                _READY.add(key)
+    return lib
+
+
+def device_guard(device):
+    """The context in which a wrapper launches on `device`: that CUDA
+    device made current (the libraries launch on the current device's
+    context), or nothing for a CPU device."""
+    import contextlib
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

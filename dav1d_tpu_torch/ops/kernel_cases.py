@@ -1118,3 +1118,20 @@ def ipred_args(case, device):
     return ([torch.from_numpy(p.copy()).to(dev) for p in case["planes"]],
             torch.from_numpy(case["units"]).to(dev),
             torch.from_numpy(case["idx"]).to(dev))
+
+
+def shard_planes(planes, T, device, ss_hor=1):
+    """A case's planes (numpy, luma first, chroma subsampled by ss_hor)
+    column-sharded over T shards all on `device`, as
+    recon/sharded_stageb.py holds a frame's planes: luma bands of the
+    least multiple of 64 columns that covers every plane, chroma bands
+    that >> ss_hor. Returns (the sharded planes, the T devices)."""
+    import torch
+    from ..recon.sharded_stageb import to_sharded
+    sh = [ss_hor if k else 0 for k in range(len(planes))]
+    sw = max(64, max(-(-(p.shape[1] << s) // T // 64) * 64
+                     for p, s in zip(planes, sh)))
+    devices = [torch.device(device)] * T
+    return [to_sharded(np.ascontiguousarray(p, np.int32), T, sw >> s,
+                       devices) for p, s in zip(planes, sh)], devices
+

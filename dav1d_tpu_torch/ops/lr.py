@@ -187,28 +187,30 @@ def _sgr_math(S, s0, s1, w0, w1, hmax, wmax, bd, xbyx):
 _LIBS = {}
 
 
+def _set_sgr_table(lib):
+    from .. import tables
+    xbyx = np.asarray(tables.get("dav1d_sgr_x_by_x"))
+    if xbyx.shape != (256,) or xbyx.min() < 0 or xbyx.max() > 255:
+        raise ValueError("sgr_x_by_x: expected 256 entries in 0..255")
+    xbyx = np.ascontiguousarray(xbyx, np.uint8)
+    lib.lr_sgr_set_table.restype = ct.c_int
+    lib.lr_sgr_set_table.argtypes = [ct.c_void_p]
+    rc = lib.lr_sgr_set_table(xbyx.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"lr_sgr: table upload failed: CUDA error {rc}")
+
+
 def _lib(name):
+    from .cuda_build import load_library, per_device
     lib = _LIBS.get(name)
     if lib is None:
-        from .cuda_build import load_library
         lib = load_library(name)
-        if name == "lr_sgr":
-            from .. import tables
-            xbyx = np.asarray(tables.get("dav1d_sgr_x_by_x"))
-            if xbyx.shape != (256,) or xbyx.min() < 0 or xbyx.max() > 255:
-                raise ValueError("sgr_x_by_x: expected 256 entries in "
-                                 "0..255")
-            xbyx = np.ascontiguousarray(xbyx, np.uint8)
-            lib.lr_sgr_set_table.restype = ct.c_int
-            lib.lr_sgr_set_table.argtypes = [ct.c_void_p]
-            rc = lib.lr_sgr_set_table(xbyx.ctypes.data)
-            if rc != 0:
-                raise RuntimeError(f"lr_sgr: table upload failed: CUDA "
-                                   f"error {rc}")
         fn = getattr(lib, name)
         fn.restype = ct.c_int
         fn.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_void_p]
         _LIBS[name] = lib
+    if name == "lr_sgr":
+        return per_device(lib, _set_sgr_table)
     return lib
 
 

@@ -363,19 +363,22 @@ def comp_plain(refs, jobs, plane, seg, rh, rw, bd, fb, wl16, wl32, luma,
 _LIBS = {}
 
 
+def _set_filters(lib, name):
+    setter = getattr(lib, f"{name}_set_filters")
+    setter.restype = ct.c_int
+    setter.argtypes = [ct.c_void_p]
+    fb = np.ascontiguousarray(filter_banks())
+    rc = setter(fb.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"{name}: filter bank upload failed: CUDA "
+                           f"error {rc}")
+
+
 def _lib(name):
+    from .cuda_build import load_library, per_device
     lib = _LIBS.get(name)
     if lib is None:
-        from .cuda_build import load_library
         lib = load_library(name)
-        setter = getattr(lib, f"{name}_set_filters")
-        setter.restype = ct.c_int
-        setter.argtypes = [ct.c_void_p]
-        fb = np.ascontiguousarray(filter_banks())
-        rc = setter(fb.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"{name}: filter bank upload failed: CUDA "
-                               f"error {rc}")
         fn = getattr(lib, name)
         fn.restype = ct.c_int
         if name == "mc_put":
@@ -408,7 +411,7 @@ def _lib(name):
                         raise RuntimeError("mc_comp: jobs per block of the "
                                            "kernel and of comp_blocks differ")
         _LIBS[name] = lib
-    return lib
+    return per_device(lib, lambda h: _set_filters(h, name))
 
 
 def _check_refs(refs, device, rh, rw):

@@ -128,6 +128,16 @@ plane's puts in one table, and "put_blocks",
             if len(v)}
 
 
+def check_pool(tables, n_pool, n_planes):
+    """Raise when a residual job of _plane_tables' `tables` reads past
+    the coefficient pool of n_pool entries."""
+    for key in itertools.product(("res", "wht"), range(n_planes)):
+        t = tables.get(key)
+        if t is not None and \
+                int((t[:, 5] + itx.CF_LEN[t[:, 0]]).max()) > n_pool:
+            raise ValueError("residual job reads past the coefficient pool")
+
+
 def _upload(tables, pool, device):
     """One host->device copy of every job table and the pool; returns
     ({key: (n, K) view}, pool view)."""
@@ -154,12 +164,7 @@ def execute(recon, jobs):
         refs, lut = recon._ref_planes()
         pool, bases = recon._build_cf_pool()
         tables = _plane_tables(jobs, lut, bases, n_planes)
-        for key in itertools.product(("res", "wht"), range(n_planes)):
-            t = tables.get(key)
-            if t is not None and \
-                    int((t[:, 5] + itx.CF_LEN[t[:, 0]]).max()) > len(pool):
-                raise ValueError("residual job reads past the "
-                                 "coefficient pool")
+        check_pool(tables, len(pool), n_planes)
         # the leftover levels' tables (recon/ipred_device.py) cross in
         # the same copy; their residuals read the same pool
         lo = recon.lo_tables or {}
@@ -173,6 +178,18 @@ def execute(recon, jobs):
                       for p in pic.planes]
         sync_if_timed(dev)
     bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
+    run_passes(T, refs, planes, bounds, pool_d, bd, f.ss_hor, f.ss_ver)
+    recon._finish_device_planes(planes)
+
+
+def run_passes(T, refs, planes, bounds, pool_d, bd, ss_hor, ss_ver):
+    """The frame's passes in order, in place on `planes` (one int32
+    tensor a plane, on one device): T the uploaded tables
+    (_plane_tables' keys), refs per plane its reference planes, bounds
+    per plane its (rh, rw), pool_d the coefficient pool on the
+    device."""
+    dev = planes[0].device
+    n_planes = len(planes)
     per_plane = [(refs[pi], planes[pi], *bounds[pi])
                  for pi in range(n_planes)]
 
@@ -188,13 +205,13 @@ def execute(recon, jobs):
 
     with timing.phase("inter.comps"):
         seg = None
-        if n_planes > 1 and len(jobs["comp"]):
+        if n_planes > 1 and any(("comp", pi) in T for pi in range(n_planes)):
             seg = torch.zeros(planes[-1].shape, dtype=torch.int32,
                               device=dev)
         for pi in range(n_planes):        # luma (seg producer) first
             if ("comp", pi) in T:
                 mc.comp(refs[pi], T["comp", pi], planes[pi], seg,
-                        *bounds[pi], bd, pi == 0, f.ss_hor, f.ss_ver,
+                        *bounds[pi], bd, pi == 0, ss_hor, ss_ver,
                         blocks=T["comp_blocks", pi])
         sync_if_timed(dev)
 
@@ -212,4 +229,3 @@ def execute(recon, jobs):
             if ("wht", pi) in T:
                 itx.itx_add(pool_d, T["wht", pi], planes[pi], bd, wht=True)
         sync_if_timed(dev)
-    recon._finish_device_planes(planes)

@@ -145,20 +145,23 @@ def check_geometry(jobs, top):
 _LIB = []
 
 
+def _set_tables(lib):
+    lib.mc_obmc_set_tables.restype = ct.c_int
+    lib.mc_obmc_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
+    fb = np.ascontiguousarray(mc.filter_banks(), np.int32)
+    om = np.ascontiguousarray(obmc_masks(), np.int32)
+    if om.shape != (MAX_DIM,):
+        raise ValueError(f"OBMC masks of shape {om.shape}")
+    rc = lib.mc_obmc_set_tables(fb.ctypes.data, om.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"mc_obmc: table upload failed: CUDA error "
+                           f"{rc}")
+
+
 def _lib():
+    from .cuda_build import load_library, per_device
     if not _LIB:
-        from .cuda_build import load_library
         lib = load_library("mc_obmc")
-        lib.mc_obmc_set_tables.restype = ct.c_int
-        lib.mc_obmc_set_tables.argtypes = [ct.c_void_p, ct.c_void_p]
-        fb = np.ascontiguousarray(mc.filter_banks(), np.int32)
-        om = np.ascontiguousarray(obmc_masks(), np.int32)
-        if om.shape != (MAX_DIM,):
-            raise ValueError(f"OBMC masks of shape {om.shape}")
-        rc = lib.mc_obmc_set_tables(fb.ctypes.data, om.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"mc_obmc: table upload failed: CUDA error "
-                               f"{rc}")
         lib.mc_obmc.restype = ct.c_int
         lib.mc_obmc.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
                                 ct.c_void_p, ct.c_int, ct.c_void_p,
@@ -168,7 +171,7 @@ def _lib():
         lib.mc_obmc_grid.restype = ct.c_int
         lib.mc_obmc_grid.argtypes = [ct.c_int, ct.c_int]
         _LIB.append(lib)
-    return _LIB[0]
+    return per_device(_LIB[0], _set_tables)
 
 
 def obmc_cuda(planes, top, left, bd):

@@ -81,27 +81,30 @@ def warp_planes_plain(planes, jobs, bd, wf):
 _LIB = []
 
 
+def _set_filter(lib):
+    lib.mc_warp_set_filter.restype = ct.c_int
+    lib.mc_warp_set_filter.argtypes = [ct.c_void_p]
+    wf = np.asarray(_warp_filter())
+    if wf.shape != (N_ROWS, 8) or wf.min() < -128 or wf.max() > 127:
+        raise ValueError("the warp filter is not a (193, 8) bank of "
+                         "int8 taps")
+    wf = np.ascontiguousarray(wf, np.int8)
+    rc = lib.mc_warp_set_filter(wf.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"mc_warp: filter upload failed: CUDA "
+                           f"error {rc}")
+
+
 def _lib():
+    from .cuda_build import load_library, per_device
     if not _LIB:
-        from .cuda_build import load_library
         lib = load_library("mc_warp")
-        lib.mc_warp_set_filter.restype = ct.c_int
-        lib.mc_warp_set_filter.argtypes = [ct.c_void_p]
-        wf = np.asarray(_warp_filter())
-        if wf.shape != (N_ROWS, 8) or wf.min() < -128 or wf.max() > 127:
-            raise ValueError("the warp filter is not a (193, 8) bank of "
-                             "int8 taps")
-        wf = np.ascontiguousarray(wf, np.int8)
-        rc = lib.mc_warp_set_filter(wf.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"mc_warp: filter upload failed: CUDA "
-                               f"error {rc}")
         lib.mc_warp.restype = ct.c_int
         lib.mc_warp.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
                                 ct.c_void_p, ct.c_int, ct.c_int,
                                 ct.c_void_p]
         _LIB.append(lib)
-    return _LIB[0]
+    return per_device(_LIB[0], _set_filter)
 
 
 def warp_cuda(planes, jobs, bd):

@@ -124,28 +124,31 @@ def check_jobs(jobs):
 _LIB = []
 
 
+def _set_filter(lib):
+    lib.superres_set_filter.restype = ct.c_int
+    lib.superres_set_filter.argtypes = [ct.c_void_p]
+    bank = np.asarray(_resize_filter())
+    if bank.shape != (64, 8) or bank.min() < -128 or bank.max() > 127:
+        raise ValueError("the resize filter is not a (64, 8) bank of "
+                         "int8 taps")
+    bank = np.ascontiguousarray(bank, np.int8)
+    rc = lib.superres_set_filter(bank.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"superres: filter upload failed: CUDA "
+                           f"error {rc}")
+
+
 def _lib():
+    from .cuda_build import load_library, per_device
     if not _LIB:
-        from .cuda_build import load_library
         lib = load_library("superres")
-        lib.superres_set_filter.restype = ct.c_int
-        lib.superres_set_filter.argtypes = [ct.c_void_p]
-        bank = np.asarray(_resize_filter())
-        if bank.shape != (64, 8) or bank.min() < -128 or bank.max() > 127:
-            raise ValueError("the resize filter is not a (64, 8) bank of "
-                             "int8 taps")
-        bank = np.ascontiguousarray(bank, np.int8)
-        rc = lib.superres_set_filter(bank.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"superres: filter upload failed: CUDA "
-                               f"error {rc}")
         lib.superres_occupancy.restype = ct.c_int
         lib.superres_occupancy.argtypes = [ct.c_void_p, ct.c_void_p]
         lib.superres.restype = ct.c_int
         lib.superres.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
                                  ct.c_int, ct.c_void_p]
         _LIB.append(lib)
-    return _LIB[0]
+    return per_device(_LIB[0], _set_filter)
 
 
 def resize_frame_cuda(jobs, bd):

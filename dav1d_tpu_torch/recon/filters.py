@@ -21,23 +21,30 @@ from ..ops.device import queue_plane_fetch, sync_if_timed, upload_planes
 from ..utils import timing
 
 
-def run_filter_chain_device(pic, plan, inloop_filters, device):
-    """Apply the enabled in-loop filters on `device`; the final
-    picture's host planes become current at its first host consumer.
-    Returns the final Picture: on a super-res frame a new one of the
-    output width (pic's device planes are dropped), else pic."""
+def enabled_stages(plan, inloop_filters):
+    """(deblock, CDEF, super-res, LR): whether each stage runs on this
+    frame under the Settings' inloop_filters mask."""
     f = plan.f
     fh = f.frame_hdr
     lflf = fh.loopfilter
     do_deblock = bool(inloop_filters & 1) and \
-        (lflf.level_y[0] or lflf.level_y[1])
+        bool(lflf.level_y[0] or lflf.level_y[1])
     cd = fh.cdef
-    do_cdef = bool(inloop_filters & 2) and f.seq_hdr.cdef and \
+    do_cdef = bool(inloop_filters & 2) and bool(f.seq_hdr.cdef) and \
         any(cd.y_strength[i] or cd.uv_strength[i]
             for i in range(1 << cd.n_bits))
     do_sr = fh.width[0] != fh.width[1]
     do_lr = bool(inloop_filters & 4) and \
         any(t != 0 for t in fh.restoration.type)
+    return do_deblock, do_cdef, do_sr, do_lr
+
+
+def run_filter_chain_device(pic, plan, inloop_filters, device):
+    """Apply the enabled in-loop filters on `device`; the final
+    picture's host planes become current at its first host consumer.
+    Returns the final Picture: on a super-res frame a new one of the
+    output width (pic's device planes are dropped), else pic."""
+    do_deblock, do_cdef, do_sr, do_lr = enabled_stages(plan, inloop_filters)
     if not (do_deblock or do_cdef or do_sr or do_lr):
         if pic.dev is not None:     # an inter frame: fetch its planes
             _keep_and_fetch(pic, pic.dev)

@@ -635,8 +635,15 @@ def reconstruct_inter_frame_device(plan, refp, device):
     tables, or the Python collector walk for a frame it does not serve;
     returns the Picture with its planes on the device (`pic.dev`), or
     on the host when no block ran on the device."""
+    return reconstruct_with(DeviceInterReconstructor(plan, refp, device))
+
+
+def reconstruct_with(r):
+    """Stage B of r's frame (r: a DeviceInterReconstructor): the native
+    emitter's tables through r.run_native, or the collector walk
+    (r.run) for a frame the emitter does not serve."""
     from . import inter_jobs_native
-    r = DeviceInterReconstructor(plan, refp, device)
+    plan = r.plan
     jobs = None
     if r._fused_res:
         with timing.phase("inter.emit_jobs"):

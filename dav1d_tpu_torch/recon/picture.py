@@ -44,7 +44,8 @@ class Picture:
                  "ss_hor", "ss_ver", "content_light", "mastering_display",
                  "itut_t35", "seq_hdr", "frame_hdr", "props",
                  "allocator", "allocator_data", "dev", "host_stale",
-                 "pending_fetch", "dev_grid", "dev_c", "dev_mcpad")
+                 "pending_fetch", "dev_grid", "dev_c", "dev_mcpad",
+                 "dev_rep")
 
     _NAMES = {0: "I400", 1: "I420", 2: "I422", 3: "I444"}
 
@@ -72,9 +73,12 @@ class Picture:
         # recon and the output fetch).
         self.dev = None
         self.host_stale = False
-        # sharded decode: dev arrays live on the multi-chip shard grid
-        # (column-sharded, shard-width padded) rather than plane-shaped
+        # sharded decode: dev holds, per plane, the column-sharded
+        # shard-width planes (recon/sharded_stageb.py) rather than
+        # plane-shaped tensors; dev_rep the reference planes' copies on
+        # the mesh's other devices ({torch.device: planes})
         self.dev_grid = False
+        self.dev_rep = None
         self.dev_c = None
         self.dev_mcpad = None
         # in-flight device->host transfer (down-cast device arrays with
@@ -132,6 +136,7 @@ class Picture:
             self.allocator.release_picture_data(self)
         self.planes = []
         self.dev = None
+        self.dev_rep = None
         self.dev_c = None
         self.dev_mcpad = None
 

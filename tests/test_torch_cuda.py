@@ -26,7 +26,10 @@ every family and geometry over every plane in one launch, units cut by
 the plane edges, bd 8/10/12, every layout) and two small leftover
 streams decoded on the card to their golden md5s; a golden-walk stream
 on the Python collector walk (DAV1D_TPU_INTERJOBS=python) to its golden
-md5s. Marked `cuda`: it
+md5s; the sharded decode (the mesh streams on 2 and 4 shards of the
+card to dav1d_tpu's md5s; the CDEF, Wiener, SGR and deblock kernels on
+shard windows against the same kernels on the whole planes). Marked
+`cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
 
@@ -860,3 +863,85 @@ def test_collector_walk_on_cuda(cuda, monkeypatch):
             md5s.append(m.digest())
     dec.close()
     assert md5s == chip_smoke.GOLDEN_WALKS["gmv-compound"][0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_decode_on_cuda(cuda, n):
+    # the mesh streams column-sharded over n shards of the card (every
+    # kernel of the inter and filter passes run on shard windows), to
+    # dav1d_tpu's recorded md5s
+    import os
+    import chip_smoke
+    from dav1d_tpu_torch.parallel.sharded import Mesh, sharded_decode_md5
+    for name, md5 in chip_smoke.MESH_MD5S.items():
+        path = os.path.join(chip_smoke.ROOT, chip_smoke.GOLDEN_DIR,
+                            f"{name}.ivf")
+        got = sharded_decode_md5(open(path, "rb").read(), Mesh([cuda] * n))
+        assert got == md5, name
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_shard_windows_on_cuda(cuda, n):
+    # the CDEF, Wiener, SGR and deblock kernels on shard windows, the
+    # last shards padding, against the same kernel on the whole planes
+    from dav1d_tpu_torch.ops import cdef, kernel_cases as kc, lr
+    from dav1d_tpu_torch.ops.restore_ref import _sgr_params_tbl
+    from dav1d_tpu_torch.parallel import sharded
+    from dav1d_tpu_torch.recon import sharded_stageb as sb
+    case = kc.cdef_case_at(10, 1, 1)
+    args = (case["maps"], case["Hy"], case["Wy"], 1, case["bd"],
+            case["damping"])
+    want = cdef.cdef_cuda([torch.from_numpy(p).to(cuda)
+                           for p in case["planes"]],
+                          torch.from_numpy(args[0]).to(cuda), *args[1:])
+    planes, devs = kc.shard_planes(case["planes"], n, cuda)
+    for g, w in zip(sb.cdef_shards(planes, *args, devs), want):
+        assert torch.equal(sb.gather(g, w.shape[1], cuda), w)
+    for kind in ("wiener", "sgr"):
+        fc = kc.frame_case(12, 1, kind)
+        groups = [(p, pl["w"], pl["hmax"], None,
+                   {k: [it for it in pl["items"]
+                        if (it[5]["type"] == 2) == (k == "wiener")]
+                    for k in ("wiener", "sgr")})
+                  for p, pl in enumerate(fc["planes"])]
+        cur = [torch.from_numpy(pl["cur"]).to(cuda) for pl in fc["planes"]]
+        pre = [torch.from_numpy(pl["pre"]).to(cuda) for pl in fc["planes"]]
+        want = [c.clone() for c in cur]
+        for k, run in (("wiener", lr.wiener_frame_cuda),
+                       ("sgr", lr.sgr_frame_cuda)):
+            sel = [(p, w, hmax, kinds[k]) for p, w, hmax, _, kinds in groups
+                   if kinds[k]]
+            run([(cur[p], pre[p], want[p], w, hmax)
+                 for p, w, hmax, _ in sel],
+                lr.frame_tables(k, [(items, hmax, cur[p].shape[0])
+                                    for p, _, hmax, items in sel],
+                                _sgr_params_tbl()), fc["bd"])
+        cur_s, devs = kc.shard_planes([pl["cur"] for pl in fc["planes"]], n,
+                                      cuda)
+        pre_s, _ = kc.shard_planes([pl["pre"] for pl in fc["planes"]], n,
+                                   cuda)
+        for g, w in zip(sb.lr_shards(cur_s, pre_s, groups, fc["bd"], devs),
+                        want):
+            assert torch.equal(sb.gather(g, w.shape[1], cuda), w)
+    plane, vm, hm = _shard_deblock_inputs()
+    lut_e, lut_i = calc_eih(3)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    want = lf.deblock_frame_cuda(
+        [(T(plane), True, (T(vm[0]), T(vm[1])), (T(hm[0]), T(hm[1])))],
+        T(lut_e.astype(np.int32)), T(lut_i.astype(np.int32)), 10)[0]
+    got = sharded._shard_plane_deblock(
+        sharded.Mesh([cuda] * n), plane, vm, hm, lut_e, lut_i, 10, True)
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+def _shard_deblock_inputs():
+    rng = np.random.default_rng(14)
+    h4, w4 = 16, 100
+    plane = rng.integers(0, 1 << 10, (4 * h4, 4 * w4)).astype(np.int32)
+    flat = np.repeat(np.repeat(rng.random((h4, w4)) < 0.5, 4, 0), 4, 1)
+    plane = np.where(flat, (plane >> 4) + 512, plane).astype(np.int32)
+
+    def maps():
+        return (rng.integers(-1, 3, (h4, w4)).astype(np.int8),
+                rng.integers(0, 64, (h4, w4)).astype(np.uint8))
+    return plane, maps(), maps()

@@ -46,3 +46,14 @@ def test_port_has_no_importlib_escape():
     for path in _sources():
         src = open(path).read()
         assert "importlib" not in src, path
+
+
+def test_sharded_modules_are_checked():
+    """The sharded decode's modules (ROADMAP item 10) are among the
+    sources the import rule walks."""
+    rel = {os.path.relpath(p, ROOT) for p in _sources()}
+    for path in ("dav1d_tpu_torch/parallel/sharded.py",
+                 "dav1d_tpu_torch/recon/sharded_stageb.py"):
+        assert path in rel
+        assert not _imported_roots(os.path.join(ROOT, path)) & \
+            {"jax", "jaxlib", "dav1d_tpu"}

@@ -712,6 +712,47 @@ def write_lo_streams():
             fh.write(lo_stream(name))
 
 
+# the mesh streams (ROADMAP item 10): tests/test_multichip.py's RICH
+# stream (256x128, 2x2 tiles, every inter tool, the full filter chain;
+# every inter frame has intra leftovers, so its planes come back to the
+# host), the same with 128x128 superblocks and without intra or
+# interintra blocks (its inter frames' planes stay on the shards into
+# the filter chain; at 8 shards of 64 columns its 128-wide blocks
+# straddle the bands, so their jobs reach into the MC apron) and
+# test_multichip's
+# super-res stream (192x96, denominator 12), committed under
+# GOLDEN_DIR (write_mesh_streams); tools/torch_mesh_md5s.py records
+# dav1d_tpu's single_device_md5 and golden md5 of each (chip_smoke.py
+# MESH_MD5S)
+MESH_STREAMS = {
+    "mesh-rich-256x128": (256, 128, dict(
+        n_frames=4, seed=5, tile_log2_cols=1, tile_log2_rows=1,
+        warped_motion=1, switchable_motion_mode=1, jnt_comp=1,
+        inter_intra=1, masked_compound=1, allow_skip_mode=1,
+        lf_levels=(32, 32, 20, 20),
+        cdef_params=(2, 1, [9, 25], [5, 13]), lr_types=(1, 2, 2))),
+    "mesh-inter-256x128": (256, 128, dict(
+        n_frames=4, seed=5, tile_log2_cols=1, tile_log2_rows=1, sb128=1,
+        warped_motion=1, switchable_motion_mode=1, jnt_comp=1,
+        masked_compound=1, allow_skip_mode=1, intra_prob=0.0,
+        lf_levels=(32, 32, 20, 20),
+        cdef_params=(2, 1, [9, 25], [5, 13]), lr_types=(1, 2, 2))),
+    "mesh-superres-192x96": (192, 96, dict(
+        n_frames=3, seed=9, superres_denom=12,
+        lf_levels=(24, 24, 12, 12), lr_types=(1, 1, 1))),
+}
+
+
+def write_mesh_streams():
+    """Write every MESH_STREAMS stream to GOLDEN_DIR/<name>.ivf:
+    python -c 'import sys; sys.path[:0] = ["tests", "."];
+    import torch_port_cases as c; c.write_mesh_streams()'"""
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for name, (w, h, cfg) in MESH_STREAMS.items():
+        with open(os.path.join(GOLDEN_DIR, f"{name}.ivf"), "wb") as fh:
+            fh.write(generate_stream(w, h, **cfg)[0])
+
+
 # the golden md5s of the GOLDEN_WALKS and LO_STREAMS streams committed
 # under GOLDEN_DIR, as chip_smoke.py holds them (dav1d_tpu's golden
 # numpy path: DAV1D_TPU_BACKEND=numpy, Settings(n_threads=1),
