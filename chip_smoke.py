@@ -77,16 +77,20 @@ exits nonzero and prints no "ok" line:
                 columns, planes padded to 4 columns whose last super-res
                 tile or grain unit the plane cuts, sources narrower than
                 a staged span), and the persistent grids' blocks a SM
-9. kernel_ipred - the intra-leftover kernel against level_plain
-                (torch.equal) on every ops/kernel_cases.py ipred_case
-                (bd 8/10/12; 4:2:0, 4:2:2, 4:4:4, monochrome; every
-                family at every geometry 4..64 it takes over every plane
-                in one launch; units cut by the plane's right and bottom
-                edges; constant fills and tlf); then every level of the
-                first inter frame of s31 and of s7 with the leftovers
-                forced onto the device, each launch on its captured
-                planes: torch.equal, device us per level and a frame,
-                the plain version's ms, the bound
+9. kernel_ipred - the intra-leftover frame kernel against plan_plain
+                (torch.equal), one launch a plan: every
+                ops/kernel_cases.py ipred_case as a one-level plan (bd
+                8/10/12; 4:2:0, 4:2:2, 4:4:4, monochrome; every family at
+                every geometry 4..64 it takes over every plane; units cut
+                by the plane's right and bottom edges; edges from the
+                availability walk, constant fills and tlf) and every
+                plan_case (three levels with residuals and WHT jobs);
+                the ptxas registers, blocks a SM and shared bytes; then
+                the whole plan of the first inter frame of s31 and of s7
+                with the leftovers forced onto the device, on its
+                captured planes: torch.equal, the launch's device us,
+                the plain version's ms, the bound, the grid, the levels,
+                units, residual jobs and grid barriers
 10. kernel_real- the first 2 temporal units of the s7 stream, then of the
                 s33 stream and of the s31 stream, decoded on cuda with
                 every launch of the inter frame checked against the
@@ -154,19 +158,23 @@ exits nonzero and prints no "ok" line:
                 2, 4 and 8 shards on their recorded md5s; on s31 frame 1
                 at 4 shards the sharded deblock, CDEF and LR held to
                 their single-device kernels over every shard's owned
-                columns (torch.equal), itx_sharded_check, and per kernel
-                the launches, device us of a shard launch and the bound
-                over its ext planes' bytes, beside the frame unsharded
+                columns (torch.equal), itx_sharded_check and its bound,
+                and per kernel the launches, device us of a shard launch
+                and the bound over its ext planes' bytes, beside the
+                frame unsharded
 20. leftovers  - s31, s7 and s21_realistic decoded whole with the
                 leftovers forced onto the device (DAV1D_TPU_LO=device)
                 and onto the host (=host): the same pictures, s31 and s7
                 on their recorded md5s, s21_realistic's stream md5 on
                 its recorded prefix; on the device route the ipred
                 kernel launched, no fallback, no row fetched back; per
-                frame both routes' stage ms beside the leftover, level
-                and unit counts, untimed walls in turns; then the five
-                LO_STREAMS (GOLDEN_DIR) under =device to their golden
-                md5s
+                frame both routes' stage ms (inter.lo_build,
+                inter.lo_device against the host route's fetch, replay
+                and upload) and bytes crossing (the plan's tables in the
+                upload, the rows fetched and uploaded) beside the
+                leftover, level and unit counts, untimed walls in
+                turns; then the five LO_STREAMS (GOLDEN_DIR) under
+                =device to their golden md5s
 21. sr-1080p, fg-1080p, fg-1080p-10b - the 1080p super-res and film
                 grain streams (GOLDEN_DIR, BIG_POST_FILTERS) as the
                 stream phases, their kernel launched; the timed decode
@@ -181,7 +189,7 @@ exits nonzero and prints no "ok" line:
                 super-res's and film grain's from their 1080p cases of
                 kernel_superres_grain; ipred's launches from s31's
                 device-route decode in leftovers, its times from s31
-                frame 1 in kernel_ipred)
+                frame 1's plan in kernel_ipred)
 
 then the card's name and power limit, and the final {"ok": true, ...}
 line.
@@ -413,7 +421,7 @@ KERNEL_NAMES = {"deblock": ("deblock_",), "mc_put": ("mc_put_kernel",),
                 "lr_sgr": ("lr_sgr_kernel",),
                 "superres": ("superres_kernel",),
                 "film_grain": ("film_grain_kernel",),
-                "ipred": ("ipred_kernel",)}
+                "ipred": ("ipred_frame_kernel",)}
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 33.5e12       # half the 67 TFLOP/s fp32 non-tensor rate
@@ -479,13 +487,14 @@ def phase_build():
     t_make = time.perf_counter() - t0
     if make.returncode != 0:
         raise RuntimeError(f"make -C native failed:\n{out}{err}")
-    ptxas = [ln.strip() for n in built for ln in
-             built[n]["ptxas"].splitlines()
-             if "registers" in ln or "entry function" in ln or
-             "stack frame" in ln]
+    ptxas = {n: [ln.strip() for ln in built[n]["ptxas"].splitlines()
+                 if "registers" in ln or "entry function" in ln or
+                 "stack frame" in ln] for n in built}
     emit({"phase": "build", "native_make_s": t_make,
           "cuda_s": {n: built[n]["seconds"] for n in built},
-          "cuda_wall_s": t_cuda, "ptxas": ptxas})
+          "cuda_wall_s": t_cuda, "ptxas": [ln for n in built
+                                           for ln in ptxas[n]]})
+    return ptxas
 
 
 def _lf_inputs(rng, h4, w4, bd):
@@ -2144,25 +2153,29 @@ def _lo_env(mode):
     return mock.patch.dict(os.environ, {"DAV1D_TPU_LO": mode})
 
 
-def _ipred_work(units, idx, shapes, ss_hor, ss_ver):
-    """(bytes, ops) of one level: units (n, NCOL) and idx (m, 321)
-    numpy, shapes each plane's (H, W). Per unit its row, the index
-    entries its family's arithmetic reads, one pixel for each of those
-    entries that names a pixel of its plane (one of the four constants
-    reads no memory), a CFL unit's luma rect and its outputs inside the
-    plane, all int32. The entries read (top C + 1 .., left C - 1 ..,
-    corner C): DC w + h, TOP_DC and V w, LEFT_DC and H h, DC_128 none
-    (CFL the same by its DC mode); Paeth, filter-intra and Z2 w + h and
-    the corner; smooth w + h (its right and bottom are the edges' last),
-    smooth V w and the bottom, smooth H h and the right; Z1 w + min(w, h)
-    of the top (Z3 h + min(w, h) of the left), and the corner when
-    filtered or upsampled. For Z1, Z2 and Z3 that is the span their
-    edge filter and upsampling read; a steep angle's interpolation
-    alone reaches fewer."""
+def _ipred_work(tables, shapes, ss_hor, ss_ver):
+    """(bytes, ops) of a frame's leftover plan: tables the numpy frame
+    tables (ops/ipred.py pack_plan), shapes each plane's (H, W). Bytes,
+    all int32: every table entry (units, runs, levels, residual and
+    block rows, WHT rows) read once; per unit the pixels of its plane
+    that the entries its family's arithmetic uses name (a constant reads
+    no memory), a CFL unit's luma rect, its outputs inside the plane
+    written once (a residual lands on them: no further pixel traffic);
+    per residual job its coefficients. The entries used (top C + 1 ..,
+    left C - 1 .., corner C): DC w + h, TOP_DC and V w, LEFT_DC and H h,
+    DC_128 none (CFL the same by its DC mode); Paeth, filter-intra and
+    Z2 w + h and the corner; smooth w + h (its right and bottom are the
+    edges' last), smooth V w and the bottom, smooth H h and the right;
+    Z1 w + min(w, h) of the top (Z3 h + min(w, h) of the left), and the
+    corner when filtered or upsampled. For Z1, Z2 and Z3 that is the
+    span their edge filter and upsampling read; a steep angle's
+    interpolation alone reaches fewer. Ops: IPRED_OPS_PER_PX an output
+    and the residuals' transform ops (_itx_work)."""
     import numpy as np
     from dav1d_tpu_torch.ops import ipred
     from dav1d_tpu_torch.ops import ipred_ref as r
-    u = units.astype(np.int64)
+    from dav1d_tpu_torch.ops.itx import CF_LEN
+    u = tables["units"].astype(np.int64)
     fam, w, h, mode = u[:, 1], u[:, 2], u[:, 3], u[:, 8]
     s = fam == ipred.FAM_S
     z1, z3 = fam == ipred.FAM_Z1, fam == ipred.FAM_Z3
@@ -2185,113 +2198,150 @@ def _ipred_work(units, idx, shapes, ss_hor, ss_ver):
         ((k == -h[:, None]) & (s & (mode == r.SMOOTH_V_PRED))[:, None])
     H, W = (np.array([sh[i] for sh in shapes], np.int64)[u[:, 0]]
             for i in (0, 1))
-    q = idx[u[:, 7]].astype(np.int64)
-    pixel = read & (q >= 0) & (q < (H * W)[:, None])
+    q = ipred.run_indices(tables["runs"][u[:, 7]], H * W)
+    pixel = read & (q < (H * W)[:, None])
     luma = np.where(fam == ipred.FAM_CFL,
                     (u[:, 10] << ss_ver) * (u[:, 11] << ss_hor), 0)
     out = np.clip(W - u[:, 5], 0, w) * np.clip(H - u[:, 4], 0, h)
-    return (int(4 * (ipred.NCOL * len(u) + read.sum() + pixel.sum() +
-                     luma.sum() + out.sum())),
-            int(IPRED_OPS_PER_PX * (w * h).sum()))
+    res, wht = tables["res"], tables["wht"]
+    coefs = int(CF_LEN[res[:, 0]].sum()) + 16 * len(wht)
+    ops = IPRED_OPS_PER_PX * int((w * h).sum())
+    for jobs, is_wht in ((res, False), (wht[:, :6], True)):
+        if len(jobs):
+            ops += _itx_work(jobs, is_wht)[1]
+    return (int(4 * (sum(t.size for t in tables.values()) + pixel.sum() +
+                     luma.sum() + out.sum() + coefs)), int(ops))
 
 
-def _ipred_levels(path):
+def _ipred_plans(path):
     """The first inter frame of `path` (2 temporal units) decoded on
-    cuda with its leftovers forced onto the device: per ipred launch,
-    (the planes before the level, units, idx, bd, ss_hor, ss_ver) as
-    device copies."""
+    cuda with its leftovers forced onto the device: per ipred_plan call,
+    (the planes before it (device copies), its tables and pool (the
+    frame upload's device views), bd, ss_hor, ss_ver)."""
     from dav1d_tpu_torch.ops import ipred
-    levels = []
-    orig = ipred.ipred_level
+    plans = []
+    orig = ipred.ipred_plan
 
-    def spy(planes, units, idx, *args):
-        levels.append(([p.clone() for p in planes], units.clone(),
-                       idx.clone()) + args)
-        return orig(planes, units, idx, *args)
-    ipred.ipred_level = spy
+    def spy(planes, tables, pool, *args):
+        plans.append(([p.clone() for p in planes], dict(tables), pool) +
+                     args)
+        return orig(planes, tables, pool, *args)
+    ipred.ipred_plan = spy
     try:
         with _lo_env("device"):
             _decode(path, timed=False, n_tu=2)
     finally:
-        ipred.ipred_level = orig
-    return levels
+        ipred.ipred_plan = orig
+    return plans
 
 
-def phase_kernel_ipred(torch, card):
-    """The intra-leftover kernel against level_plain (torch.equal): every
-    ops/kernel_cases.py ipred_case (bd 8/10/12; 4:2:0, 4:2:2, 4:4:4 and
-    monochrome; every family at every geometry it takes, 4..64, over
-    every plane in one launch; units cut by the plane's right and bottom
-    edges; the constant fills and tlf); then every level of the first
-    inter frame of s31 and of s7 with the leftovers forced onto the
-    device, each launch on its captured planes (kernel and plain on the
-    card), with its device us (_launch_us, a level at a time: s31's over
-    MAIN_ROUNDS traces), the frame's, the plain version's ms and the
-    bound. Returns the kernels-line numbers (s31's frame)."""
-    import numpy as np
+def _ptxas_summary(lines):
+    """{kernel instantiation: "N registers, ..."} from nvcc's -Xptxas -v
+    lines of one library (None when it was not built in this run)."""
+    if not lines:
+        return None
+    out, name = {}, None
+    for ln in lines:
+        if "entry function" in ln:
+            name = ln.split("'")[1]
+        elif "registers" in ln and name:
+            out[name] = ln.split(":", 1)[1].strip()
+    return out
+
+
+def phase_kernel_ipred(torch, card, ptxas=None):
+    """The intra-leftover frame kernel against plan_plain (torch.equal):
+    every ops/kernel_cases.py ipred_case as a one-level plan (bd 8/10/12;
+    4:2:0, 4:2:2, 4:4:4 and monochrome; every family at every geometry
+    it takes, 4..64, over every plane; units cut by the plane's right
+    and bottom edges; edges from the availability walk, the constant
+    fills and tlf) and every plan_case (three levels with residuals and
+    WHT jobs between them, bd 8/10/12), each in one launch; then the
+    whole plan of the first inter frame of s31 and of s7 with the
+    leftovers forced onto the device, kernel and plain on the card on
+    the captured planes, with its device us (_launch_us, the whole
+    frame's launch: s31's over MAIN_ROUNDS traces), the plain version's
+    ms, the bound, the grid, blocks a SM, dynamic shared bytes and the
+    ptxas registers (`ptxas`: phase_build's lines for ipred). Returns
+    the kernels-line numbers (s31's frame)."""
     from dav1d_tpu_torch.ops import ipred
     from dav1d_tpu_torch.ops import kernel_cases as kc
     dev = torch.device("cuda")
     err = n_units = 0
-    for case in kc.ipred_cases():
+    cases = kc.ipred_cases() + kc.plan_cases()
+    for case in cases:
         args = (case["bd"], case["ss_hor"], case["ss_ver"])
-        got, units, idx = kc.ipred_args(case, dev)
+        got, tables, pool = kc.plan_args(case, dev)
         want = [p.clone() for p in got]
-        ipred.level_cuda(got, units, idx, *args)
-        ipred.level_plain(want, units, idx, *args)
+        before = ipred.LAUNCHES["ipred"]
+        ipred.plan_cuda(got, tables, pool, *args)
+        if ipred.LAUNCHES["ipred"] != before + 1:
+            raise AssertionError("kernel_ipred: not one launch a plan")
+        ipred.plan_plain(want, tables, pool, *args)
         torch.cuda.synchronize()
         for pi, (a, b) in enumerate(zip(got, want)):
             err = max(err, _check_equal(torch, a, b, f"ipred bd={args[0]} "
-                                        f"ss={args[1:]} plane {pi}"))
-        n_units += len(units)
-    emit({"phase": "kernel_ipred", "card": card, "cases": len(
-        kc.IPRED_LAYOUTS), "units": n_units, "max_abs_err": err,
-        "equal": True})
+                                        f"ss={args[1:]} plane {pi} "
+                                        f"levels {len(tables['levels'])}"))
+        n_units += len(tables["units"])
+    occ = {bd: ipred.occupancy(bd) for bd in (8, 12)}
+    emit({"phase": "kernel_ipred", "card": card, "cases": len(cases),
+          "units": n_units, "max_abs_err": err, "equal": True,
+          "ptxas": _ptxas_summary(ptxas),
+          "blocks_per_sm": {bd: o[0] for bd, o in occ.items()},
+          "sms": occ[8][1],
+          "dynamic_shared_bytes": {bd: o[2] for bd, o in occ.items()}})
     out = {}
     fill = _fill_us(torch)
     for name, path in (("s31", STREAM_1080P), ("s7", STREAM_S7)):
-        levels = _ipred_levels(path)
-        if not levels:
-            raise AssertionError(f"kernel_ipred {name}: no level launched")
-        plain_ms, work, us, by_events = [], [0, 0], [], 0
-        for li, (planes, units, idx, *args) in enumerate(levels):
-            got = [p.clone() for p in planes]
-            want = [p.clone() for p in planes]
-            ipred.level_cuda(got, units, idx, *args)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ipred.level_plain(want, units, idx, *args)
-            torch.cuda.synchronize()
-            plain_ms.append((time.perf_counter() - t0) * 1e3)
-            for pi, (a, b) in enumerate(zip(got, want)):
-                err = max(err, _check_equal(torch, a, b, f"ipred {name} "
-                                            f"level {li} plane {pi}"))
-            b, o = _ipred_work(units.cpu().numpy(), idx.cpu().numpy(),
-                               [tuple(p.shape) for p in planes], *args[1:])
-            work[0] += b
-            work[1] += o
-            # replayed on the captured planes: a level's writes never
-            # touch what it reads, so every replay gives the same planes
-            t, _, timer = _launch_us(
-                torch, lambda a=(planes, units, idx, *args):
-                ipred.level_cuda(*a), "ipred_kernel", fill,
-                MAIN_ROUNDS if name == "s31" else 1, n=8)
-            us.append(t)
-            by_events += timer == "events"
+        plans = _ipred_plans(path)
+        if len(plans) != 1:
+            raise AssertionError(f"kernel_ipred {name}: {len(plans)} plans "
+                                 f"on the first inter frame")
+        planes, tables, pool, *args = plans[0]
+        got = [p.clone() for p in planes]
+        want = [p.clone() for p in planes]
+        ipred.plan_cuda(got, tables, pool, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ipred.plan_plain(want, tables, pool, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for pi, (a, b) in enumerate(zip(got, want)):
+            err = max(err, _check_equal(torch, a, b, f"ipred {name} "
+                                        f"frame 1 plane {pi}"))
+        host = {k: v.cpu().numpy() for k, v in tables.items()}
+        work = _ipred_work(host, [tuple(p.shape) for p in planes],
+                           *args[1:])
+        # replayed on the captured planes: each level rewrites what it
+        # predicts before its residuals add, and reads only pixels the
+        # plan never writes or that a lower level rewrote first, so
+        # every replay gives the same planes
+        us, per_round, timer = _launch_us(
+            torch, lambda a=(planes, tables, pool, *args):
+            ipred.plan_cuda(*a), "ipred_frame_kernel", fill,
+            MAIN_ROUNDS if name == "s31" else 1, n=8)
         bound = _bound(*work)
-        n = [len(lv[1]) for lv in levels]
-        big = int(np.argmax(n))
+        lv = host["levels"].astype("int64")
+        per, sms, smem = ipred.occupancy(args[0])
         emit({"phase": "kernel_ipred", "card": card, "stream": name,
-              "frame": 1, "levels": len(levels), "units": sum(n),
-              "largest_level_units": n[big],
-              "largest_level_us": us[big], "level_us_median": sorted(
-                  us)[len(us) // 2], "level_us_max": max(us),
-              "frame_us": sum(us), "levels_timed_by_events": by_events,
-              "one_element_fill_us": fill,
-              "plain_ms": sum(plain_ms), "bytes": work[0], "ops": work[1],
-              "bound_ms": bound[0], "bound_by": bound[1],
-              "max_abs_err": err, "equal": True})
-        out[name] = {"ms": sum(us) / 1e3, "plain_ms": sum(plain_ms),
+              "frame": 1, "launches": 1, "levels": len(lv),
+              "units": len(host["units"]),
+              "large_units": int((lv[:, 1] - lv[:, 0]).sum()),
+              "largest_level_units": int((lv[:, 2] - lv[:, 0]).max()),
+              "residual_jobs": len(host["res"]),
+              "residual_blocks": len(host["blocks"]),
+              "wht_jobs": len(host["wht"]),
+              "grid_barriers": int(len(lv) - 1 + ((lv[:, 4] > lv[:, 3]) |
+                                                 (lv[:, 6] > lv[:, 5])).sum()),
+              "table_bytes": int(sum(v.nbytes for v in host.values())),
+              "frame_us": us, "frame_us_per_round": per_round,
+              "timer": timer, "one_element_fill_us": fill,
+              "grid": per * sms, "blocks_per_sm": per,
+              "dynamic_shared_bytes": smem, "plain_ms": plain_ms,
+              "bytes": work[0], "ops": work[1], "bound_ms": bound[0],
+              "bound_by": bound[1], "max_abs_err": err, "equal": True})
+        out[name] = {"ms": us / 1e3, "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "max_abs_err": err}
     return out["s31"]
@@ -2300,31 +2350,52 @@ def phase_kernel_ipred(torch, card):
 def _lo_decode(torch, path):
     """One timed decode of `path` on cuda (stage syncs on): per inter
     frame with leftovers, its leftover count, whether the device served
-    it (levels, units) and the ms of each LO_STAGES stage; the picture
+    it (levels, units), the ms of each LO_STAGES stage and the bytes
+    that cross for the leftovers: on the device route the plan's tables
+    in the frame's one upload (lo_table_bytes; upload_bytes the whole
+    upload, tables and coefficient pool), on the host route the rows
+    fetched and uploaded again (region_bytes, each way); the picture
     md5s, the stream md5 and the ipred launches."""
+    from dav1d_tpu_torch.ops import mc_fused
     from dav1d_tpu_torch.recon import inter_device
     from dav1d_tpu_torch.utils import timing
-    frames = []
+    frames, uploads = [], []
     orig = inter_device.DeviceInterReconstructor.run_native
+    orig_upload = mc_fused._upload
+
+    def upload(tables, pool, device):
+        uploads.append(sum(t.nbytes for t in tables.values()) + pool.nbytes)
+        return orig_upload(tables, pool, device)
 
     def spy(self, jobs):
         before = {k: timing._T.get(k, 0.0) for k in LO_STAGES}
+        uploads.clear()
         out = orig(self, jobs)
         if len(self.leftovers):
             plan = self._dev_lo
+            spans = self._region_spans if plan is None else ()
             frames.append({
                 "n_leftovers": len(self.leftovers),
                 "levels": len(plan.levels) if plan else None,
                 "units": plan.n_units if plan else None,
                 **{k.split(".")[1]: (timing._T.get(k, 0.0) - before[k]) * 1e3
-                   for k in LO_STAGES}})
+                   for k in LO_STAGES},
+                "lo_table_bytes": sum(v.nbytes for v in
+                                      self.lo_tables.values())
+                if plan else 0,
+                "upload_bytes": sum(uploads),
+                "region_bytes": sum((b - a) * hp.shape[1] * hp.itemsize
+                                    for hp, (a, b) in
+                                    zip(self.pic.planes, spans or ()))})
         return out
     inter_device.DeviceInterReconstructor.run_native = spy
+    mc_fused._upload = upload
     _counts_reset()
     try:
         pics, digest, wall, stages, md5s = _decode(path, timed=True)
     finally:
         inter_device.DeviceInterReconstructor.run_native = orig
+        mc_fused._upload = orig_upload
     return frames, md5s, digest, wall, _counts()["ipred"]
 
 
@@ -2683,7 +2754,8 @@ def phase_sharded(torch, card):
     streams (MESH_MD5S) at MESH_COUNTS shards on their recorded md5s,
     super-res launched on its stream; on s31 frame 1 at SHARDED_PROFILE
     shards each sharded filter stage held to its single-device kernel
-    over every shard's owned columns, itx_sharded_check, and per kernel
+    over every shard's owned columns, itx_sharded_check (with its work
+    and bound, _itx_check_work), and per kernel
     its launches, device us of a launch, and the bound over its ext
     planes' bytes, with the device's busy ms and idle share, beside the
     same frame without a mesh."""
@@ -2751,9 +2823,28 @@ def phase_sharded(torch, card):
         raise AssertionError("itx_sharded_check: no residual energy")
     emit({"phase": "sharded", "card": card, "mesh_streams": streams,
           "window_checks": checked, "itx_sharded_check_energy": energy,
+          "itx_sharded_check_work": _itx_check_work(plan1),
           "frame1": _sharded_frame1(torch, mesh),
           "frame1_no_mesh": _sharded_frame1(torch, None),
           "frame1_shards": SHARDED_PROFILE})
+
+
+def _itx_check_work(plan):
+    """The work of itx_sharded_check on `plan`: its largest bucket (B
+    blocks of one transform) through the residual kernel twice, the
+    shards' parts and the whole bucket on one device, each a call of
+    _itx_work (coefficients and job rows read once, each block's pixels
+    read and written once); {tx, blocks, bytes, ops, bound_ms,
+    bound_by}."""
+    import numpy as np
+    from dav1d_tpu_torch.parallel.sharded import _itx_bucket
+    tx, _, offs, _ = _itx_bucket(plan)
+    jobs = np.zeros((len(offs), 6), np.int64)
+    jobs[:, 0] = tx
+    b, o = _itx_work(jobs, False)
+    bound = _bound(2 * b, 2 * o)
+    return {"tx": tx, "blocks": len(offs), "bytes": 2 * b, "ops": 2 * o,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def main():
@@ -2765,7 +2856,7 @@ def main():
     import dav1d_tpu_torch  # noqa: F401  (fails outside a checkout)
     card = smi()
     phase_device(torch)
-    phase_build()
+    ptxas = phase_build()
     lines = {k: {} for k in KERNELS}
     lines["deblock"].update(phase_kernel(torch, card))
     for k, e in phase_kernel_mc(torch, card).items():
@@ -2777,7 +2868,8 @@ def main():
         lines[k]["max_abs_err"] = e
     for k, r in phase_kernel_superres_grain(torch, card).items():
         lines[k].update(r)
-    lines["ipred"].update(phase_kernel_ipred(torch, card))
+    lines["ipred"].update(phase_kernel_ipred(torch, card,
+                                             ptxas.get("ipred")))
     for args in ((), (STREAM_4K10, MD5S_S33, MAIN_KERNELS[1:]),  # s7, s33,
                  (STREAM_1080P, MD5S_S31, MAIN_KERNELS[1:])):    # s31
         for k, r in phase_kernel_real(torch, card, *args).items():
@@ -2854,8 +2946,9 @@ def main():
     # filter, a Wiener filter over row-table windows, a self-guided
     # filter with its x_by_x lookup, a super-res upscale with its
     # per-column phases or a film grain synthesis with its LUT gathers
-    # and overlap blends, or a level of intra predictions from gathered
-    # edges (film_grain also replaces dav1d_tpu/ops/fg.py:172, the chroma
+    # and overlap blends, or a frame's levels of intra predictions from
+    # edge runs and their residuals (film_grain also replaces
+    # dav1d_tpu/ops/fg.py:172, the chroma
     # program; ipred the other seven programs of dav1d_tpu/ops/ipred.py)
     emit({"kernels": [{
         "name": k, "route": "cuda", "source": sources[k][0],

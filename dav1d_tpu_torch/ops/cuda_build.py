@@ -2,11 +2,11 @@
 
 Each csrc/<name>.cu has a plain C interface and is compiled by nvcc for
 Hopper (sm_90a) into build/dav1d_tpu_torch/lib<name>.so at the repo
-root, then loaded with ctypes. A library is rebuilt when its source is
-newer than the .so. A missing nvcc or a failed build raises: the port
-never falls back to the plain versions for CUDA tensors. Also the
-helpers the wrappers share: tensor checks and the cutting of a
-class-sorted job table into kernel blocks.
+root, then loaded with ctypes. A library is rebuilt when its source or
+a shared header (csrc/*.cuh) is newer than the .so. A missing nvcc or
+a failed build raises: the port never falls back to the plain versions
+for CUDA tensors. Also the helpers the wrappers share: tensor checks
+and the cutting of a class-sorted job table into kernel blocks.
 """
 from __future__ import annotations
 
@@ -44,10 +44,15 @@ def lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or one of the
+    shared headers (csrc/*.cuh)."""
     so = lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or \
-        os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + \
+        [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+         if f.endswith(".cuh")]
+    return max(os.path.getmtime(s) for s in srcs) > os.path.getmtime(so)
 
 
 def _command(name: str, out: str) -> list:

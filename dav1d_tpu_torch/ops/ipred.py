@@ -1,29 +1,32 @@
-"""Intra prediction of the device leftover levels (recon/ipred_device.py).
+"""Intra prediction and residuals of the device leftover levels
+(recon/ipred_device.py).
 
 Port of dav1d_tpu's ops/ipred.py: the eight device programs that
 predict a level of leftover intra units from per-unit EDGE BUFFERS —
 (n, 321) arrays with the golden Edge layout (center C = 160,
-buf[C + i] == topleft_out[i]) gathered from the current planes by
-host-built index rows (an index >= the plane's flat size selects one of
-the four constants half + 1, half - 1, half, 0). Every rounding rule is
-ops/ipred_ref.py's (reference src/ipred_tmpl.c:44-720). Two
-implementations:
+buf[C + i] == topleft_out[i]) gathered from the current planes (an
+index >= the plane's flat size selects one of the four constants
+half + 1, half - 1, half, 0). Every rounding rule is ops/ipred_ref.py's
+(reference src/ipred_tmpl.c:44-720). Two implementations:
 
 - the plain versions, batched torch over units of one geometry:
   `edge_gather_plain`, `splat_family_plain` (DC variants, V, H, Paeth,
   smooth), `z1_plain`, `z2_plain`, `z3_plain`, `filter_plain`,
-  `cfl_plain`, `scatter_pred_plain`, and `level_plain`, a whole level
-  over every plane; used for CPU tensors only;
-- the hand-written CUDA kernel csrc/ipred.cu (`level_cuda`): one launch
-  a level over every plane's units, edges staged in shared memory, the
-  prediction stored straight into the plane; used for every CUDA
-  tensor (`ipred_level` dispatches).
+  `cfl_plain`, `scatter_pred_plain`, `level_plain` (a whole level over
+  every plane, from index rows) and `plan_plain` (a frame's plan: every
+  level's units, edges expanded from their runs by `run_indices`, then
+  the level's residuals through ops/itx.py `itx_add_plain`); used for
+  CPU tensors only;
+- the hand-written CUDA kernel csrc/ipred.cu (`plan_cuda`): one
+  cooperative launch a frame over every level's units and residuals,
+  edges staged in shared memory, predictions stored straight into the
+  planes; used for every CUDA tensor (`ipred_plan` dispatches).
 
-A level's units (int32 rows of NCOL columns, one per transform unit):
+A unit (int32 row of NCOL columns, one per transform unit):
   plane, family, w, h, py, px, tlf, row, p0 .. p7
-`row` is the unit's index row in the level's (m, 321) int32 index
-table; `tlf` asks for the Z2 top-left 5-6-5 filter. The parameters per
-family:
+`row` is the unit's row of the run table (for `level_plain`: of the
+index table); `tlf` asks for the Z2 top-left 5-6-5 filter. The
+parameters per family:
   FAM_S   p0 dsp mode (DC, DC_128, TOP_DC, LEFT_DC, V, H, PAETH,
           SMOOTH, SMOOTH_V, SMOOTH_H)
   FAM_F   p0 filter-intra kind (0..4)
@@ -34,12 +37,17 @@ family:
           p6 upsample above, p7 upsample left
   FAM_CFL p0 ypy, p1 ypx, p2 nh, p3 nw, p4 alpha, p5 dc mode (w, h:
           the chroma size; the luma rect is read from plane 0)
-The units of one level only read pixels that lower levels wrote
+A unit's edges (int32 row of NRUN columns, recon/ipred_device.py
+`edge_runs`): four runs (start, stride, count, size) -- left,
+bottom-left, top, top-right -- and the top-left source; `run_indices`
+expands them to the index row the availability walk of `edge_indices`
+gives. The units of one level only read pixels that lower levels wrote
 (the level scheduler's guarantee), so they run in any order.
 
 What existed only to keep the TPU's compiled programs few is gone: no
 batch-size ladder, no out-of-bounds padding lanes, no per-geometry
-cache of jitted functions, no scatter program (the kernel stores).
+cache of jitted functions, no scatter program (the kernel stores), no
+index rows on the device.
 """
 from __future__ import annotations
 
@@ -51,10 +59,24 @@ import torch
 
 from .. import tables
 from . import ipred_ref as r
+from . import itx
 
 C = 160                 # edge buffer center (matches ipred_ref.Edge)
 EDGE_LEN = 2 * C + 1
 NCOL = 16
+# a run row: left, bottom-left, top, top-right runs of (start, stride,
+# count, size) at columns RUN_LEFT .., and the top-left source
+NRUN = 17
+RUN_LEFT, RUN_BL, RUN_TOP, RUN_TR, RUN_TL = 0, 4, 8, 12, 16
+# the frame tables' row widths (csrc/ipred.cu): a level (u0, ub, u1,
+# b0, b1, w0, w1), a residual block (ops/itx.py res_blocks' cls, first,
+# count, and the plane), a WHT job (ops/itx.py's 6 columns and the
+# plane)
+NLEV, BCOL, WCOL = 7, 4, 7
+# the frame tables (pack_plan) and their row widths, in the kernel's
+# argument order
+PLAN_TABLES = {"units": NCOL, "runs": NRUN, "res": 6, "blocks": BCOL,
+               "wht": WCOL, "levels": NLEV}
 FAM_S, FAM_F, FAM_Z1, FAM_Z2, FAM_Z3, FAM_CFL = range(6)
 FAMILIES = {"s": FAM_S, "f": FAM_F, "z1": FAM_Z1, "z2": FAM_Z2,
             "z3": FAM_Z3, "cfl": FAM_CFL}
@@ -458,6 +480,126 @@ def level_plain(planes, units, idx, bd, ss_hor, ss_ver):
     return planes
 
 
+
+
+def run_indices(runs, nflat):
+    """(n, EDGE_LEN) int64 index rows of (n, NRUN) run rows: entry i <
+    size of a run is start + stride * min(i, count - 1), the left runs
+    laid down from C - 1 (the bottom-left after the left's size), the
+    top runs up from C + 1 (the top-right after the top's size), the
+    top-left source at C, every other entry nflat + 3 (the constant 0).
+    nflat: (n,) or a scalar, the flat size of each unit's plane."""
+    r = np.asarray(runs, np.int64).reshape(-1, NRUN)
+    n = len(r)
+    nflat = np.broadcast_to(np.asarray(nflat, np.int64), (n,))
+    idx = np.repeat(nflat[:, None] + 3, EDGE_LEN, axis=1)
+    i = np.arange(64)[None]
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, 64))
+    for col, prev, sign in ((RUN_LEFT, None, -1), (RUN_BL, RUN_LEFT, -1),
+                            (RUN_TOP, None, 1), (RUN_TR, RUN_TOP, 1)):
+        start, stride, count, size = (r[:, col + j, None] for j in range(4))
+        off = 0 if prev is None else r[:, prev + 3, None]
+        src = start + stride * np.minimum(i, count - 1)
+        pos = np.broadcast_to(C + sign * (1 + off + i), (n, 64))
+        m = i < size
+        idx[rows[m], pos[m]] = src[m]
+    idx[:, C] = r[:, RUN_TL]
+    return idx
+
+
+# units a whole block of the frame kernel takes besides the 64-wide or
+# 64-tall ones (a warp takes up to 32x32): those of at least this many
+# pixels (tools/torch_ipred_variants.py times the choice)
+BLOCK_AREA = 256
+
+
+def block_units(units, area=BLOCK_AREA):
+    """(n,) bool: the units (n, NCOL) that a whole block of the frame
+    kernel takes, 64 wide or tall or of at least `area` pixels; a warp
+    takes the others."""
+    w, h = units[:, 2], units[:, 3]
+    return (w == 64) | (h == 64) | (w * h >= area)
+
+
+def pack_plan(levels):
+    """A frame's leftover plan as the kernel's flat tables. levels: per
+    level (units (n, NCOL), runs (n, NRUN), jobs (m, 6) ops/itx.py job
+    rows, their planes (m,), is_wht (m,) bool). Returns {name: int32
+    array} over PLAN_TABLES: "units" (each level's block_units first,
+    each range sorted by unit_class; column 7 the unit's row of "runs",
+    its own), "runs", "res" (each level's non-WHT jobs binned by
+    itx.res_blocks per plane), "blocks" ((nb, BCOL): res_blocks' rows,
+    `first` into "res", and the plane), "wht" ((nw, WCOL): the WHT jobs
+    and their planes) and "levels" ((nl, NLEV): u0, ub, u1, b0, b1, w0,
+    w1, the level's ranges of units (a block each [u0, ub), a warp each
+    [ub, u1)), blocks and WHT jobs)."""
+    out = {k: [] for k in PLAN_TABLES}
+    nu = nr = nb = nw = 0
+    for units, runs, jobs, plane, is_wht in levels:
+        u = np.asarray(units, np.int64).reshape(-1, NCOL)
+        ru = np.asarray(runs, np.int64).reshape(-1, NRUN)
+        jobs = np.asarray(jobs, np.int64).reshape(-1, 6)
+        plane = np.asarray(plane, np.int64).reshape(-1)
+        is_wht = np.asarray(is_wht, bool).reshape(-1)
+        big = block_units(u)
+        order = np.lexsort((unit_class(u), ~big))
+        u, ru = u[order], ru[order]
+        u[:, 7] = nu + np.arange(len(u))
+        out["units"].append(u)
+        out["runs"].append(ru)
+        b0 = nb
+        for pl in np.unique(plane[~is_wht]):
+            rows, blk = itx.res_blocks(jobs[(plane == pl) & ~is_wht])
+            blk = np.concatenate([blk, np.full((len(blk), 1), pl)], axis=1)
+            blk[:, 1] += nr
+            out["res"].append(rows)
+            out["blocks"].append(blk)
+            nr += len(rows)
+            nb += len(blk)
+        w = np.concatenate([jobs[is_wht], plane[is_wht, None]], axis=1)
+        out["wht"].append(w)
+        out["levels"].append([[nu, nu + int(big.sum()), nu + len(u), b0,
+                               nb, nw, nw + len(w)]])
+        nu += len(u)
+        nw += len(w)
+    return {k: np.ascontiguousarray(np.concatenate(v) if v else np.zeros(
+        (0, PLAN_TABLES[k])), np.int32).reshape(-1, PLAN_TABLES[k])
+        for k, v in out.items()}
+
+
+def plan_plain(planes, tables, pool, bd, ss_hor, ss_ver):
+    """A frame's leftover plan (pack_plan's tables as tensors) into
+    `planes` (int32 (H, W) tensors, in place), plain torch: the contract
+    of the frame kernel. For each level in order: `level_plain` on its
+    units with the edges expanded from their runs, then on each plane
+    `itx.itx_add_plain` for the level's residual jobs and its WHT
+    jobs. pool: the frame's int32 coefficient pool. Runs on the device
+    of its tensors (chip_smoke.py holds the kernel to it on the card)."""
+    levels = tables["levels"].long().tolist()
+    units, res = tables["units"], tables["res"]
+    runs = tables["runs"].cpu().numpy()
+    blocks = tables["blocks"].long().cpu().numpy()
+    wht = tables["wht"]
+    nflat = np.array([p.numel() for p in planes], np.int64)
+    for u0, _, u1, b0, b1, w0, w1 in levels:
+        if u1 > u0:
+            u = units[u0:u1].clone()
+            u[:, 7] = torch.arange(u1 - u0, dtype=u.dtype)
+            idx = run_indices(runs[u0:u1],
+                              nflat[u[:, 0].long().cpu().numpy()])
+            level_plain(planes, u, torch.from_numpy(idx).to(u.device), bd,
+                        ss_hor, ss_ver)
+        for pl, plane in enumerate(planes):
+            mine = [res[f:f + c] for _, f, c, p in blocks[b0:b1] if p == pl]
+            if mine:
+                itx.itx_add_plain(pool, torch.cat(mine), plane, bd)
+            w = wht[w0:w1]
+            w = w[w[:, 6] == pl, :6]
+            if len(w):
+                itx.itx_add_plain(pool, w, plane, bd, wht=True)
+    return planes
+
+
 _LIB = None
 
 
@@ -466,27 +608,43 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load_library
         lib = load_library("ipred")
-        lib.ipred_level.restype = ct.c_int
-        lib.ipred_level.argtypes = (
-            [ct.c_void_p] * 3 + [ct.c_int] * 6 +
-            [ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_int, ct.c_void_p,
-             ct.c_void_p, ct.c_int, ct.c_int, ct.c_int, ct.c_void_p])
-        lib.ipred_ncol.restype = ct.c_int
-        if lib.ipred_ncol() != NCOL:
-            raise RuntimeError("ipred: unit columns of the kernel and of "
-                               "ops/ipred.py differ")
+        lib.ipred_plan.restype = ct.c_int
+        lib.ipred_plan.argtypes = (
+            [ct.c_void_p] * 3 + [ct.c_int] * 6 + [ct.c_void_p] * 6 +
+            [ct.c_int] + [ct.c_void_p] * 3 + [ct.c_int] * 3 +
+            [ct.c_void_p, ct.POINTER(ct.c_int)])
+        lib.ipred_occupancy.restype = ct.c_int
+        lib.ipred_occupancy.argtypes = [ct.c_int, ct.POINTER(ct.c_int)]
+        lay = (ct.c_int * 6)()
+        lib.ipred_layout(lay)
+        if tuple(lay) != (NCOL, NRUN, NLEV, BCOL, WCOL,
+                          itx.BLOCK_THREADS):
+            raise RuntimeError(f"ipred: table layout of the kernel "
+                               f"{tuple(lay)} and of ops/ipred.py differ")
         _LIB = lib
     return _LIB
 
 
-def level_cuda(planes, units, idx, bd, ss_hor, ss_ver):
-    """One level with csrc/ipred.cu: same contract as level_plain, CUDA
-    tensors only (1 to 3 int32 planes, units (n, NCOL), idx (m, 321)).
-    Launches on the current stream, does not synchronise."""
+def occupancy(bd):
+    """(blocks a SM, SMs, dynamic shared bytes of a block) of the frame
+    kernel at `bd` on the current CUDA device."""
+    out = (ct.c_int * 3)()
+    rc = _lib().ipred_occupancy(bd, out)
+    if rc != 0:
+        raise RuntimeError(f"ipred occupancy query failed: CUDA error {rc}")
+    return tuple(out)
+
+
+def plan_cuda(planes, tables, pool, bd, ss_hor, ss_ver):
+    """A frame's leftover plan with csrc/ipred.cu: same contract as
+    plan_plain, CUDA tensors only (1 to 3 int32 planes, the tables and
+    the pool on their device). One cooperative launch over every level,
+    on the current stream, not synchronised; a failed launch, or a grid
+    the card cannot hold at once, raises."""
     from .cuda_build import check_tensor
     from .device import device_tables
     if not planes or not planes[0].is_cuda:
-        raise ValueError("level_cuda needs CUDA tensors")
+        raise ValueError("plan_cuda needs CUDA tensors")
     dev = planes[0].device
     if bd not in (8, 10, 12):
         raise ValueError(f"bitdepth {bd}")
@@ -494,9 +652,14 @@ def level_cuda(planes, units, idx, bd, ss_hor, ss_ver):
         raise ValueError(f"{len(planes)} planes")
     for i, p in enumerate(planes):
         check_tensor(p, f"planes[{i}]", torch.int32, dev)
-    check_tensor(units, "units", torch.int32, dev, (len(units), NCOL))
-    check_tensor(idx, "idx", torch.int32, dev, (len(idx), EDGE_LEN))
-    if not len(units):
+    for k, width in PLAN_TABLES.items():
+        t = tables[k]
+        check_tensor(t, k, torch.int32, dev, (len(t), width))
+    check_tensor(pool, "pool", torch.int32, dev, ndim=1)
+    if len(tables["runs"]) != len(tables["units"]):
+        raise ValueError("ipred: a run row per unit row")
+    n_levels = len(tables["levels"])
+    if not n_levels:
         return planes
     lut = device_tables(dev)
     check_tensor(lut["ipred_sm_weights"], "smooth weights", torch.int32, dev,
@@ -508,22 +671,29 @@ def level_cuda(planes, units, idx, bd, ss_hor, ss_ver):
     for i in range(3):
         p = planes[i] if i < len(planes) else planes[0]
         dims += [p.shape[0], p.shape[1]]
-    rc = _lib().ipred_level(
-        *ptrs, *dims, units.data_ptr(), len(units), idx.data_ptr(),
-        len(idx), lut["ipred_sm_weights"].data_ptr(),
+    grid = ct.c_int(0)
+    rc = _lib().ipred_plan(
+        *ptrs, *dims, *(tables[k].data_ptr() for k in PLAN_TABLES),
+        n_levels, pool.data_ptr(),
+        lut["ipred_sm_weights"].data_ptr(),
         lut["ipred_filter_taps"].data_ptr(), bd, ss_hor, ss_ver,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, ct.byref(grid))
     if rc != 0:
-        raise RuntimeError(f"ipred kernel launch failed: CUDA error {rc}")
+        per, sms, smem = occupancy(bd)
+        raise RuntimeError(
+            f"ipred frame kernel launch failed: CUDA error {rc} (grid "
+            f"{grid.value} blocks of {itx.BLOCK_THREADS} threads, {per} "
+            f"a SM on {sms} SMs, {smem} B dynamic shared; {n_levels} "
+            f"levels, {len(tables['units'])} units)")
     LAUNCHES["ipred"] += 1
     return planes
 
 
-def ipred_level(planes, units, idx, bd, ss_hor, ss_ver):
-    """One level of leftover intra units into `planes`: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+def ipred_plan(planes, tables, pool, bd, ss_hor, ss_ver):
+    """A frame's leftover plan into `planes`: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if planes[0].is_cuda:
-        return level_cuda(planes, units, idx, bd, ss_hor, ss_ver)
+        return plan_cuda(planes, tables, pool, bd, ss_hor, ss_ver)
     if planes[0].device.type != "cpu":
         raise ValueError(f"unsupported device {planes[0].device}")
-    return level_plain(planes, units, idx, bd, ss_hor, ss_ver)
+    return plan_plain(planes, tables, pool, bd, ss_hor, ss_ver)

@@ -1031,17 +1031,105 @@ def _ipred_params(rng, fam, w, h, deriv):
     return p
 
 
+def _edge_source(rng, W, nflat, w, h, rows):
+    """A w x h unit's edges from the availability walk at a random
+    position whose edges lie in the plane's first `rows` rows (the walk's
+    tile ends there): random neighbours, edge flags, mode, angle and edge
+    filter. Returns (run row (NRUN,), index row (321,)):
+    recon/ipred_device.py edge_runs and edge_indices on the same
+    arguments."""
+    from ..recon.ipred_device import edge_indices, edge_runs
+    tw, th, w4, h4 = w // 4, h // 4, W // 4, rows // 4
+    x = int(rng.integers(0, w4 - tw + 1))
+    y = int(rng.integers(0, h4 - th + 1))
+    args = (x, bool(x > 0 and rng.integers(0, 4)), y,
+            bool(y > 0 and rng.integers(0, 4)), w4, h4,
+            int(rng.integers(0, 64)), W, 4 * x, 4 * y,
+            int(rng.integers(0, 14)), int(rng.integers(-3, 4)), tw, th,
+            int(rng.integers(0, 2)), nflat)
+    return np.asarray(edge_runs(*args)[2]), edge_indices(*args)[2]
+
+
+def _ipred_units(rng, deriv, pl, W, ss_hor, ss_ver, y0, sizes, luma_w,
+                 cut_bottom):
+    """One plane's units of a level, packed below row y0: every family
+    at each of `sizes` it takes (filter-intra and CFL up to 32x32, CFL
+    on chroma planes), random parameters and tlf; units half past the
+    plane's right edge in a strip, and with cut_bottom a shelf the
+    plane's bottom edge cuts. Returns (unit rows without their run
+    column, the rows the level takes, the plane's height if cut)."""
+    from . import ipred
+    R = IPRED_READ_ROWS
+    units = [(fam, w, h) for fam in (ipred.FAM_S, ipred.FAM_Z1,
+                                     ipred.FAM_Z2, ipred.FAM_Z3)
+             for w, h in sizes]
+    units += [(ipred.FAM_F, w, h) for w, h in sizes if w <= 32 and h <= 32]
+    if pl:
+        units += [(ipred.FAM_CFL, w, h) for w, h in sizes
+                  if w <= 32 and h <= 32 and (w << ss_hor) <= 64 and
+                  (h << ss_ver) <= R]
+    order = rng.permutation(len(units))
+    units = [units[i] for i in order]
+    py, px, used = pack([(h, w) for _, w, h in units], W - IPRED_STRIP,
+                        align=4)
+    py = py + y0
+    # the right edge: units half past the plane in the strip; the bottom
+    # edge: a shelf the plane cuts through the middle
+    right = [(fam, 16, 8) for fam in range(6) if fam != ipred.FAM_CFL or pl]
+    geo = [(f, w, h, int(y), int(x)) for (f, w, h), y, x in
+           zip(units, py, px)]
+    geo += [(f, w, h, y0 + 8 * i, W - 8) for i, (f, w, h) in
+            enumerate(right)]
+    H = None
+    if cut_bottom:
+        bottom = [(fam, 8, 16) for fam in range(6)
+                  if fam != ipred.FAM_CFL or pl]
+        H = y0 + used + 8
+        geo += [(f, w, h, H - 8, 16 * i) for i, (f, w, h) in
+                enumerate(bottom)]
+    rows = []
+    for fam, w, h, y, x in geo:
+        p = _ipred_params(rng, fam, w, h, deriv)
+        if fam == ipred.FAM_CFL:
+            nh = 4 * int(rng.integers(1, h // 4 + 1))
+            nw = 4 * int(rng.integers(1, w // 4 + 1))
+            p[:6] = [4 * int(rng.integers(0, (R - (h << ss_ver)) // 4 + 1)),
+                     4 * int(rng.integers(0, (luma_w - (w << ss_hor)) // 4
+                                          + 1)),
+                     nh, nw, int(rng.integers(-16, 17)),
+                     int(rng.choice(CFL_DC_MODES))]
+        tlf = 0 if fam == ipred.FAM_CFL else int(rng.integers(0, 2))
+        rows.append([pl, fam, w, h, y, x, tlf, 0] + p)
+    return rows, max(used, 8 * len(right)), H
+
+
+def _edges_of(rng, units, shapes, read_rows):
+    """Runs and index rows of each unit, its edges in the first
+    read_rows[k] rows of its plane (unit k's)."""
+    from . import ipred
+    n = len(units)
+    runs = np.empty((n, ipred.NRUN), np.int64)
+    idx = np.empty((n, ipred.EDGE_LEN), np.int64)
+    for i, (pl, w, h) in enumerate(units[:, [0, 2, 3]]):
+        H, W = shapes[pl]
+        runs[i], idx[i] = _edge_source(rng, W, H * W, int(w), int(h),
+                                       int(read_rows[i]))
+    return runs, idx
+
+
 def ipred_case(bd, ss_hor, ss_ver, n_planes, seed, width=512):
     """One level of leftover units over every plane: each family at
     every geometry it takes (splat, Z1, Z2, Z3 at every transform size,
     filter-intra at those up to 32x32, CFL at chroma sizes up to 32x32
     on the chroma planes), random parameters and tlf, units cut by the
     plane's right and bottom edges. Every unit writes below row
-    IPRED_READ_ROWS and its index row names pixels above it (or the four
+    IPRED_READ_ROWS and its edges, from the availability walk at a
+    random position (_edge_source), read pixels above it (or the four
     constants), CFL luma rects lie above it too, and no two units write
     the same pixel: the level scheduler's guarantee. Returns {"bd",
     "ss_hor", "ss_ver", "planes": [int32 (H, W)], "units": (n, NCOL)
-    int32, "idx": (n, 321) int32}."""
+    int32 (column 7 the unit's row of runs and idx), "runs": (n, NRUN)
+    int32, "idx": (n, 321) int32, their expansion}."""
     from . import ipred
     from .. import tables
     rng = np.random.default_rng(seed)
@@ -1050,59 +1138,19 @@ def ipred_case(bd, ss_hor, ss_ver, n_planes, seed, width=512):
     rows, shapes = [], []
     for pl in range(n_planes):
         W = width >> (ss_hor if pl else 0)
-        units = [(fam, w, h) for fam in (ipred.FAM_S, ipred.FAM_Z1,
-                                         ipred.FAM_Z2, ipred.FAM_Z3)
-                 for w, h in IPRED_SIZES]
-        units += [(ipred.FAM_F, w, h) for w, h in IPRED_SMALL]
-        if pl:
-            units += [(ipred.FAM_CFL, w, h) for w, h in IPRED_SMALL
-                      if (w << ss_hor) <= 64 and (h << ss_ver) <= R]
-        order = rng.permutation(len(units))
-        units = [units[i] for i in order]
-        py, px, used = pack([(h, w) for _, w, h in units],
-                            W - IPRED_STRIP, align=4)
-        py = py + R
-        # the right edge: units half past the plane in the strip; the
-        # bottom edge: a shelf the plane cuts through the middle
-        right = [(fam, 16, 8) for fam in range(6) if fam != ipred.FAM_CFL
-                 or pl]
-        bottom = [(fam, 8, 16) for fam in range(6) if fam != ipred.FAM_CFL
-                  or pl]
-        H = R + used + 8
-        geo = [(f, w, h, int(y), int(x)) for (f, w, h), y, x in
-               zip(units, py, px)]
-        geo += [(f, w, h, R + 8 * i, W - 8) for i, (f, w, h) in
-                enumerate(right)]
-        geo += [(f, w, h, H - 8, 16 * i) for i, (f, w, h) in
-                enumerate(bottom)]
+        r, _, H = _ipred_units(rng, deriv, pl, W, ss_hor, ss_ver, R,
+                               IPRED_SIZES, width, True)
+        rows += r
         shapes.append((H, W))
-        for fam, w, h, y, x in geo:
-            p = _ipred_params(rng, fam, w, h, deriv)
-            if fam == ipred.FAM_CFL:
-                Wy = width
-                nh = 4 * int(rng.integers(1, h // 4 + 1))
-                nw = 4 * int(rng.integers(1, w // 4 + 1))
-                p[:6] = [4 * int(rng.integers(0, (R - (h << ss_ver)) // 4 + 1)),
-                         4 * int(rng.integers(0, (Wy - (w << ss_hor)) // 4
-                                              + 1)),
-                         nh, nw, int(rng.integers(-16, 17)),
-                         int(rng.choice(CFL_DC_MODES))]
-            tlf = 0 if fam == ipred.FAM_CFL else int(rng.integers(0, 2))
-            rows.append([pl, fam, w, h, y, x, tlf, 0] + p)
     planes = [rng.integers(0, 1 << bd, s).astype(np.int32) for s in shapes]
     units = np.asarray(rows, np.int64)
-    n = len(units)
-    idx = np.empty((n, ipred.EDGE_LEN), np.int64)
-    for i, pl in enumerate(units[:, 0]):
-        H, W = shapes[pl]
-        idx[i] = rng.integers(0, R * W, ipred.EDGE_LEN)
-        const = rng.random(ipred.EDGE_LEN) < 0.15
-        idx[i, const] = H * W + rng.integers(0, 4, int(const.sum()))
+    runs, idx = _edges_of(rng, units, shapes, np.full(len(units), R))
     order = np.argsort(ipred.unit_class(units), kind="stable")
-    units, idx = units[order], idx[order]
-    units[:, 7] = np.arange(n)
+    units, runs, idx = units[order], runs[order], idx[order]
+    units[:, 7] = np.arange(len(units))
     return {"bd": bd, "ss_hor": ss_hor, "ss_ver": ss_ver, "planes": planes,
-            "units": units.astype(np.int32), "idx": idx.astype(np.int32)}
+            "units": units.astype(np.int32), "runs": runs.astype(np.int32),
+            "idx": idx.astype(np.int32)}
 
 
 def ipred_cases():
@@ -1118,6 +1166,112 @@ def ipred_args(case, device):
     return ([torch.from_numpy(p.copy()).to(dev) for p in case["planes"]],
             torch.from_numpy(case["units"]).to(dev),
             torch.from_numpy(case["idx"]).to(dev))
+
+
+# the multi-level plan cases: (bd, ss_hor, ss_ver, planes), levels,
+# the geometries a level and plane takes at random
+PLAN_LAYOUTS = ((8, 1, 1, 3), (10, 1, 0, 3), (12, 1, 1, 3))
+PLAN_LEVELS = 3
+PLAN_SIZES = 2
+
+
+def plan_case(bd, ss_hor, ss_ver, n_planes, seed, width=512):
+    """A frame's leftover plan of PLAN_LEVELS levels over every plane:
+    level L's units (every family at 4x4, PLAN_SIZES random transform
+    sizes and one 64 wide or tall, units cut by the plane's right
+    edge and, at the last level, its bottom edge) write a band of rows
+    below the previous level's, their edges read anywhere above their
+    band (lower levels' outputs, with their residuals, among them); about
+    half the units carry a residual of their own size (random kinds,
+    dense, sparse full-range or DC-only coefficients), 4x4 ones a WHT
+    job one time in two. Returns {"bd", "ss_hor", "ss_ver", "planes",
+    "pool", "levels": [{"units" (n, NCOL) int32, column 7 the row of
+    "runs" and "idx"; "runs", "idx", "jobs" (m, 6) ops/itx.py job rows,
+    "plane" (m,), "wht" (m,) bool}]}."""
+    from . import ipred
+    from .itx import CF_LEN, res_tx_kinds
+    from .. import tables
+    rng = np.random.default_rng(seed)
+    deriv = tables.get("dav1d_dr_intra_derivative")
+    tx_of = {(4 * t.w, 4 * t.h): k for k, t in enumerate(lv.TXFM_INFO)}
+    big = [s for s in IPRED_SIZES if 64 in s]
+    y0 = [IPRED_READ_ROWS] * n_planes
+    levels, shapes = [], [None] * n_planes
+    for L in range(PLAN_LEVELS):
+        rows, reads = [], []
+        for pl in range(n_planes):
+            W = width >> (ss_hor if pl else 0)
+            pick = rng.choice(len(IPRED_SIZES) - 1, PLAN_SIZES,
+                              replace=False)
+            sizes = [(4, 4)] + [IPRED_SIZES[1 + i] for i in pick] + \
+                [big[rng.integers(len(big))]]
+            last = L == PLAN_LEVELS - 1
+            r, used, H = _ipred_units(rng, deriv, pl, W, ss_hor, ss_ver,
+                                      y0[pl], sizes, width, last)
+            rows += r
+            reads += [y0[pl]] * len(r)
+            y0[pl] += used
+            if last:
+                shapes[pl] = (H, W)
+        levels.append((np.asarray(rows, np.int64), reads))
+    planes = [rng.integers(0, 1 << bd, s).astype(np.int32) for s in shapes]
+    out, parts, pos = [], [], 0
+    for units, reads in levels:
+        runs, idx = _edges_of(rng, units, shapes, reads)
+        units[:, 7] = np.arange(len(units))
+        jobs, plane, wht = [], [], []
+        for pl, _, w, h, py, px in units[:, :6]:
+            if rng.random() < 0.5:
+                continue
+            tx = tx_of[(int(w), int(h))]
+            if (w, h) == (4, 4) and rng.random() < 0.5:
+                parts.append(rng.integers(-1024, 1025, 16))
+                jobs.append([0, 0, 0, py, px, pos])
+                wht.append(True)
+                pos += 16
+            else:
+                rk, ck = res_tx_kinds(tx)
+                parts.append(_coefs(rng, int(CF_LEN[tx]), bd,
+                                    int(rng.integers(0, 3))))
+                jobs.append([tx, rng.integers(len(rk)),
+                             rng.integers(len(ck)), py, px, pos])
+                wht.append(False)
+                pos += int(CF_LEN[tx])
+            plane.append(pl)
+        out.append({"units": units.astype(np.int32),
+                    "runs": runs.astype(np.int32),
+                    "idx": idx.astype(np.int32),
+                    "jobs": np.asarray(jobs, np.int32).reshape(-1, 6),
+                    "plane": np.asarray(plane, np.int64),
+                    "wht": np.asarray(wht, bool)})
+    return {"bd": bd, "ss_hor": ss_hor, "ss_ver": ss_ver, "planes": planes,
+            "pool": np.concatenate(parts).astype(np.int32),
+            "levels": out}
+
+
+def plan_cases():
+    """plan_case for every PLAN_LAYOUTS entry."""
+    return [plan_case(bd, sh, sv, n, seed=120 + k)
+            for k, (bd, sh, sv, n) in enumerate(PLAN_LAYOUTS)]
+
+
+def plan_args(case, device):
+    """(planes, tables, pool) of an ipred_case (one level, no residuals)
+    or a plan_case as tensors on `device`: the tables ops/ipred.py
+    pack_plan makes of its levels."""
+    import torch
+    from .ipred import pack_plan
+    dev = torch.device(device)
+    levels = case.get("levels") or [{
+        "units": case["units"], "runs": case["runs"],
+        "jobs": np.zeros((0, 6), np.int32), "plane": np.zeros(0, np.int64),
+        "wht": np.zeros(0, bool)}]
+    tables = pack_plan([(lv_["units"], lv_["runs"], lv_["jobs"],
+                         lv_["plane"], lv_["wht"]) for lv_ in levels])
+    pool = case.get("pool", np.zeros(1, np.int32))
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return ([T(p.copy()) for p in case["planes"]],
+            {k: T(v) for k, v in tables.items()}, T(pool))
 
 
 def shard_planes(planes, T, device, ss_hor=1):

@@ -23,8 +23,10 @@ fixed chunks, pow2 buffer ladders, the PAD apron and the
 block-gather-and-roll windows, used-prefix and int16 / lo-hi pool
 uploads. Here the puts are one kernel launch for every plane and each
 other pass one launch per plane, the job tables, their block tables,
-the leftover levels' tables of a frame whose intra leftovers run on the
-device (recon/ipred_device.py) and the int32 coefficient pool cross to
+the leftover plan's tables of a frame whose intra leftovers run on the
+device (recon/ipred_device.py level_tables: units, edge runs, residual
+jobs and blocks, WHT jobs, level offsets; no index rows) and the int32
+coefficient pool cross to
 the device in one copy, and the kernels read the reference planes in
 place. As dav1d_tpu bins residual
 jobs into one segment per transform size, the host sorts each plane's
@@ -165,8 +167,8 @@ def execute(recon, jobs):
         pool, bases = recon._build_cf_pool()
         tables = _plane_tables(jobs, lut, bases, n_planes)
         check_pool(tables, len(pool), n_planes)
-        # the leftover levels' tables (recon/ipred_device.py) cross in
-        # the same copy; their residuals read the same pool
+        # the leftover plan's tables (recon/ipred_device.py) cross in
+        # the same copy; its residuals read the same pool
         lo = recon.lo_tables or {}
         T, pool_d = _upload({**tables, **lo}, pool, dev)
         recon.lo_views = {k: T[k] for k in lo}

@@ -12,9 +12,10 @@ residuals), and then the leftover blocks take one of two routes:
   DAV1D_TPU_LO_LIMIT leftovers (the port's default limit is 0: on the
   H100 the host route measured cheaper on every frame), when every
   leftover is pure intra without a palette: the plan is built before
-  the inter passes (phase inter.lo_build), its level tables cross in
-  the frame's one upload, and after the residual pass the levels run
-  on the device planes (inter.lo_device): no mid-frame round trip;
+  the inter passes (phase inter.lo_build), its tables cross in the
+  frame's one upload, and after the residual pass the plan runs on the
+  device planes in one launch (inter.lo_device): no mid-frame round
+  trip;
 - on the host otherwise (DAV1D_TPU_LO=host forces it): the leftover
   rows are fetched from the device after the residual pass
   (inter.fetch_region), runs of pure-intra leftovers go through
@@ -104,7 +105,7 @@ class DeviceInterReconstructor(InterReconstructor):
         self._lo_region = None   # (r0, r1) luma rows the host replay
         self._region_spans = None  # needs; None: the whole planes
         self._dev_lo = None      # the device leftover plan, when served
-        self.lo_tables = None    # its level tables (host), for the upload
+        self.lo_tables = None    # its tables (host), for the upload
         self.lo_views = {}       # the same on the device
         self.cf_pool_dev = None  # the frame's coefficient pool on the device
 
@@ -331,8 +332,7 @@ class DeviceInterReconstructor(InterReconstructor):
                 self._dev_lo = ipred_device.build(self, lo.tolist())
                 if self._dev_lo is not None:
                     self.lo_tables = ipred_device.level_tables(
-                        self._dev_lo, *self._cf_bases(),
-                        len(self.pic.planes))
+                        self._dev_lo, *self._cf_bases())
             if self._dev_lo is None:
                 self._lo_region = self._leftover_region(lo)
         self._execute(jobs)
@@ -340,7 +340,7 @@ class DeviceInterReconstructor(InterReconstructor):
             return self.pic
         if self._dev_lo is not None:
             with timing.phase("inter.lo_device"):
-                ipred_device.execute(self, self._dev_lo)
+                ipred_device.execute(self)
                 sync_if_timed(self.device)
             return self.pic
         with timing.phase("inter.leftovers"):

@@ -1,5 +1,5 @@
 """Intra leftovers on the device: dependency-levelized units, one
-kernel launch a level.
+kernel launch a frame.
 
 Port of dav1d_tpu's recon/ipred_device.py. Inter frames carry sparse
 intra blocks ("leftovers") whose prediction reads the current picture.
@@ -9,27 +9,30 @@ again. This module keeps those blocks on the device instead:
 
   1. `build`: per leftover transform unit, the exact reference
      edge-availability walk (reference src/ipred_prepare_tmpl.c:74-203)
-     runs SYMBOLICALLY on the host (`edge_indices`): it emits a (321,)
-     index row into the flattened plane (plus 4 constant cells past its
-     end for the no-neighbour fills) instead of copying pixels. A level
-     scheduler gives each unit 1 + the highest level of every pixel its
-     edges read, on per-plane pixel maps, so that the units of a level
-     only read pixels of lower levels. `Unservable`, `STATS`,
-     `edge_indices`, `DevLeftoverPlan`, `_Builder` and `build` are
-     copies of dav1d_tpu's, identical but for the import paths.
-  2. `level_tables`: every level's kernel tables, built on the host
-     once a frame: the prediction units of every plane and family
-     (ops/ipred.py's rows, sorted by class) with their index rows, and
-     the residual rows with their ops/itx.py res_blocks tables (pool
-     offsets bases[tile] + cf_local_off). They cross to the device in
-     the frame's one upload (ops/mc_fused.py execute).
-  3. `execute`: per level, one ops/ipred.py `ipred_level` launch over
-     every plane's units, then the level's residuals through
-     ops/itx.py `itx_add` (csrc/itx_add.cu; WHT with wht=True) from the
-     frame's coefficient pool on the device, one call per plane that has
-     residuals in the level. Predictions of a level go before its
-     residuals, and residuals land before the next level reads, which
-     reproduces the reference's sequential recon_b_intra order
+     runs SYMBOLICALLY on the host (`edge_runs`): instead of copying
+     pixels it emits the unit's edges as runs of plane-flat positions
+     (ops/ipred.py's run rows: left, bottom-left, top, top-right, the
+     top-left source; a position past the plane's end names one of 4
+     constants for the no-neighbour fills). A level scheduler gives each
+     unit 1 + the highest level of every pixel its edges read, on
+     per-plane pixel maps, so that the units of a level only read pixels
+     of lower levels. `Unservable`, `STATS`, `edge_indices` (dav1d_tpu's
+     (321,) index rows, which tests hold `edge_runs` to),
+     `DevLeftoverPlan`, `_Builder` and `build` are copies of
+     dav1d_tpu's, identical but for the import paths and the runs in
+     place of the index rows.
+  2. `level_tables`: the frame's kernel tables, built on the host once
+     a frame (ops/ipred.py `pack_plan`): every level's prediction units
+     of every plane and family with their runs, and its residual rows
+     with their ops/itx.py res_blocks tables (pool offsets bases[tile] +
+     cf_local_off). They cross to the device in the frame's one upload
+     (ops/mc_fused.py execute).
+  3. `execute`: one ops/ipred.py `ipred_plan` call (csrc/ipred.cu, one
+     cooperative launch) over every level: a level's predictions, then
+     its residuals from the frame's coefficient pool on the device, then
+     the next level. Predictions of a level go before its residuals, and
+     residuals land before the next level reads, which reproduces the
+     reference's sequential recon_b_intra order
      (src/recon_tmpl.c:1176-1556).
 
 Frames whose leftovers need the host (a palette leftover: Unservable;
@@ -39,7 +42,7 @@ frame under DAV1D_TPU_LO other than "auto" or "device", and under
 "auto" a frame with more than AUTO_LIMIT leftovers (DAV1D_TPU_LO_LIMIT,
 0 by default in the port: under auto every frame with leftovers takes
 the host route, measured cheaper on the H100; DAV1D_TPU_LO=device
-forces the device route).
+forces the route).
 """
 from __future__ import annotations
 
@@ -171,6 +174,88 @@ def edge_indices(x, have_left, y, have_top, w, h, edge_flags, W, px, py,
     return mode, angle, idx, tlf
 
 
+def edge_runs(x, have_left, y, have_top, w, h, edge_flags, W, px, py,
+              mode, angle, tw, th, filter_edge, base_const):
+    """`edge_indices` with the same arguments and walk, emitting the
+    edges as one run row (ops/ipred.py NRUN columns) instead of a (321,)
+    index row: the left, bottom-left, top and top-right runs of (start,
+    stride, count, size) -- entry i < size is start + stride * min(i,
+    count - 1), the walk's pixels then its repeat of the last one -- and
+    the top-left source. Constants are base_const + k as there; a run
+    the mode does not need has size 0, an absent top-left the constant
+    0. Returns (mode, angle, runs (a tuple), tlf);
+    ops/ipred.py run_indices(runs) == edge_indices' row."""
+    if ipred_ref.VERT_PRED <= mode <= lv.VERT_LEFT_PRED:
+        angle = ipred_ref._MODE_TO_ANGLE[mode - ipred_ref.VERT_PRED] \
+            + 3 * angle
+        if angle <= 90:
+            mode = ipred_ref.Z1_PRED if angle < 90 and have_top \
+                else ipred_ref.VERT_PRED
+        elif angle < 180:
+            mode = ipred_ref.Z2_PRED
+        else:
+            mode = ipred_ref.Z3_PRED if angle > 180 and have_left \
+                else ipred_ref.HOR_PRED
+    elif mode == ipred_ref.DC_PRED:
+        mode = (ipred_ref.DC_PRED if have_top else
+                ipred_ref.LEFT_DC_PRED) if have_left else \
+            (ipred_ref.TOP_DC_PRED if have_top else ipred_ref.DC_128_PRED)
+    elif mode == ipred_ref.PAETH_PRED:
+        mode = (ipred_ref.PAETH_PRED if have_top else
+                ipred_ref.HOR_PRED) if have_left else \
+            (ipred_ref.VERT_PRED if have_top else ipred_ref.DC_128_PRED)
+
+    needs_left, needs_top, needs_topleft, needs_topright, \
+        needs_bottomleft = ipred_ref._EDGE_REQ[mode]
+    runs = [0] * 16 + [base_const + 3]
+    top0 = (py - 1) * W + px
+    have_dst_top = have_top and (needs_top or needs_topleft or
+                                 (needs_left and not have_left))
+
+    if needs_left:
+        sz = th << 2
+        if have_left:
+            left = (py * W + px - 1, W, min(sz, (h - y) << 2), sz)
+        else:
+            left = (top0 if have_dst_top else base_const + 0, 0, 1, sz)
+        runs[0:4] = left
+        if needs_bottomleft:
+            have_bl = 0 if (not have_left or y + th >= h) else \
+                (edge_flags & EDGE_I444_LEFT_HAS_BOTTOM)
+            if have_bl:
+                runs[4:8] = ((py + sz) * W + px - 1, W,
+                             min(sz, (h - y - th) << 2), sz)
+            else:
+                runs[4:8] = (left[0] + left[1] * (left[2] - 1), 0, 1, sz)
+
+    if needs_top:
+        sz = tw << 2
+        if have_top:
+            top = (top0, 1, min(sz, (w - x) << 2), sz)
+        else:
+            top = ((py * W + px - 1) if have_left else base_const + 1, 0, 1,
+                   sz)
+        runs[8:12] = top
+        if needs_topright:
+            have_tr = 0 if (not have_top or x + tw >= w) else \
+                (edge_flags & EDGE_I444_TOP_HAS_RIGHT)
+            if have_tr:
+                runs[12:16] = (top0 + sz, 1, min(sz, (w - x - tw) << 2), sz)
+            else:
+                runs[12:16] = (top[0] + top[1] * (top[2] - 1), 0, 1, sz)
+
+    tlf = 0
+    if needs_topleft:
+        if have_left:
+            runs[16] = top0 - 1 if have_top else py * W + px - 1
+        else:
+            runs[16] = top0 if have_top else base_const + 2
+        if mode == ipred_ref.Z2_PRED and tw + th >= 6 and filter_edge:
+            tlf = 1
+
+    return mode, angle, tuple(runs), tlf
+
+
 # ---------------------------------------------------------------------------
 # plan builder
 # ---------------------------------------------------------------------------
@@ -198,10 +283,19 @@ class _Builder:
         self.deriv = _deriv()
 
     # -- level bookkeeping -------------------------------------------------
-    def _read_level_idx(self, pl, idx):
+    def _read_level_runs(self, pl, runs):
+        """The highest level of the pixels a unit's edge runs read (the
+        pixels of dav1d_tpu's index row): each run's strip of lvl, the
+        top-left source."""
         flat = self.lvl_flat[pl]
-        ii = idx[idx < self.nflat[pl]]
-        return int(flat[ii].max()) if ii.size else 0
+        nflat = self.nflat[pl]
+        m = int(flat[runs[16]]) if runs[16] < nflat else 0
+        for c in (0, 4, 8, 12):
+            start, stride, count, size = runs[c:c + 4]
+            if size and start < nflat:
+                m = max(m, int(flat[start:start + stride * (count - 1) + 1:
+                                    stride or 1].max()))
+        return m
 
     def _read_level_rect(self, pl, py, px, h, w):
         m = self.lvl[pl][py:py + h, px:px + w]
@@ -222,9 +316,9 @@ class _Builder:
 
     # -- per-unit emitters ---------------------------------------------------
     def _pred_unit(self, pl, px, py, w_px, h_px, mode, angle, flags,
-                   idx, tlf, max_w, max_h):
+                   runs, tlf, max_w, max_h):
         """Emit one prediction unit; returns its level."""
-        rl = self._read_level_idx(pl, idx)
+        rl = self._read_level_runs(pl, runs)
         L = rl + 1
         is_sm = (flags >> 9) & 1
         ief = (flags >> 10) & 1
@@ -240,7 +334,7 @@ class _Builder:
                     ipred_ref._get_filter_strength(w + h, 90 - a, is_sm)
                     if ief else 0)
                 key = (pl, "z1", w, h, up)
-                row = (idx, tlf, dx << 1 if up else dx, st, py, px)
+                row = (runs, tlf, dx << 1 if up else dx, st, py, px)
             elif mode == ipred_ref.Z3_PRED:
                 dy = int(self.deriv[(270 - a) >> 1])
                 up = ipred_ref._get_upsample(w + h, a - 180, is_sm) \
@@ -249,7 +343,7 @@ class _Builder:
                     ipred_ref._get_filter_strength(w + h, a - 180, is_sm)
                     if ief else 0)
                 key = (pl, "z3", w, h, up)
-                row = (idx, tlf, dy << 1 if up else dy, st, py, px)
+                row = (runs, tlf, dy << 1 if up else dy, st, py, px)
             else:
                 dy = int(self.deriv[(a - 90) >> 1])
                 dx = int(self.deriv[(180 - a) >> 1])
@@ -264,15 +358,15 @@ class _Builder:
                     ipred_ref._get_filter_strength(w + h, 180 - a, is_sm)
                     if ief else 0)
                 key = (pl, "z2", w, h, ua, ul)
-                row = (idx, tlf, dx << 1 if ua else dx,
+                row = (runs, tlf, dx << 1 if ua else dx,
                        dy << 1 if ul else dy, st, sl, max_w, max_h,
                        py, px)
         elif mode == FILTER_PRED:
             key = (pl, "f", w, h)
-            row = (idx, tlf, angle & 511, py, px)
+            row = (runs, tlf, angle & 511, py, px)
         else:
             key = (pl, "s", w, h)
-            row = (idx, tlf, mode, py, px)
+            row = (runs, tlf, mode, py, px)
         self._emit(L, key, row)
         self._mark_write(pl, py, px, h_px, w_px, L)
         return L
@@ -386,12 +480,12 @@ class _Builder:
              else EDGE_I444_TOP_HAS_RIGHT) |
             (0 if (x > init_x or (not sb_has_bl and y + t_dim.h >= sub_h4))
              else EDGE_I444_LEFT_HAS_BOTTOM))
-        mode, angle, idx, tlf = edge_indices(
+        mode, angle, runs, tlf = edge_runs(
             bx, bx > col_start, by, by > row_start, col_end, row_end,
             edge_flags, self.strides[0], px, py, b.y_mode, b.y_angle,
             t_dim.w, t_dim.h, f.seq_hdr.intra_edge_filter, self.nflat[0])
         L = self._pred_unit(0, px, py, t_dim.w * 4, t_dim.h * 4, mode,
-                            angle, sm_fl, idx, tlf,
+                            angle, sm_fl, runs, tlf,
                             4 * f.bw - 4 * bx, 4 * f.bh - 4 * by)
         if not b.skip:
             cb = cbmap.get((0, bx, by))
@@ -417,7 +511,7 @@ class _Builder:
                        (not uv_sb_has_bl and y + uv_t_dim.h >= sub_ch4))
                  else EDGE_I444_LEFT_HAS_BOTTOM))
             uv_mode = lv.DC_PRED if is_cfl else b.uv_mode
-            mode, angle, idx, tlf = edge_indices(
+            mode, angle, runs, tlf = edge_runs(
                 cbx, cbx > (col_start >> ss_hor), cby,
                 cby > (row_start >> ss_ver), col_end >> ss_hor,
                 row_end >> ss_ver, edge_flags, self.strides[1 + pl],
@@ -427,7 +521,7 @@ class _Builder:
             max_w = (4 * f.bw + ss_hor - 4 * (b.bx & ~ss_hor)) >> ss_hor
             max_h = (4 * f.bh + ss_ver - 4 * (b.by & ~ss_ver)) >> ss_ver
             L = self._pred_unit(1 + pl, px, py, uv_t_dim.w * 4,
-                                uv_t_dim.h * 4, mode, angle, flags, idx,
+                                uv_t_dim.h * 4, mode, angle, flags, runs,
                                 tlf, max_w, max_h)
         if not b.skip:
             cb = cbmap.get((1 + pl, cbx, cby))
@@ -466,16 +560,16 @@ class _Builder:
             cbx = b.bx >> ss_hor
             cby = b.by >> ss_ver
             px, py = cbx * 4, cby * 4
-            mode, _, idx, _tlf = edge_indices(
+            mode, _, runs, _tlf = edge_runs(
                 cbx, cbx > (col_start >> ss_hor), cby,
                 cby > (row_start >> ss_ver), col_end >> ss_hor,
                 row_end >> ss_ver, 0, self.strides[1 + pl], px, py,
                 lv.DC_PRED, 0, uv_t_dim.w, uv_t_dim.h, 0,
                 self.nflat[1 + pl])
-            rl = max(self._read_level_idx(1 + pl, idx), luma_rl)
+            rl = max(self._read_level_runs(1 + pl, runs), luma_rl)
             L = rl + 1
             key = (1 + pl, "cfl", cw_px, ch_px, ss_hor, ss_ver)
-            self._emit(L, key, (idx, ypy, ypx, nh, nw,
+            self._emit(L, key, (runs, ypy, ypx, nh, nw,
                                 b.cfl_alpha[pl], mode, py, px))
             self._mark_write(1 + pl, py, px, ch_px, cw_px, L)
             out_level = max(out_level, L)
@@ -536,13 +630,13 @@ def build(recon, leftovers):
 # ---------------------------------------------------------------------------
 
 def _pred_rows(key, rows):
-    """A plan group's kernel unit rows (n, ipred.NCOL) int32 and index
-    rows (n, 321)."""
+    """A plan group's kernel unit rows (n, ipred.NCOL) and run rows (n,
+    ipred.NRUN), int64."""
     pl, kind, w, h = key[:4]
     n = len(rows)
     u = np.zeros((n, ipred.NCOL), np.int64)
     u[:, 0], u[:, 1], u[:, 2], u[:, 3] = pl, ipred.FAMILIES[kind], w, h
-    idx = np.stack([r[0] for r in rows])
+    runs = np.asarray([r[0] for r in rows], np.int64)
     rest = np.asarray([r[1:] for r in rows], np.int64)
     if kind == "cfl":                     # ypy, ypx, nh, nw, alpha, mode
         u[:, 8:14] = rest[:, 0:6]
@@ -555,73 +649,50 @@ def _pred_rows(key, rows):
         elif kind == "z2":
             u[:, 14], u[:, 15] = key[4], key[5]
     u[:, 4], u[:, 5] = rest[:, -2], rest[:, -1]   # py, px
-    return u, idx
+    return u, runs
 
 
-def level_tables(dplan, bases, pool_len, n_planes):
-    """Every level's kernel tables, host side: {("lo", level, name):
-    int32 array} with name "units" (n, NCOL) sorted by
-    ipred.unit_class, "idx" (n, 321), and per plane ("res", pl) /
-    ("res_blocks", pl) (ops/itx.py job rows, class-sorted, and their
-    res_blocks table) and ("wht", pl). bases: the pool offset of each
+def level_tables(dplan, bases, pool_len):
+    """The frame's kernel tables, host side: {("lo", name): int32 array}
+    over ops/ipred.py PLAN_TABLES (pack_plan: every level's units and
+    runs, its residual job rows binned per plane with their block rows,
+    its WHT jobs, the per-level offsets). bases: the pool offset of each
     tile; pool_len: the pool's length (a residual that reads past it
     raises)."""
-    out = {}
-    for L, groups in enumerate(dplan.levels):
-        units, idxs, res = [], [], []
+    levels = []
+    for groups in dplan.levels:
+        units, runs, res = [], [], []
         for key, rows in groups.items():
             if key[1] == "res":
                 # emitter RES layout: plane, tx, txtp, py, px, off, tile
                 res += [(key[0], key[2], key[3], r[0], r[1], r[3], r[2])
                         for r in rows]
                 continue
-            u, idx = _pred_rows(key, rows)
+            u, ru = _pred_rows(key, rows)
             units.append(u)
-            idxs.append(idx)
-        if units:
-            u = np.concatenate(units)
-            order = np.argsort(ipred.unit_class(u), kind="stable")
-            u = u[order]
-            u[:, 7] = np.arange(len(u))
-            out["lo", L, "units"] = u
-            out["lo", L, "idx"] = np.concatenate(idxs)[order]
-        if not res:
-            continue
-        res = np.asarray(res, np.int64)
-        cfoff = bases[res[:, 6]] + res[:, 5]
-        if int((cfoff + itx.CF_LEN[res[:, 1]]).max()) > pool_len:
-            raise ValueError("leftover residual reads past the "
-                             "coefficient pool")
-        rows, is_wht = itx.job_rows(res, cfoff)
-        for pi in range(n_planes):
-            mine = res[:, 0] == pi
-            if (mine & ~is_wht).any():
-                out["lo", L, "res", pi], out["lo", L, "res_blocks", pi] = \
-                    itx.res_blocks(rows[mine & ~is_wht])
-            if (mine & is_wht).any():
-                out["lo", L, "wht", pi] = rows[mine & is_wht]
-    return {k: np.ascontiguousarray(v, np.int32) for k, v in out.items()}
+            runs.append(ru)
+        jobs, plane, is_wht = np.zeros((0, 6)), (), ()
+        if res:
+            res = np.asarray(res, np.int64)
+            cfoff = bases[res[:, 6]] + res[:, 5]
+            if int((cfoff + itx.CF_LEN[res[:, 1]]).max()) > pool_len:
+                raise ValueError("leftover residual reads past the "
+                                 "coefficient pool")
+            jobs, is_wht = itx.job_rows(res, cfoff)
+            plane = res[:, 0]
+        levels.append((np.concatenate(units) if units else (),
+                       np.concatenate(runs) if runs else (), jobs, plane,
+                       is_wht))
+    return {("lo", k): v for k, v in ipred.pack_plan(levels).items()}
 
 
-def execute(recon, dplan):
-    """Run the leftover plan on the frame's device planes
-    (recon.pic.dev), level by level, in place: the level tables and the
-    coefficient pool are the device views ops/mc_fused.py execute left
-    on the reconstructor (recon.lo_views, recon.cf_pool_dev)."""
-    planes = recon.pic.dev
-    views = recon.lo_views
-    pool = recon.cf_pool_dev
-    bd = recon.bitdepth
+def execute(recon):
+    """Run the frame's leftover plan on its device planes
+    (recon.pic.dev), in place, in one ops/ipred.py `ipred_plan` call:
+    the plan's tables and the coefficient pool are the device views
+    ops/mc_fused.py execute left on the reconstructor (recon.lo_views,
+    recon.cf_pool_dev)."""
     f = recon.f
-    for L in range(len(dplan.levels)):
-        if ("lo", L, "units") in views:
-            ipred.ipred_level(planes, views["lo", L, "units"],
-                              views["lo", L, "idx"], bd, f.ss_hor,
-                              f.ss_ver)
-        for pi, plane in enumerate(planes):
-            if ("lo", L, "res", pi) in views:
-                itx.itx_add(pool, views["lo", L, "res", pi], plane, bd,
-                            blocks=views["lo", L, "res_blocks", pi])
-            if ("lo", L, "wht", pi) in views:
-                itx.itx_add(pool, views["lo", L, "wht", pi], plane, bd,
-                            wht=True)
+    tables = {k[1]: v for k, v in recon.lo_views.items()}
+    ipred.ipred_plan(recon.pic.dev, tables, recon.cf_pool_dev,
+                     recon.bitdepth, f.ss_hor, f.ss_ver)

@@ -21,9 +21,10 @@ the film grain kernel on its (every layout at bd 8/10/12, odd sizes,
 overlap on and off, chroma scaling from luma, the restricted range with
 and without is_id, copied planes; planes padded to 4 columns); both
 wrappers refuse rows that are not whole 16-byte vectors; the intra
-leftover kernel on its seeded levels (ops/kernel_cases.py ipred_cases:
-every family and geometry over every plane in one launch, units cut by
-the plane edges, bd 8/10/12, every layout) and two small leftover
+leftover frame kernel on its seeded levels (ops/kernel_cases.py
+ipred_cases: every family and geometry over every plane, units cut by
+the plane edges, bd 8/10/12, every layout) and multi-level plans with
+residuals (plan_cases), each in one launch, and two small leftover
 streams decoded on the card to their golden md5s; a golden-walk stream
 on the Python collector walk (DAV1D_TPU_INTERJOBS=python) to its golden
 md5s; the sharded decode (the mesh streams on 2 and 4 shards of the
@@ -774,40 +775,65 @@ def test_film_grain_wrapper_checks(cuda):
 @pytest.mark.parametrize("k", range(5), ids=["8-420", "8-444", "8-mono",
                                              "10-422", "12-420"])
 def test_ipred_kernel_vs_plain(cuda, k):
-    # one level over every plane: every family at every geometry it
-    # takes, units cut by the plane's right and bottom edges, the
-    # constant fills and tlf (kernel_cases.IPRED_LAYOUTS[k])
+    # one level over every plane as a frame plan: every family at every
+    # geometry it takes, units cut by the plane's right and bottom edges,
+    # edges from the availability walk with the constant fills, and tlf
+    # (kernel_cases.IPRED_LAYOUTS[k]); one launch
     from dav1d_tpu_torch.ops import ipred
     from dav1d_tpu_torch.ops import kernel_cases as kc
     case = kc.ipred_cases()[k]
     args = (case["bd"], case["ss_hor"], case["ss_ver"])
-    want, units, idx = kc.ipred_args(case, "cpu")
-    ipred.level_plain(want, units, idx, *args)
-    planes, units, idx = kc.ipred_args(case, cuda)
+    want, tables, pool = kc.plan_args(case, "cpu")
+    ipred.plan_plain(want, tables, pool, *args)
+    planes, tables, pool = kc.plan_args(case, cuda)
     before = ipred.LAUNCHES["ipred"]
-    ipred.ipred_level(planes, units, idx, *args)
+    ipred.ipred_plan(planes, tables, pool, *args)
     torch.cuda.synchronize()
     assert ipred.LAUNCHES["ipred"] == before + 1
     for got, w in zip(planes, want):
         assert torch.equal(got.cpu(), w)
 
 
+@pytest.mark.parametrize("k", range(3), ids=["8-420", "10-422", "12-420"])
+def test_ipred_plan_kernel_vs_plain(cuda, k):
+    # a multi-level plan with residuals and WHT jobs between the levels
+    # (kernel_cases.PLAN_LAYOUTS[k]): every level in one launch
+    from dav1d_tpu_torch.ops import ipred
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    case = kc.plan_cases()[k]
+    args = (case["bd"], case["ss_hor"], case["ss_ver"])
+    want, tables, pool = kc.plan_args(case, "cpu")
+    ipred.plan_plain(want, tables, pool, *args)
+    planes, tables, pool = kc.plan_args(case, cuda)
+    before = ipred.LAUNCHES["ipred"]
+    ipred.ipred_plan(planes, tables, pool, *args)
+    torch.cuda.synchronize()
+    assert ipred.LAUNCHES["ipred"] == before + 1
+    for got, w in zip(planes, want):
+        assert torch.equal(got.cpu(), w)
+    per, sms, smem = ipred.occupancy(case["bd"])
+    assert per >= 1 and sms >= 1 and smem > 0
+
+
 def test_ipred_wrapper_checks(cuda):
     from dav1d_tpu_torch.ops import ipred
     from dav1d_tpu_torch.ops import kernel_cases as kc
-    planes, units, idx = kc.ipred_args(kc.ipred_cases()[0], cuda)
+    planes, tables, pool = kc.plan_args(kc.plan_cases()[0], cuda)
     before = ipred.LAUNCHES["ipred"]
     with pytest.raises(ValueError):         # a CPU plane
-        ipred.level_cuda([planes[0].cpu(), *planes[1:]], units, idx, 8, 1, 1)
+        ipred.plan_cuda([planes[0].cpu(), *planes[1:]], tables, pool, 8, 1,
+                        1)
     with pytest.raises(TypeError):          # int64 units
-        ipred.level_cuda(planes, units.long(), idx, 8, 1, 1)
-    with pytest.raises(ValueError):         # index rows of another length
-        ipred.level_cuda(planes, units, idx[:, :320].contiguous(), 8, 1, 1)
+        ipred.plan_cuda(planes, {**tables, "units": tables["units"].long()},
+                        pool, 8, 1, 1)
+    with pytest.raises(ValueError):         # run rows of another width
+        ipred.plan_cuda(planes, {**tables, "runs": tables["runs"][:, :16]
+                                 .contiguous()}, pool, 8, 1, 1)
     with pytest.raises(ValueError):         # not contiguous
-        ipred.level_cuda([planes[0][:, 1:], *planes[1:]], units, idx, 8, 1,
-                         1)
+        ipred.plan_cuda([planes[0][:, 1:], *planes[1:]], tables, pool, 8,
+                        1, 1)
     with pytest.raises(ValueError):         # bit depth
-        ipred.level_cuda(planes, units, idx, 9, 1, 1)
+        ipred.plan_cuda(planes, tables, pool, 9, 1, 1)
     assert ipred.LAUNCHES["ipred"] == before
 
 

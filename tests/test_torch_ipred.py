@@ -12,8 +12,12 @@ plane's edges; `level_plain` on every ops/kernel_cases.py ipred_case
 unit by unit against the golden model (splat, filter-intra, CFL) and
 the directional plain versions alone; the cases' disjointness
 (what the kernel relies on); the port's `edge_indices` against
-dav1d_tpu's on random availability configs; the device LUTs and the
-dispatcher. Tolerance: none (torch.equal / np.array_equal)."""
+dav1d_tpu's on random availability configs, and `edge_runs` (the frame
+kernel's edge runs) expanding to `edge_indices`' rows on those configs
+and on every ipred_case unit; `plan_plain` (the frame kernel's
+contract) against the per-level sequence on the multi-level plan cases
+with residuals at bd 8 / 10 / 12; the device LUTs and the dispatcher.
+Tolerance: none (torch.equal / np.array_equal)."""
 import jax
 import numpy as np
 import pytest
@@ -367,14 +371,104 @@ def test_ipred_cases_are_one_level(case):
 
 
 def test_ipred_level_routes_by_device():
+    # ipred_plan: the plain version for CPU tensors (a one-level plan of
+    # the case, level_plain on its index rows), the kernel only for CUDA
     case = kc.ipred_cases()[2]
     planes, units, idx = kc.ipred_args(case, "cpu")
-    ref = [p.clone() for p in planes]
-    ipred.level_plain(ref, units, idx, 8, 1, 1)
-    ipred.ipred_level(planes, units, idx, 8, 1, 1)
-    assert all(torch.equal(a, b) for a, b in zip(planes, ref))
+    ipred.level_plain(planes, units, idx, 8, 1, 1)
+    got, tables, pool = kc.plan_args(case, "cpu")
+    ipred.ipred_plan(got, tables, pool, 8, 1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, planes))
     with pytest.raises(ValueError, match="CUDA"):
-        ipred.level_cuda(planes, units, idx, 8, 1, 1)
+        ipred.plan_cuda(got, tables, pool, 8, 1, 1)
+
+
+@pytest.mark.parametrize("tw,th", [(1, 1), (2, 1), (4, 4), (8, 2), (16, 16)])
+def test_edge_runs_expand_to_edge_indices(tw, th):
+    # the port's edge_runs on random availability configs: the same mode,
+    # angle and tlf as edge_indices, and runs that expand to its row
+    rng = np.random.default_rng(7 + tw * 131 + th)
+    H, W = 128, 160
+    w_t, h_t = W // 4, H // 4
+    for trial in range(150):
+        x = int(rng.integers(0, w_t - tw + 1))
+        y = int(rng.integers(0, h_t - th + 1))
+        args = (x, bool(x > 0 and rng.integers(0, 2)), y,
+                bool(y > 0 and rng.integers(0, 2)), w_t, h_t,
+                int(rng.integers(0, 64)), W, x * 4, y * 4,
+                int(rng.integers(0, 14)), int(rng.integers(-3, 4)), tw, th,
+                int(rng.integers(0, 2)), H * W)
+        mode, angle, runs, tlf = ipred_device.edge_runs(*args)
+        want = ipred_device.edge_indices(*args)
+        assert (mode, angle, tlf) == (want[0], want[1], want[3]), trial
+        assert len(runs) == ipred.NRUN
+        assert np.array_equal(ipred.run_indices(runs, H * W)[0], want[2]), \
+            trial
+
+
+@pytest.mark.parametrize("case", kc.ipred_cases(), ids=lambda c: str(c["bd"]))
+def test_ipred_case_runs_expand(case):
+    """Every unit's runs expand to the index row edge_indices gave on
+    the same arguments (kernel_cases._edge_source), and the case's walk
+    reaches every run shape: pixels with a repeat, constants, absent
+    runs, the top-left source."""
+    nflat = np.array([p.size for p in case["planes"]])
+    u = case["units"]
+    got = ipred.run_indices(case["runs"], nflat[u[:, 0]])
+    assert np.array_equal(got, case["idx"][u[:, 7]])
+    r = case["runs"].astype(np.int64)[u[:, 7]]
+    n = nflat[u[:, 0]]
+    for c in (ipred.RUN_LEFT, ipred.RUN_BL, ipred.RUN_TOP, ipred.RUN_TR):
+        start, stride, count, size = r[:, c:c + 4].T
+        assert (size == 0).any() and (size > 0).any()
+        assert ((start < n) & (stride > 0)).any()
+    left, top = r[:, ipred.RUN_LEFT:], r[:, ipred.RUN_TOP:]
+    for run in (left, top):       # pixels and their repeat, constants
+        assert ((run[:, 0] < n) & (run[:, 2] < run[:, 3])).any()
+        assert ((run[:, 0] >= n) & (run[:, 3] > 0)).any()
+    assert (r[:, ipred.RUN_TL] < n).any() and (r[:, ipred.RUN_TL] >= n).any()
+
+
+@pytest.mark.parametrize("k", range(len(kc.PLAN_LAYOUTS)),
+                         ids=["%d-%d%d" % c[:3] for c in kc.PLAN_LAYOUTS])
+def test_plan_plain_matches_level_sequence(k):
+    """plan_plain on pack_plan's tables equals the per-level sequence
+    (level_plain on each level's units and index rows, then each plane's
+    residual and WHT jobs through itx_add_plain) on a multi-level plan
+    with residuals; the tables keep each level's block_units (every
+    64-wide or 64-tall one among them) first and its block rows on their
+    planes."""
+    from dav1d_tpu_torch.ops import itx
+    case = kc.plan_cases()[k]
+    args = (case["bd"], case["ss_hor"], case["ss_ver"])
+    planes, tables, pool = kc.plan_args(case, "cpu")
+    ipred.plan_plain(planes, tables, pool, *args)
+    want = [torch.from_numpy(p.copy()) for p in case["planes"]]
+    for lv in case["levels"]:
+        ipred.level_plain(want, torch.from_numpy(lv["units"]),
+                          torch.from_numpy(lv["idx"]), *args)
+        for pl, plane in enumerate(want):
+            for wht in (False, True):
+                j = lv["jobs"][(lv["plane"] == pl) & (lv["wht"] == wht)]
+                if len(j):
+                    itx.itx_add_plain(pool, torch.from_numpy(j), plane,
+                                      args[0], wht=wht)
+    for got, w, p in zip(planes, want, case["planes"]):
+        assert torch.equal(got, w)
+        assert not np.array_equal(got.numpy(), p)
+    u = tables["units"].numpy()
+    blk = tables["blocks"].numpy()
+    res = tables["res"].numpy()
+    for u0, ub, u1, b0, b1, w0, w1 in tables["levels"].tolist():
+        big = ipred.block_units(u[u0:u1])
+        assert big[:ub - u0].all() and not big[ub - u0:].any()
+        assert big[(u[u0:u1, 2] == 64) | (u[u0:u1, 3] == 64)].all()
+        assert ub > u0 and u1 > ub and b1 > b0
+        for _, first, count, pl in blk[b0:b1]:
+            for py, px in res[first:first + count, 3:5]:
+                assert ((u[u0:u1, 0] == pl) & (u[u0:u1, 4] == py) &
+                        (u[u0:u1, 5] == px)).any()
+    assert len(tables["wht"]) > 0
 
 
 @pytest.mark.parametrize("tw,th", [(1, 1), (2, 1), (4, 4), (8, 2), (16, 16)])
