@@ -164,9 +164,8 @@ exits nonzero and prints no "ok" line:
                 frame unsharded
 20. leftovers  - s31, s7 and s21_realistic decoded whole with the
                 leftovers forced onto the device (DAV1D_TPU_LO=device)
-                and onto the host (=host): the same pictures, s31 and s7
-                on their recorded md5s, s21_realistic's stream md5 on
-                its recorded prefix; on the device route the ipred
+                and onto the host (=host): the same pictures, each on
+                its recorded md5s; on the device route the ipred
                 kernel launched, no fallback, no row fetched back; per
                 frame both routes' stage ms (inter.lo_build,
                 inter.lo_device against the host route's fetch, replay
@@ -182,7 +181,19 @@ exits nonzero and prints no "ok" line:
 22. post_filters - the small super-res and film grain streams
                 (POST_FILTERS) decoded on cuda to their golden md5s,
                 each launching its kernel
-23. kernels   - the per-kernel summary line (launches from inter_main,
+23. golden_route - the golden host route (DAV1D_TPU_BACKEND=numpy,
+                default Settings()): the GOLDEN_WALKS, POST_FILTERS and
+                LO_STREAMS streams and a mesh stream with a 2-shard mesh
+                in the Settings on their recorded md5s, no kernel
+                launched and no device memory allocated; then one
+                stream of each family on the device route to the same
+                pictures; the route's seconds
+24. mc_batch  - dav1d_tpu's batched per-block MC programs in their
+                plain torch versions (ops/mc.py `_put8_fn` ...
+                `_residual_scatter_fn`; no kernel of their own) on the
+                card and on the CPU from the same seeded inputs
+                (kernel_cases.mc_batch_cases), bd 8/10/12: torch.equal
+25. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame,
@@ -251,6 +262,22 @@ MD5_S31 = "2028903f9e5e69af98b0348d5e246e13"
 MD5S_S33 = ["2ed9103fb6b4e5d644968bac73475bed",
             "b002aae1da5dad11bfaeb690e02324eb"]
 MD5_S33 = "9c5ef1fd85042a0f5a78c9e22a1aad6f"
+# whole STREAM_4K10 (4 pictures) and whole s21_realistic (8), per
+# picture and over the stream: the port's golden host route and
+# dav1d_tpu's golden numpy path gave the same (tools/torch_golden_md5s.py)
+MD5S_S33_WHOLE = MD5S_S33 + ["0ea3a49559a62da3697d5c0361b0634e",
+                             "b289b5e89d996ffdcd398f3db7f16936"]
+MD5_S33_WHOLE = "efde4596f0e92078596e7f3718950adc"
+STREAM_S21 = "bench_streams/1920x1080_8b_flt_s21_realistic.ivf"
+MD5S_S21 = ["4f8685f869bd6b58685032fc33e76148",
+            "88b1e76baec5b245a6811512e8399a78",
+            "c383b45c31ec8260db6b347d81014be9",
+            "06bc52ee7b1442c41dd15d74a928ed16",
+            "8318eba61c0e7ac90dc381e171779043",
+            "bd715cb6979b2a20ede813ac294660b1",
+            "cd9ce8a7cfbfec0cce39391df9768dac",
+            "13c63c4030659a15295efab93cc7efe0"]
+MD5_S21 = "63042eb16c0d77b60d33b02bf5cc152d"
 # the streams of the host golden walks (tests/torch_port_cases.py
 # GOLDEN_WALKS: leftovers that are not pure intra, intrabc frames),
 # committed under GOLDEN_DIR: per picture and over the stream, the md5s
@@ -2137,12 +2164,11 @@ def phase_post_filters(torch):
 # directional blends, the filter-intra taps, CFL's scaling), a lower
 # bound; the bytes are counted per family by _ipred_work
 IPRED_OPS_PER_PX = 20
-# the leftovers phase's streams: (name, path, per-picture md5s or None,
-# stream md5 or its recorded prefix, rounds of untimed walls)
+# the leftovers phase's streams: (name, path, per-picture md5s, stream
+# md5, rounds of untimed walls)
 LO_BENCH = (("s31", STREAM_1080P, MD5S_S31, MD5_S31, 2),
             ("s7", STREAM_S7, MD5S_S7, MD5_S7, 1),
-            ("s21_realistic", "bench_streams/1920x1080_8b_flt_s21_realistic"
-             ".ivf", None, "63042eb1", 1))
+            ("s21_realistic", STREAM_S21, MD5S_S21, MD5_S21, 1))
 LO_STAGES = ("inter.lo_build", "inter.lo_device", "inter.fetch_region",
              "inter.leftovers", "inter.region_upload")
 
@@ -2402,10 +2428,10 @@ def _lo_decode(torch, path):
 def phase_leftovers(torch, card):
     """s31, s7 and s21_realistic decoded whole on cuda with the
     leftovers forced onto the device and then onto the host
-    (DAV1D_TPU_LO=device, =host): the same pictures, s31 and s7 on their
-    recorded md5s and s21_realistic's stream md5 on its recorded prefix;
-    on the device route the ipred kernel launched, no fallback and no
-    row fetched back on any frame; per frame both routes' stage ms
+    (DAV1D_TPU_LO=device, =host): the same pictures, each stream on its
+    recorded md5s (per picture and over the stream); on the device
+    route the ipred kernel launched, no fallback and no row fetched
+    back on any frame; per frame both routes' stage ms
     beside the leftover, level and unit counts (one decode with stage
     syncs each), and untimed walls of the routes in turns. Then the
     LO_STREAMS (GOLDEN_DIR) under =device to their golden md5s. Returns
@@ -2422,8 +2448,7 @@ def phase_leftovers(torch, card):
                                                                   path)
                 stats = {k: ipred_device.STATS[k] - stats[k]
                          for k in stats}
-            if not digest.startswith(md5) or \
-                    (pic_md5s and md5s != pic_md5s):
+            if digest != md5 or md5s != pic_md5s:
                 raise AssertionError(f"leftovers {name} {mode}: md5 "
                                      f"{digest} {md5s}")
             runs[mode] = {"frames": frames, "md5s": md5s, "stats": stats,
@@ -2829,6 +2854,100 @@ def phase_sharded(torch, card):
           "frame1_shards": SHARDED_PROFILE})
 
 
+# the golden_route phase: the stream of each family decoded again on the
+# device route (name, a mesh of that many shards or None), and the mesh
+# stream the route decodes with a mesh in its Settings
+GOLDEN_ROUTE_CHECKS = (("interintra", None), ("fg-inter", None),
+                       ("lo-base", None), ("mesh-rich-256x128", 2))
+
+
+def phase_golden_route(torch, card):
+    """The golden host route (DAV1D_TPU_BACKEND=numpy, ROADMAP item 16)
+    with a default Settings(): the GOLDEN_WALKS, POST_FILTERS and
+    LO_STREAMS streams and a mesh stream with a 2-shard mesh in the
+    Settings, each on its recorded md5s (per picture, and over the
+    stream; the mesh stream's over the stream), with no kernel launched
+    (every LAUNCHES count unchanged) and no device memory allocated
+    (torch.cuda.memory_allocated unchanged) over the decodes; then one
+    stream of each family on the device route to the same pictures. The
+    route's seconds and each stream's wall ms."""
+    import gc
+    from unittest import mock
+    t0 = time.perf_counter()
+    counts = _counts()
+    torch.cuda.synchronize()
+    gc.collect()                # earlier phases' tensors freed first
+    mem = torch.cuda.memory_allocated()
+    golden, walls = {}, {}
+    mesh_name, shards = GOLDEN_ROUTE_CHECKS[-1]
+    with mock.patch.dict(os.environ, {"DAV1D_TPU_BACKEND": "numpy"}):
+        for name, (pic_md5s, md5) in {**GOLDEN_WALKS, **POST_FILTERS,
+                                      **LO_STREAMS}.items():
+            _, digest, walls[name], _, md5s = _decode(
+                f"{GOLDEN_DIR}/{name}.ivf", timed=False)
+            if md5s != pic_md5s or digest != md5:
+                raise AssertionError(f"golden_route {name}: md5s {md5s} "
+                                     f"{digest} != {pic_md5s} {md5}")
+            golden[name] = md5s
+        _, digest, walls[mesh_name], _, golden[mesh_name] = _decode(
+            f"{GOLDEN_DIR}/{mesh_name}.ivf", timed=False,
+            mesh=_mesh_of(shards))
+        if digest != MESH_MD5S[mesh_name]:
+            raise AssertionError(f"golden_route {mesh_name}: md5 {digest}")
+    torch.cuda.synchronize()
+    gc.collect()
+    if _counts() != counts:
+        raise AssertionError(f"golden_route: kernels launched: "
+                             f"{counts} -> {_counts()}")
+    if torch.cuda.memory_allocated() != mem:
+        raise AssertionError(f"golden_route: device memory {mem} -> "
+                             f"{torch.cuda.memory_allocated()}")
+    seconds = time.perf_counter() - t0
+    for name, n in GOLDEN_ROUTE_CHECKS:
+        _, _, _, _, md5s = _decode(f"{GOLDEN_DIR}/{name}.ivf", timed=False,
+                                   mesh=n and _mesh_of(n))
+        if md5s != golden[name]:
+            raise AssertionError(f"golden_route {name}: the device route's "
+                                 f"{md5s} != the golden route's "
+                                 f"{golden[name]}")
+    emit({"phase": "golden_route", "card": card, "streams": len(golden),
+          "seconds": seconds, "wall_ms": walls,
+          "device_route_equal": [n for n, _ in GOLDEN_ROUTE_CHECKS]})
+
+
+def mc_batch_check(torch, device):
+    """Every case of kernel_cases.mc_batch_cases at bd 8/10/12 through
+    its ops/mc.py program on `device` and on the CPU: torch.equal.
+    Returns {program: cases}."""
+    from dav1d_tpu_torch.ops import kernel_cases as kc
+    from dav1d_tpu_torch.ops import mc
+    done = {}
+    for bd in (8, 10, 12):
+        for name, args, extra in kc.mc_batch_cases(bd):
+            fn = getattr(mc, name)
+            want = fn(*(torch.from_numpy(a) for a in args), *extra)
+            got = fn(*(_t(torch, a, device) for a in args), *extra)
+            pairs = zip(got, want) if isinstance(got, tuple) else \
+                [(got, want)]
+            for g, w in pairs:
+                if g.device.type != torch.device(device).type:
+                    raise AssertionError(f"mc_batch {name}: ran on "
+                                         f"{g.device}")
+                _check_equal(torch, g.cpu(), w, f"mc_batch {name} bd {bd}")
+            done[name] = done.get(name, 0) + 1
+    return done
+
+
+def phase_mc_batch(torch, card):
+    """dav1d_tpu's batched per-block MC programs (ROADMAP queue 2 entry
+    15) in their plain torch versions, which have no kernel of their
+    own: mc_batch_check on cuda."""
+    t0 = time.perf_counter()
+    done = mc_batch_check(torch, "cuda")
+    emit({"phase": "mc_batch", "card": card, "cases": done, "equal": True,
+          "seconds": time.perf_counter() - t0})
+
+
 def _itx_check_work(plan):
     """The work of itx_sharded_check on `plan`: its largest bucket (B
     blocks of one transform) through the residual kernel twice, the
@@ -2915,6 +3034,8 @@ def main():
         if name in ("sr-1080p", "fg-1080p"):
             lines[k]["launches"] = launches[k]
     phase_post_filters(torch)
+    phase_golden_route(torch, card)
+    phase_mc_batch(torch, card)
     sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
                            "dav1d_tpu/ops/lf_pallas.py:74"),
                "mc_put": ("dav1d_tpu_torch/csrc/mc_put.cu",

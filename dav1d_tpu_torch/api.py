@@ -17,6 +17,9 @@ dav1d_parse_sequence_header), with Dav1dSettings equivalents
 
 PyTorch port: Settings.device picks the torch device the pixel
 pipeline runs on ("cuda" by default; tests pass "cpu").
+DAV1D_TPU_BACKEND=numpy (or ref, off) decodes on the host golden
+models instead, with no device: Settings.device and sharding_mesh are
+then not read.
 """
 from __future__ import annotations
 
@@ -159,10 +162,12 @@ class Decoder:
                 raise err
             if pic is not None:         # else: pipelined invisible frame
                 # materialize a deferred device->host output transfer
-                # (queued by the Stage-B worker; see recon/filters.py)
+                # (queued by the Stage-B worker; see recon/filters.py),
+                # with the decode's device current; nothing to do for
+                # a picture of the golden host route
                 from .ops.device import fetch_pic_host
                 from .utils import timing
-                with timing.phase("fetch"):
+                with timing.phase("fetch"), self._dec.device_scope():
                     fetch_pic_host(pic)
                 self._dec.release_device_planes(pic)
                 pic.props = props or DataProps()

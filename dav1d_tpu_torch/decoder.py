@@ -9,13 +9,19 @@ PyTorch port of dav1d_tpu's decoder.py: key and intra frames
 reconstruct on the host (native engine), inter frames run Stage B on
 the settings' device (recon/inter_device.py), intrabc frames on the
 host (recon/inter_ref.py), and every frame runs the in-loop filter
-chain (super-res among it) and film grain there. With a sharding mesh
-(Settings.sharding_mesh, a parallel/sharded.py Mesh) inter Stage B and
-the filter chain run column-sharded over its shards
-(recon/sharded_stageb.py).
+chain (super-res among it) and film grain there, with that device made
+current (device_scope). With a sharding mesh (Settings.sharding_mesh, a
+parallel/sharded.py Mesh) inter Stage B and the filter chain run
+column-sharded over its shards (recon/sharded_stageb.py).
+
+Under DAV1D_TPU_BACKEND=numpy, ref or off (ops/device.device_enabled,
+read once when the decoder is built) every frame takes the golden host
+route instead, as dav1d_tpu's does under the same switch: the host
+golden models of every stage, no device, no mesh, no tensor.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -93,7 +99,11 @@ class ObuStreamDecoder:
         self._tile_pool = None        # lazy Stage-A tile thread pool
         self.device = None
         self.shard_devices = None       # the mesh's shards, when sharded
-        if do_recon:
+        # the golden host route: read here, not at each frame as
+        # dav1d_tpu does, so a decode keeps one route throughout
+        from .ops.device import device_enabled
+        self.golden = not device_enabled()
+        if do_recon and not self.golden:
             from .ops.device import resolve_device
             self.device = resolve_device(self.settings.device)
             if self.settings.sharding_mesh is not None:
@@ -510,10 +520,12 @@ class ObuStreamDecoder:
             in_cdf = self.refs[pri].cdf
 
         plan = FramePlan(f)
-        if not key_or_intra and self.do_recon and coder_factory is None:
+        if not key_or_intra and self.do_recon and coder_factory is None \
+                and not self.golden:
             # lazy-block fast path: native Stage A -> native inter-job
             # emitter -> device Stage B, with Python Block objects
-            # built only on demand (leftover replay)
+            # built only on demand (leftover replay); the golden inter
+            # walk needs every Block
             from .ops import lf_native
             from .recon import inter_jobs_native
             plan.want_lazy = (inter_jobs_native.available() and
@@ -639,8 +651,9 @@ class ObuStreamDecoder:
             alloc_token = picture_mod.set_picture_allocator(
                 self.settings.allocator)
         try:
-            pic = self._recon_and_finish_inner(plan, refp, fh, seq,
-                                               key_or_intra)
+            with self.device_scope():
+                pic = self._recon_and_finish_inner(plan, refp, fh, seq,
+                                                   key_or_intra)
         except BaseException:
             if alloc_token is not None:
                 picture_mod.reset_picture_allocator(alloc_token)
@@ -662,6 +675,16 @@ class ObuStreamDecoder:
                     picture_mod.reset_picture_allocator(alloc_token)
 
         return pic, finish
+
+    def device_scope(self):
+        """The context of this decoder's device work, on whichever
+        thread runs it: its CUDA device made current (the kernel
+        libraries launch on the current device), nothing for the CPU or
+        the golden host route."""
+        from .ops import cuda_build
+        if self.device is None:
+            return contextlib.nullcontext()
+        return cuda_build.device_guard(self.device)
 
     def release_device_planes(self, pic):
         """Drop the device planes of a picture that no ref slot holds
@@ -687,7 +710,7 @@ class ObuStreamDecoder:
             from .recon.intra import reconstruct_intra_frame
             with timing.phase("intra.frame_recon"):
                 pic = reconstruct_intra_frame(plan)
-        elif not key_or_intra:
+        elif not key_or_intra and not self.golden:
             if shards is not None:
                 from .recon.sharded_stageb import \
                     reconstruct_inter_frame_sharded
@@ -701,12 +724,16 @@ class ObuStreamDecoder:
         else:
             # intrabc frames copy from the picture being decoded: an
             # inherently sequential walk (reference recon_tmpl.c:1583),
-            # on the host; the filter chain uploads its planes
+            # on the host; the filter chain uploads its planes. On the
+            # golden route every inter frame takes this walk.
             from .recon.inter_ref import reconstruct_inter_frame
-            with timing.phase("intrabc.frame_recon"):
+            with timing.phase("golden.frame_recon" if self.golden else
+                              "intrabc.frame_recon"):
                 pic = reconstruct_inter_frame(plan, refp)
         ilf = self.settings.inloop_filters
-        if shards is not None:
+        if self.golden:
+            pic = self._filters_golden(pic, plan, fh)
+        elif shards is not None:
             # multi-device: the whole Stage-B pipeline column-sharded
             from .recon.sharded_stageb import run_filter_chain_sharded
             pic = run_filter_chain_sharded(pic, plan, ilf, self.device,
@@ -717,7 +744,8 @@ class ObuStreamDecoder:
         if self.pipeline is None:
             # synchronous decode (bare ObuStreamDecoder): callers read
             # host planes right away. Pipelined decode defers the
-            # output transfer to the consumer (api.get_picture).
+            # output transfer to the consumer (api.get_picture). A
+            # no-op on host planes (the golden route).
             from .ops.device import fetch_pic_host
             with timing.phase("fetch"):
                 fetch_pic_host(pic)
@@ -725,8 +753,38 @@ class ObuStreamDecoder:
         pic.frame_hdr = fh
         return pic
 
+    def _filters_golden(self, pic, plan, fh):
+        """The in-loop filter chain of the golden host route (dav1d_tpu's
+        decoder.py under DAV1D_TPU_BACKEND=numpy): the golden models in
+        the reference's order, on the host planes. Returns the filtered
+        picture (a new one after super-res)."""
+        ilf = self.settings.inloop_filters
+        with timing.phase("golden.filters"):
+            if ilf & 1:          # DAV1D_INLOOPFILTER_DEBLOCK
+                from .ops.lf_ref import apply_deblock
+                apply_deblock(pic, plan)
+            need_lr = (ilf & 4) and \
+                any(t != 0 for t in fh.restoration.type)
+            pre_cdef = [pl.astype("int32") for pl in pic.planes] \
+                if need_lr else None
+            if ilf & 2:          # DAV1D_INLOOPFILTER_CDEF
+                from .ops.cdef_ref import apply_cdef
+                apply_cdef(pic, plan)
+            if fh.width[0] != fh.width[1]:
+                from .ops.superres import apply_superres
+                pic, pre_cdef = apply_superres(pic, pre_cdef, plan)
+            if need_lr:          # DAV1D_INLOOPFILTER_RESTORATION
+                from .ops.restore_ref import apply_lr
+                apply_lr(pic, pre_cdef, plan)
+        return pic
+
     def _apply_grain(self, pic, fh, seq):
         """The grained output copy of a shown picture, made on the
-        decode's device; the reference picture stays clean."""
+        decode's device (on the host on the golden route); the
+        reference picture stays clean."""
+        if self.golden:
+            from .ops.fg_ref import apply_film_grain
+            return apply_film_grain(pic, fh, seq)
         from .ops.fg import apply_film_grain_device
-        return apply_film_grain_device(pic, fh, seq, self.device)
+        with self.device_scope():
+            return apply_film_grain_device(pic, fh, seq, self.device)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .cdef_ref import cdef_dirs, FILL, UV_DIRS
+from .cuda_build import launch_stream
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"cdef": 0}
@@ -344,7 +345,7 @@ def cdef_cuda(planes, maps, Hy, Wy, layout, bd, damping):
     dev = planes[0].device
     rc = _lib().cdef_frame((ct.c_void_p * 7)(*ptrs),
                            (ct.c_int * 13)(*dims), len(planes),
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"cdef kernel launch failed: CUDA error {rc}")
     LAUNCHES["cdef"] += 1

@@ -148,6 +148,20 @@ def per_device(lib, setup):
     return lib
 
 
+def launch_stream(device):
+    """The handle of `device`'s current stream, on which a wrapper
+    launches its kernel. The libraries launch in the current CUDA
+    device's context, so this raises unless `device` is that device:
+    a caller on another card enters device_guard(device) first."""
+    import torch
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise RuntimeError(
+            f"kernel launch for tensors on {device} while cuda:{current} "
+            f"is the current device: enter device_guard({device}) first")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def device_guard(device):
     """The context in which a wrapper launches on `device`: that CUDA
     device made current (the libraries launch on the current device's

@@ -6,10 +6,12 @@ workarounds and bit-packed HBD fetch).
 
 Entry points run on "cuda" unless the caller asks for "cpu" (tests do).
 There is no silent CPU path: asking for cuda on a machine without a
-usable card raises.
+usable card raises. The one route without a device is the golden host
+route that the user asks for by name (`device_enabled`).
 """
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -17,6 +19,14 @@ import torch
 
 from .. import tables
 from ..utils import timing
+
+
+def device_enabled() -> bool:
+    """False under DAV1D_TPU_BACKEND=numpy, ref or off, as in dav1d_tpu's
+    ops/backend.py: the decoder then takes the golden host route, the
+    host golden models of every stage, and makes no tensor."""
+    return os.environ.get("DAV1D_TPU_BACKEND", "device") not in (
+        "numpy", "ref", "off")
 
 
 def resolve_device(name) -> torch.device:

@@ -36,6 +36,7 @@ import torch
 
 from ..utils import timing
 from . import fg_ref
+from .cuda_build import launch_stream
 from .fg_ref import (FG_BLOCK_SIZE, GRAIN_HEIGHT, GRAIN_WIDTH, _rand,
                      generate_grain_uv, generate_grain_y, generate_scaling)
 
@@ -424,7 +425,7 @@ def film_grain_cuda(planes, fr, luts, scal, off):
              *fr.uv_offset]
     rc = _lib().film_grain((ct.c_void_p * len(ptrs))(*ptrs),
                            (ct.c_int * len(dims))(*dims),
-                           torch.cuda.current_stream(dev).cuda_stream)
+                           launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"film_grain kernel launch failed: CUDA error "
                            f"{rc}")

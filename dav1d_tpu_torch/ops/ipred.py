@@ -60,6 +60,7 @@ import torch
 from .. import tables
 from . import ipred_ref as r
 from . import itx
+from .cuda_build import launch_stream
 
 C = 160                 # edge buffer center (matches ipred_ref.Edge)
 EDGE_LEN = 2 * C + 1
@@ -677,7 +678,7 @@ def plan_cuda(planes, tables, pool, bd, ss_hor, ss_ver):
         n_levels, pool.data_ptr(),
         lut["ipred_sm_weights"].data_ptr(),
         lut["ipred_filter_taps"].data_ptr(), bd, ss_hor, ss_ver,
-        torch.cuda.current_stream(dev).cuda_stream, ct.byref(grid))
+        launch_stream(dev), ct.byref(grid))
     if rc != 0:
         per, sms, smem = occupancy(bd)
         raise RuntimeError(

@@ -34,7 +34,7 @@ import torch
 
 from ..entropy import levels as lv
 from . import itx_core
-from .cuda_build import cut_blocks
+from .cuda_build import cut_blocks, launch_stream
 from .itx_ref import TX1D_TYPES, TX_SHIFT
 
 N_TX = len(lv.TXFM_INFO)
@@ -235,7 +235,7 @@ def itx_add_cuda(pool, jobs, plane, bd, wht=False, blocks=None):
     rc = _lib().itx_add(pool.data_ptr(), jobs.data_ptr(), len(jobs),
                         blk_ptr, n_blk, plane.data_ptr(), plane.shape[0],
                         plane.shape[1], bd, int(wht),
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"itx_add kernel launch failed: CUDA error {rc}")
     LAUNCHES["itx_add"] += 1

@@ -76,14 +76,16 @@ def _mv(rng, h, w, n_refs, rh, rw, ft):
             int(rng.integers(0, n_refs))]
 
 
-def put_case(bd, seed, n_refs=3, width=512, sizes=None):
+def put_case(bd, seed, n_refs=3, width=512, sizes=None,
+             ref_shape=REF_SHAPE, frame=FRAME):
     """Puts with every filter type (8-tap and bilinear) in turn. sizes:
     (h, w, copy) per job, copy meaning integer motion (amx = amy = 0;
     other jobs get a nonzero phase); by default every put size twice
-    with subpel motion, then every size once more as a copy. Returns
-    {refs (R, H, W), jobs (n, 11), dst_shape, rh, rw}."""
+    with subpel motion, then every size once more as a copy. ref_shape:
+    the allocated reference planes, frame their valid (rows, columns).
+    Returns {refs (R, H, W), jobs (n, 11), dst_shape, rh, rw}."""
     rng = np.random.default_rng(seed)
-    rh, rw = FRAME
+    rh, rw = frame
     if sizes is None:
         sizes = [(h, w, False) for h, w in PUT_SIZES for _ in range(2)] + \
             [(h, w, True) for h, w in PUT_SIZES]
@@ -97,8 +99,9 @@ def put_case(bd, seed, n_refs=3, width=512, sizes=None):
         elif amx == amy == 0:
             amx = 8
         jobs.append([0, h, w, py[i], px[i], slot, dy, dx, amx, amy, ft])
-    return {"refs": _refs(rng, bd, n_refs), "jobs": np.asarray(jobs,
-            np.int32), "dst_shape": (height, width), "rh": rh, "rw": rw}
+    return {"refs": _refs(rng, bd, n_refs, ref_shape),
+            "jobs": np.asarray(jobs, np.int32),
+            "dst_shape": (height, width), "rh": rh, "rw": rw}
 
 
 def ragged_put_sizes():
@@ -138,14 +141,15 @@ def ragged_comp_sizes():
 
 
 def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512, sizes=None,
-              ref_shape=REF_SHAPE):
+              ref_shape=REF_SHAPE, frame=FRAME):
     """Luma and chroma compound jobs with every combine mode: avg,
     distance-weighted avg, seg mask (luma computes it, chroma reads the
     seg plane) and wedge (classes 16 and 32, the layout's masks). With
     `sizes` (luma (h, w) per job), those jobs, the modes in turn (wedge
     where the size has masks). ref_shape: the allocated luma reference
-    plane. Returns {refs_y, refs_c, jobs_y (n, 25), jobs_c (n, 25),
-    dst_y, dst_c, seg_shape, bounds_y, bounds_c}."""
+    plane, frame its valid (rows, columns). Returns {refs_y, refs_c,
+    jobs_y (n, 25), jobs_c (n, 25), dst_y, dst_c, seg_shape, bounds_y,
+    bounds_c}."""
     rng = np.random.default_rng(seed)
     clidx = LAYOUT_CLIDX[(ss_hor, ss_ver)]
     if sizes is None:
@@ -157,7 +161,7 @@ def comp_case(bd, seed, ss_hor, ss_ver, n_refs=3, width=512, sizes=None,
         kinds = [(s, modes[i % (4 if s in WEDGE_SIZES else 3)])
                  for i, s in enumerate(sizes)]
     py, px, height = pack([s for s, _ in kinds], width)
-    rh, rw = FRAME
+    rh, rw = frame
     rhc, rwc = (rh + ss_ver) >> ss_ver, (rw + ss_hor) >> ss_hor
     shape_c = (ref_shape[0] >> ss_ver, ref_shape[1] >> ss_hor)
     jobs_y, jobs_c = [], []
@@ -206,9 +210,10 @@ def _coefs(rng, n, bd, style):
     return out
 
 
-def itx_case(bd, seed, width=512):
+def itx_case(bd, seed, width=512, repeat=1):
     """One residual job per (tx, row kind, column kind) of all 19
-    transform sizes, plus a table of WHT jobs. Returns {pool, jobs
+    transform sizes (each `repeat` times), plus a table of WHT jobs.
+    Returns {pool, jobs
     (n, 6) [tx, ridx, cidx, py, px, cfoff], wht (m, 6), plane}."""
     from .itx import CF_LEN, res_tx_kinds
     rng = np.random.default_rng(seed)
@@ -217,6 +222,7 @@ def itx_case(bd, seed, width=512):
         rk, ck = res_tx_kinds(tx)
         combos += [(tx, r, c) for r, c in itertools.product(
             range(len(rk)), range(len(ck)))]
+    combos *= repeat
     n_wht = 24
     sizes = [(4 * lv.TXFM_INFO[tx].h, 4 * lv.TXFM_INFO[tx].w)
              for tx, _, _ in combos] + [(4, 4)] * n_wht
@@ -327,13 +333,13 @@ WARP_EXTREMES = [(16320, 0, 8128, 8128, 0, 0),
                  (7616, 4992, -8128, 8128, 32768, 4096)]
 
 
-def _plane_geo(ss_hor, ss_ver):
+def _plane_geo(ss_hor, ss_ver, ref_shape=REF_SHAPE, frame=FRAME):
     """Per plane of a 3-plane frame: (ref_shape, (rh, rw), ss_h, ss_v)."""
     out = []
     for pi in range(3):
         sh, sv = (ss_hor, ss_ver) if pi else (0, 0)
-        out.append(((REF_SHAPE[0] >> sv, REF_SHAPE[1] >> sh),
-                    ((FRAME[0] + sv) >> sv, (FRAME[1] + sh) >> sh),
+        out.append(((ref_shape[0] >> sv, ref_shape[1] >> sh),
+                    ((frame[0] + sv) >> sv, (frame[1] + sh) >> sh),
                     sh, sv))
     return out
 
@@ -352,17 +358,18 @@ def _warp_params(rng):
 
 
 def warp_case(bd, seed, ss_hor=1, ss_ver=1, n_refs=3, tiles=48,
-              width=256):
+              width=256, ref_shape=REF_SHAPE, frame=FRAME):
     """Warp tiles of a 3-plane frame, `tiles` per plane: random valid
     shears and the WARP_EXTREMES (filter rows 0 and 192 reached), windows
     on and across every frame edge. mx / my carry the emitter's offsets:
     ((frac - 4 alpha - 7 beta) & ~63, (frac - 4 gamma - 4 delta) & ~63).
-    Returns {planes: [{refs (R, H, W), dst_shape, rh, rw}], jobs (n,
-    12)}."""
+    ref_shape, frame: the luma reference planes' allocated and valid
+    shapes. Returns {planes: [{refs (R, H, W), dst_shape, rh, rw}], jobs
+    (n, 12)}."""
     rng = np.random.default_rng(seed)
     planes, jobs = [], []
     for pi, (ref_shape, (rh, rw), _, _) in enumerate(
-            _plane_geo(ss_hor, ss_ver)):
+            _plane_geo(ss_hor, ss_ver, ref_shape, frame)):
         py, px, height = pack([(8, 8)] * tiles, width)
         for i in range(tiles):
             if i < len(WARP_EXTREMES):
@@ -391,22 +398,24 @@ def obmc_geometries(top, h_mul, v_mul):
             for ow4 in (1, 2, 4, 8) for oh4 in (2, 4, 8, 16)]
 
 
-def obmc_case(bd, seed, ss_hor=1, ss_ver=1, n_refs=3, width=256):
+def obmc_case(bd, seed, ss_hor=1, ss_ver=1, n_refs=3, width=256,
+              ref_shape=REF_SHAPE, frame=FRAME, repeat=1):
     """OBMC laps of a 3-plane frame: per plane, every top and every left
     geometry the emitter writes (obmc_geometries), paired on blocks, a
     top and a left lap at the same (py, px) (the left one reading the
     corner the top one wrote); every 8-tap filter type in turn, random
     phases (0 included), windows on and across every frame edge; and
     blocks across the plane's right edge, its bottom edge and its corner
-    (their writes cut at the plane). Returns {planes: [{refs, plane (the
+    (their writes cut at the plane); the pairs `repeat` times. ref_shape,
+    frame: as warp_case's. Returns {planes: [{refs, plane (the
     predictions blended into), rh, rw}], top (n, 13), left (m, 13)}."""
     rng = np.random.default_rng(seed)
     planes, laps = [], {1: [], 0: []}
     k = 0
     for pi, (ref_shape, (rh, rw), sh, sv) in enumerate(
-            _plane_geo(ss_hor, ss_ver)):
+            _plane_geo(ss_hor, ss_ver, ref_shape, frame)):
         geo = {t: obmc_geometries(t, 4 >> sh, 4 >> sv) for t in (1, 0)}
-        n = max(len(geo[1]), len(geo[0]))
+        n = max(len(geo[1]), len(geo[0])) * repeat
         pairs = [(geo[1][i % len(geo[1])], geo[0][(i * 5) % len(geo[0])])
                  for i in range(n)]
         # edge blocks: the largest top lap, the largest left laps
@@ -727,15 +736,16 @@ def lr_args(case, device):
             case["hmax"], case["wmax"], case["bd"])
 
 
-def frame_case(bd, layout, kind):
+def frame_case(bd, layout, kind, w_y=3 * 64 + 90, repeat=2):
     """The items of every plane of one frame for the one-launch Wiener
     or SGR kernel (kind): luma and (but for monochrome, layout 0) two
     chroma planes of the layout's shape, each with its own valid width
     (columns beyond it junk, which the clamped reads must not reach),
     stripe height (luma 64, 4:2:0 chroma 32) and unit size (luma 64,
     chroma 32); units across the whole width as _collect_items cuts them
-    (the first at ox = 0, the last ending at ox + ows = w) over 16
-    stripes of LR_STRIPES heights, with edge flags (stripe + 5 unit) %
+    (the first at ox = 0, the last ending at ox + ows = w; luma w_y
+    wide) over the LR_STRIPES heights `repeat` times (16 stripes by
+    default), with edge flags (stripe + 5 unit) %
     16, so that every combination meets both plane edges. Items of
     `kind` everywhere but luma's second unit column, which is of the
     other filter; Wiener taps as lr_case, SGR parameter rows in turn
@@ -744,7 +754,6 @@ def frame_case(bd, layout, kind):
     rng = np.random.default_rng((3000 if kind == "wiener" else 4000) +
                                 10 * bd + layout)
     ss_ver, ss_hor = int(layout == 1), int(layout != 3)
-    w_y = 3 * 64 + 90
     planes = []
     for p in range(3 if layout else 1):
         sv, sh = (ss_ver, ss_hor) if p else (0, 0)
@@ -755,7 +764,7 @@ def frame_case(bd, layout, kind):
         while x < w:
             units.append(w - x if x + us + us // 2 > w else us)
             x += units[-1]
-        heights = LR_STRIPES[hmax] * 2
+        heights = LR_STRIPES[hmax] * repeat
         Hp, Wp = sum(heights) + 8, w + 16
         cur = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS)
         pre = _cdef_blocks(rng, Hp, Wp, bd, LR_KINDS[::-1])
@@ -1289,3 +1298,104 @@ def shard_planes(planes, T, device, ss_hor=1):
     return [to_sharded(np.ascontiguousarray(p, np.int32), T, sw >> s,
                        devices) for p, s in zip(planes, sh)], devices
 
+
+
+# dav1d_tpu's batched per-block MC programs (ops/mc.py `_put8_fn` ...
+# `_residual_scatter_fn`): MC_BATCH_N jobs a case on references of
+# MC_BATCH_REF, windows from origins on and past every edge (clamped),
+# the scatter forms' jobs on disjoint cells of MC_BATCH_PLANE with the
+# padding's destinations past either end of the plane
+MC_BATCH_N = 32
+MC_BATCH_REF = (3, 96, 112)
+MC_BATCH_PLANE = (128, 128)
+MC_BATCH_SENTINEL = 1 << 20
+
+
+def mc_batch_cases(bd, seed=0):
+    """[(program name, numpy args, trailing args)] of every batched
+    program of ops/mc.py at bd: puts and preps (8-tap, bilinear, warp),
+    compounds of every combine mode at 4:2:0, 4:2:2 and 4:4:4, OBMC top
+    and left laps, residual adds, and each scatter form."""
+    from .mc import COMP_AVG, COMP_MASK, COMP_SEG, COMP_WAVG, filter_banks
+    rng = np.random.default_rng(7000 + bd + seed)
+    n = MC_BATCH_N
+    R, HR, WR = MC_BATCH_REF
+    H, W = MC_BATCH_PLANE
+    px = lambda *shape: rng.integers(0, 1 << bd, shape).astype(np.int32)
+    REF, plane = px(R, HR, WR), px(H, W)
+    fb = filter_banks()
+
+    def ids(length, size):
+        start = rng.integers(-6, size + 2, n)[:, None]
+        return np.clip(start + np.arange(length), 0, size - 1).astype(
+            np.int32)
+
+    def slot():
+        return rng.integers(0, R, n).astype(np.int32)
+
+    def taps(h, w):
+        ft, mx, my = (rng.integers(0, 16, n) for _ in range(3))
+        return fb[int(w <= 4), ft & 3, mx], fb[int(h <= 4), (ft >> 2) & 3, my]
+
+    def win8(h, w):
+        return (ids(h + 7, HR), ids(w + 7, WR), slot(), *taps(h, w))
+
+    def phases():
+        return (rng.integers(0, 16, n).astype(np.int32),
+                rng.integers(0, 16, n).astype(np.int32))
+
+    def warp():
+        return (ids(15, HR), ids(15, WR), slot(),
+                *rng.integers(-20000, 20000, (2, n)).astype(np.int32),
+                *rng.integers(-1000, 1000, (4, n)).astype(np.int32))
+
+    def comb(h, w):
+        modes = np.array([COMP_AVG, COMP_WAVG, COMP_SEG, COMP_MASK])
+        return (modes[np.arange(n) % 4].astype(np.int32),
+                rng.integers(0, 17, n).astype(np.int32),
+                rng.integers(0, 2, n).astype(np.int32),
+                rng.integers(0, 65, (n, h, w)).astype(np.int8))
+
+    def region(rows, cols):
+        return (ids(rows, H), ids(cols, W))
+
+    def padded(h, w, ph, pw):
+        cells = rng.permutation((H // ph) * (W // pw))[:n]
+        drows = (cells // (W // pw))[:, None] * ph + np.arange(ph)
+        dcols = (cells % (W // pw))[:, None] * pw + np.arange(pw)
+        s = MC_BATCH_SENTINEL
+        drows[:, h:] = np.where(np.arange(ph - h) % 2, s, -s)
+        dcols[:, w:] = s
+        return drows.astype(np.int32), dcols.astype(np.int32)
+
+    res = lambda h, w: rng.integers(-(2 << bd), 2 << bd, (n, h, w)).astype(
+        np.int32)
+    out = []
+    for put in (True, False):
+        out += [("_put8_fn", (REF, *win8(16, 8)), (bd, put)),
+                ("_bilin_fn", (REF, ids(9, HR), ids(17, WR), slot(),
+                               *phases()), (bd, put)),
+                ("_warp_fn", (REF, *warp()), (bd, put))]
+    for ss in ((1, 1), (1, 0), (0, 0)):
+        out.append(("_compound_fn", (REF, *win8(16, 16), *win8(16, 16),
+                                     *comb(16, 16)), (bd, *ss)))
+    out += [("_obmc_blend_fn", (REF, *win8(16, 32), plane,
+                                *region(12, 32)), (bd, True)),
+            ("_obmc_blend_fn", (REF, *win8(32, 16), plane,
+                                *region(32, 12)), (bd, False)),
+            ("_residual_fn", (plane, *region(8, 16), res(8, 16)), (bd,))]
+    out += [("_put8_scatter_fn", (REF, *win8(16, 16), plane,
+                                  *padded(12, 10, 16, 16)), (bd,)),
+            ("_bilin_scatter_fn", (REF, ids(17, HR), ids(17, WR), slot(),
+                                   *phases(), plane,
+                                   *padded(12, 10, 16, 16)), (bd,)),
+            ("_warp_scatter_fn", (REF, *warp(), plane,
+                                  *padded(8, 8, 8, 8)), (bd,)),
+            ("_compound_scatter_fn", (REF, *win8(16, 16), *win8(16, 16),
+                                      *comb(16, 16), plane,
+                                      *padded(12, 10, 16, 16)), (bd, 1, 1)),
+            ("_obmc_scatter_fn", (REF, *win8(16, 16), plane,
+                                  *padded(12, 16, 16, 16)), (bd, True)),
+            ("_residual_scatter_fn", (plane, *padded(12, 10, 16, 16),
+                                      res(16, 16)), (bd,))]
+    return out

@@ -35,6 +35,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
+from .cuda_build import launch_stream
 from .lf_ref import build_lf_masks
 
 PAD = 8
@@ -269,7 +270,7 @@ def deblock_frame_cuda(entries, lut_e, lut_i, bd):
     rc = _lib().deblock_frame(
         (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
         len(entries), lut_e.data_ptr(), lut_i.data_ptr(), bd,
-        torch.cuda.current_stream(dev).cuda_stream)
+        launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {rc}")
     LAUNCHES["deblock"] += 1

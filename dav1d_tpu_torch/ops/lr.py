@@ -33,6 +33,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
+from .cuda_build import launch_stream
 from .restore_ref import (LR_HAVE_LEFT, LR_HAVE_RIGHT, LR_HAVE_TOP,
                           LR_HAVE_BOTTOM, _sgr_params_tbl)
 
@@ -260,7 +261,7 @@ def _frame_launch(kind, planes, items, rowt, blocks, bd):
     dims[15:] = (len(planes), n, rw, nb, bd)
     rc = getattr(_lib(name), name)(
         (ct.c_void_p * len(ptrs))(*ptrs), (ct.c_int * len(dims))(*dims),
-        torch.cuda.current_stream(dev).cuda_stream)
+        launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import mc
+from .cuda_build import launch_stream
 from .mc_ref import intermediate_bits, obmc_masks
 
 MAX_DIM = 64            # the kernel's largest ww, hh and lap_h
@@ -194,7 +195,7 @@ def obmc_cuda(planes, top, left, bd):
            for t in (top, left)]
     launched = ct.c_int(0)
     rc = _lib().mc_obmc(ptrs, dims, len(planes), *arg[0], *arg[1], bd,
-                        torch.cuda.current_stream(dev).cuda_stream,
+                        launch_stream(dev),
                         ct.byref(launched))
     if rc != 0:
         raise RuntimeError(f"mc_obmc kernel launch failed: CUDA error {rc}")

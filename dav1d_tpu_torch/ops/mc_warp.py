@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import mc
+from .cuda_build import launch_stream
 from .mc_ref import _warp_filter, intermediate_bits
 
 N_ROWS = 193            # rows of dav1d_mc_warp_filter
@@ -117,7 +118,7 @@ def warp_cuda(planes, jobs, bd):
     dev = planes[0][1].device
     rc = _lib().mc_warp(ptrs, dims, len(planes), jobs.data_ptr(),
                         len(jobs), bd,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"mc_warp kernel launch failed: CUDA error {rc}")
     mc.LAUNCHES["mc_warp"] += 1

@@ -12,6 +12,10 @@ step of its recon/filters.py. Two implementations of a frame's resize:
 - the hand-written CUDA kernel csrc/superres.cu, used for every CUDA
   tensor (`resize_frame_cuda`: every plane and source in one launch).
 
+`apply_superres` is the golden host model of the step (dav1d_tpu's, on
+numpy planes through mc_ref.resize_plane), which the golden host route
+runs (DAV1D_TPU_BACKEND=numpy).
+
 Output column ox reads source columns clip(src_x - 3 .. src_x + 4, 0,
 src_w - 1) with the taps of dav1d_resize_filter row `phase`, where
 T = mx0 + ox * step, src_x = (T >> 14) - 1 and phase = (T & 0x3fff) >>
@@ -26,7 +30,8 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .mc_ref import _resize_filter, get_upscale_x0, scale_fac
+from .cuda_build import launch_stream
+from .mc_ref import _resize_filter, get_upscale_x0, resize_plane, scale_fac
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"superres": 0}
@@ -180,7 +185,7 @@ def resize_frame_cuda(jobs, bd):
         dims += [src_w, src.shape[1], h, dst_w, *dst.shape, step, mx0]
     rc = _lib().superres((ct.c_void_p * len(ptrs))(*ptrs),
                          (ct.c_int * len(dims))(*dims), len(jobs), bd,
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"superres kernel launch failed: CUDA error "
                            f"{rc}")
@@ -253,3 +258,29 @@ def superres_planes_device(planes, pre_cdef, plan, pic):
     out = resize_frame(jobs, pic.bpc)
     n = len(geo)
     return newpic, out[:n], (out[n:] if pre_cdef is not None else None)
+
+
+def apply_superres(pic, pre_cdef, plan):
+    """The golden host super-res of a frame (dav1d_tpu's ops/superres.py
+    apply_superres): a new output-width Picture with each host plane's
+    rows resized by mc_ref.resize_plane, and, when pre_cdef (int32 numpy
+    planes) is given, the resized snapshot in int32 planes of the output
+    planes' padded shape (zero outside the resized area). Returns (the
+    new Picture, the resized snapshot or None)."""
+    from ..recon.picture import Picture
+    fh = plan.f.frame_hdr
+    out = Picture(fh.width[1], fh.height, pic.layout, pic.bpc)
+    out_pre = [None] * 3 if pre_cdef is not None else None
+    geo = frame_geometry(plan.f, pic.layout, pic.ss_hor, pic.ss_ver)
+    for pl, (src_w, h, dst_w, step, mx0) in enumerate(geo):
+        res = resize_plane(pic.planes[pl][:h], src_w, h, dst_w, step, mx0,
+                           pic.bpc)
+        out.planes[pl][:h, :dst_w] = res.astype(out.planes[pl].dtype)
+        if pre_cdef is not None:
+            # the padded geometry of the planes without super-res (the
+            # stripe context may read past the visible area)
+            buf = np.zeros(out.planes[pl].shape, np.int32)
+            buf[:h, :dst_w] = resize_plane(pre_cdef[pl][:h], src_w, h,
+                                           dst_w, step, mx0, pic.bpc)
+            out_pre[pl] = buf
+    return out, out_pre

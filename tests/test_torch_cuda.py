@@ -29,7 +29,8 @@ streams decoded on the card to their golden md5s; a golden-walk stream
 on the Python collector walk (DAV1D_TPU_INTERJOBS=python) to its golden
 md5s; the sharded decode (the mesh streams on 2 and 4 shards of the
 card to dav1d_tpu's md5s; the CDEF, Wiener, SGR and deblock kernels on
-shard windows against the same kernels on the whole planes). Marked
+shard windows against the same kernels on the whole planes); a wrapper
+refusing planes that are not on the current CUDA device. Marked
 `cuda`: it
 skips without a card. On the card it runs without JAX (this file
 imports only the port):
@@ -113,6 +114,26 @@ def test_wrapper_checks(cuda):
     unaligned.copy_(P)
     with pytest.raises(ValueError, match="aligned"):
         run(unaligned)
+
+
+def test_wrapper_raises_off_the_current_device(cuda, monkeypatch):
+    """A wrapper launches in the current CUDA device's context, so it
+    raises on planes of another device (ops/cuda_build.py launch_stream)
+    before launching: here the current device reads as another card."""
+    P, maps, le, li = _inputs(8, True, 8, 8, cuda)
+
+    def run():
+        return lf.deblock_frame_cuda([(P, True, maps[0], maps[1])], le, li,
+                                     8)
+    want = run()
+    launched = lf.LAUNCHES["deblock"]
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: P.device.index + 1)
+    with pytest.raises(RuntimeError, match="device_guard"):
+        run()
+    assert lf.LAUNCHES["deblock"] == launched
+    monkeypatch.undo()
+    assert torch.equal(run()[0], want[0])
 
 
 def _frame_entries(bd, shapes, device, seed=0):

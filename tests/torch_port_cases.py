@@ -824,3 +824,28 @@ COMMITTED_MD5S = {
         "3ed1498a87d35d35e6e920c77b807d2a"],
         "2503f1161c70844b20fd4a8a95cf8ec2")}
 
+
+
+# whole bench streams on the CPU (tools/torch_golden_md5s.py): the port's
+# golden host route and dav1d_tpu's golden numpy path
+# (DAV1D_TPU_BACKEND=numpy, Settings(n_threads=1)) gave the same per
+# picture and over the stream; chip_smoke.py holds them as
+# MD5S_S33_WHOLE / MD5_S33_WHOLE and MD5S_S21 / MD5_S21
+WHOLE_STREAM_MD5S = {
+    "bench_streams/3840x2160_10b_flt_s33_enc.ivf": ([
+        "2ed9103fb6b4e5d644968bac73475bed",
+        "b002aae1da5dad11bfaeb690e02324eb",
+        "0ea3a49559a62da3697d5c0361b0634e",
+        "b289b5e89d996ffdcd398f3db7f16936"],
+        "efde4596f0e92078596e7f3718950adc"),
+    "bench_streams/1920x1080_8b_flt_s21_realistic.ivf": ([
+        "4f8685f869bd6b58685032fc33e76148",
+        "88b1e76baec5b245a6811512e8399a78",
+        "c383b45c31ec8260db6b347d81014be9",
+        "06bc52ee7b1442c41dd15d74a928ed16",
+        "8318eba61c0e7ac90dc381e171779043",
+        "bd715cb6979b2a20ede813ac294660b1",
+        "cd9ce8a7cfbfec0cce39391df9768dac",
+        "13c63c4030659a15295efab93cc7efe0"],
+        "63042eb16c0d77b60d33b02bf5cc152d"),
+}
