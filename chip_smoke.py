@@ -193,7 +193,20 @@ exits nonzero and prints no "ok" line:
                 `_residual_scatter_fn`; no kernel of their own) on the
                 card and on the CPU from the same seeded inputs
                 (kernel_cases.mc_batch_cases), bd 8/10/12: torch.equal
-25. kernels   - the per-kernel summary line (launches from inter_main,
+25. pipeline  - the Stage-B frame pipeline's depth: s31's 8 frames at
+                Stage-B depths 1-4 (DAV1D_TPU_STAGEB_DEPTH =
+                max_frame_delay = d) in bench.py's loop (every unit
+                sent, then the pictures drained), and at the default
+                depth in the CLI's loop (drained after each unit); one
+                warm-up each, then 3 untimed walls each in turns, every
+                decode on MD5S_S31; per case the walls' median and
+                spread, the main thread's ms blocked in submit_split,
+                the workers' ms blocked on reference promises and the
+                caller's ms blocked on output promises (the pipeline
+                wrapped from here), the launches of its first timed
+                decode; the winning depth; then whole s33 (4 pictures)
+                at the default depth on MD5S_S33_WHOLE
+26. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
                 device, plain and bound ms from s31 frame 1 in
                 kernel_real, the deblock's from the synthetic frame,
@@ -477,9 +490,15 @@ _T0 = time.perf_counter()
 
 def emit(obj):
     """Print obj as one JSON line; a phase's line with t_s, the seconds
-    since the script started."""
+    since the script started, and, where it holds stage ms, the Stage-B
+    depth of its decodes: utils.timing sums a stage over threads, so at
+    a depth above 1 the Stage-B workers' stage ms overlap in time."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}
+        if any("stage" in k for k in obj):
+            from dav1d_tpu_torch.decoder import stageb_depth
+            obj["stage_ms_summed_over_threads_at_stageb_depth"] = \
+                stageb_depth(0, False)
     print(json.dumps(obj), flush=True)
 
 
@@ -1602,11 +1621,16 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
 
 
 def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
-            mesh=None):
+            mesh=None, max_frame_delay=0, feed_ahead=False):
     """Decode `path` (its first n_tu temporal units; keyframes only
-    with frame_type=3; n_threads as Settings takes it; column-sharded
-    over `mesh` when given) on cuda through the public API; returns
-    (pictures, stream md5, wall ms, stage ms, per-picture md5s)."""
+    with frame_type=3; n_threads and max_frame_delay as Settings takes
+    them; column-sharded over `mesh` when given) on cuda through the
+    public API, the pictures drained after each temporal unit is sent
+    (the CLI's loop), or with feed_ahead after every unit is sent
+    (bench.py's loop: only then can api.get_picture parse ahead while
+    earlier frames are in Stage B); returns (pictures, stream md5, wall
+    ms, stage ms, per-picture md5s). Stage ms are sums over threads:
+    the Stage-B workers' stages overlap at a Stage-B depth above 1."""
     import torch
     from dav1d_tpu_torch.api import Decoder, Settings
     from dav1d_tpu_torch.bitstream.ivf import IvfReader
@@ -1617,23 +1641,29 @@ def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
     timing.ENABLED = timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    settings = Settings(n_threads=n_threads, sharding_mesh=mesh) \
+    settings = Settings(n_threads=n_threads, sharding_mesh=mesh,
+                        max_frame_delay=max_frame_delay) \
         if frame_type is None else \
         Settings(decode_frame_type=frame_type, n_threads=n_threads,
-                 sharding_mesh=mesh)
+                 sharding_mesh=mesh, max_frame_delay=max_frame_delay)
     dec = Decoder(settings)
     mux = Md5Muxer()
     pics, md5s = [], []
-    for i, fr in enumerate(IvfReader(data)):
-        if n_tu is not None and i >= n_tu:
-            break
-        dec.send_data(fr.data)
+
+    def drain():
         for pic in dec.pictures():
             mux.write_picture(pic)
             one = Md5Muxer()
             one.write_picture(pic)
             md5s.append(one.digest())
             pics.append(pic)
+    for i, fr in enumerate(IvfReader(data)):
+        if n_tu is not None and i >= n_tu:
+            break
+        dec.send_data(fr.data)
+        if not feed_ahead:
+            drain()
+    drain()
     dec.close()
     wall = (time.perf_counter() - t0) * 1e3
     stages = {k: v * 1e3 for k, v in timing._T.items()}
@@ -2948,6 +2978,172 @@ def phase_mc_batch(torch, card):
           "seconds": time.perf_counter() - t0})
 
 
+PIPELINE_DEPTHS = (1, 2, 3, 4)  # the Stage-B depths of s31's sweep
+PIPELINE_ROUNDS = 3             # untimed walls a depth, the depths in turns
+
+
+class _PipelineWaits:
+    """The frame pipeline's blocked times, taken by wrapping it from
+    here: the main thread's ms inside ReconPipeline.submit_split (held
+    there while `depth` frames are in flight), the Stage-B workers' ms
+    in executor.resolve (blocked on their references' promises) and the
+    caller's thread's ms there (api.get_picture on the oldest output,
+    show_existing_frame on its slot), summed over a decode; and the
+    depth of each pipeline that took a frame."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self._sums = None
+        self.take()
+
+    def take(self):
+        """The sums since the last take, and a fresh start."""
+        with self._lock:
+            out, self._sums = self._sums, {
+                "submit_ms": 0.0, "ref_wait_ms": 0.0, "main_wait_ms": 0.0,
+                "depths": set()}
+        return out
+
+    def _add(self, key, t0):
+        with self._lock:
+            self._sums[key] += (time.perf_counter() - t0) * 1e3
+
+    def __enter__(self):
+        import threading
+        from dav1d_tpu_torch.parallel import executor
+        self._orig = (executor.ReconPipeline.submit_split, executor.resolve)
+        submit_split, resolve = self._orig
+
+        def submit(pipe, job):
+            with self._lock:
+                self._sums["depths"].add(pipe.depth)
+            t0 = time.perf_counter()
+            try:
+                return submit_split(pipe, job)
+            finally:
+                self._add("submit_ms", t0)
+
+        def wait(pic):
+            t0 = time.perf_counter()
+            try:
+                return resolve(pic)
+            finally:
+                worker = threading.current_thread().name.startswith(
+                    "stageb")
+                self._add("ref_wait_ms" if worker else "main_wait_ms", t0)
+        executor.ReconPipeline.submit_split = submit
+        executor.resolve = wait
+        return self
+
+    def __exit__(self, *exc):
+        from dav1d_tpu_torch.parallel import executor
+        executor.ReconPipeline.submit_split, executor.resolve = self._orig
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_pipeline(torch, card):
+    """The Stage-B frame pipeline's depth (ROADMAP item 7): s31's 8
+    frames through Decoder(Settings(max_frame_delay=d)) with
+    DAV1D_TPU_STAGEB_DEPTH=d for each d of PIPELINE_DEPTHS, in bench.py's
+    loop (every unit sent, then the pictures drained: _decode's
+    feed_ahead), and at the default depth in the CLI's loop (each unit's
+    pictures drained before the next is sent: api.get_picture then
+    never parses ahead, so no two frames are ever in flight); one
+    warm-up each, then PIPELINE_ROUNDS untimed walls each, the cases in
+    turns (in order, reversed, in order), every decode on MD5S_S31 and
+    MD5_S31 and on a pipeline of the depth asked for; the launch counts
+    of each case's first timed decode (every main-path kernel > 0); per
+    case the median, min, max and spread (max - min) of the walls and
+    the medians of _PipelineWaits' blocked ms. The winner: the depth of
+    the lowest median wall that beats depth 1's median by more than the
+    larger of the two spreads, else 1 (decoder.DEFAULT_STAGEB_DEPTH is
+    set from it). Then whole s33 (4 pictures) at the default depth in
+    bench.py's loop on MD5S_S33_WHOLE and MD5_S33_WHOLE: its wall,
+    blocked ms and launches."""
+    from dav1d_tpu_torch.decoder import DEFAULT_STAGEB_DEPTH, stageb_depth
+    default = stageb_depth(0, False)
+    # (name, depth asked for (0: the default, max_frame_delay 0), loop)
+    cases = [(str(d), d, True) for d in PIPELINE_DEPTHS] + \
+        [("cli_loop", 0, False)]
+    per = {name: {"wall_ms": [], "submit_ms": [], "ref_wait_ms": [],
+                  "main_wait_ms": []} for name, _, _ in cases}
+    launches = {}
+
+    def decode(path, d, feed_ahead, md5s_want, md5_want):
+        env = {"DAV1D_TPU_STAGEB_DEPTH": str(d)} if d else {}
+        with _env(env):
+            _, digest, wall, _, md5s = _decode(
+                path, timed=False, max_frame_delay=d, feed_ahead=feed_ahead)
+        w = waits.take()
+        depth = d or default
+        if md5s != md5s_want or digest != md5_want:
+            raise AssertionError(f"pipeline {path} depth {depth}: md5s "
+                                 f"{md5s} {digest}")
+        if w.pop("depths") != {depth}:
+            raise AssertionError(f"pipeline {path}: not at depth {depth}")
+        return wall, w
+
+    def counted(fn):
+        _counts_reset()
+        out = fn()
+        n = _counts()
+        for k in MAIN_KERNELS:
+            if n[k] == 0:
+                raise AssertionError(f"pipeline: the {k} kernel never "
+                                     f"launched")
+        return out, n
+
+    def s31(d, feed_ahead):
+        return decode(STREAM_1080P, d, feed_ahead, MD5S_S31, MD5_S31)
+
+    with _PipelineWaits() as waits:
+        for _, d, feed_ahead in cases:
+            s31(d, feed_ahead)
+        for r in range(PIPELINE_ROUNDS):
+            for name, d, feed_ahead in cases[::1 if r % 2 == 0 else -1]:
+                if r == 0:
+                    (wall, w), launches[name] = counted(
+                        lambda: s31(d, feed_ahead))
+                else:
+                    wall, w = s31(d, feed_ahead)
+                per[name]["wall_ms"].append(wall)
+                for k, v in w.items():
+                    per[name][k].append(v)
+        (s33_wall, s33_w), s33_launches = counted(
+            lambda: decode(STREAM_4K10, 0, True, MD5S_S33_WHOLE,
+                           MD5_S33_WHOLE))
+    out = {}
+    for name, r in per.items():
+        walls = r["wall_ms"]
+        out[name] = {
+            "wall_ms": walls, "wall_ms_median": _median(walls),
+            "wall_ms_min": min(walls), "wall_ms_max": max(walls),
+            "spread_ms": max(walls) - min(walls),
+            "fps_median": 1e3 * len(MD5S_S31) / _median(walls),
+            **{f"{k}_median": _median(v) for k, v in r.items()
+               if k != "wall_ms"},
+            "launches": launches[name]}
+    base = out["1"]
+    beat = [d for d in PIPELINE_DEPTHS[1:]
+            if base["wall_ms_median"] - out[str(d)]["wall_ms_median"] >
+            max(base["spread_ms"], out[str(d)]["spread_ms"])]
+    winner = min(beat, key=lambda d: out[str(d)]["wall_ms_median"]) \
+        if beat else 1
+    emit({"phase": "pipeline", "card": card, "stream": STREAM_1080P,
+          "pictures": len(MD5S_S31), "rounds": PIPELINE_ROUNDS,
+          "depths": {str(d): out[str(d)] for d in PIPELINE_DEPTHS},
+          "cli_loop": {"depth": default, **out["cli_loop"]},
+          "winner": winner, "default_depth": DEFAULT_STAGEB_DEPTH,
+          "s33_whole": {"stream": STREAM_4K10,
+                        "pictures": len(MD5S_S33_WHOLE), "depth": default,
+                        "wall_ms": s33_wall, **s33_w,
+                        "launches": s33_launches}})
+
+
 def _itx_check_work(plan):
     """The work of itx_sharded_check on `plan`: its largest bucket (B
     blocks of one transform) through the residual kernel twice, the
@@ -3036,6 +3232,7 @@ def main():
     phase_post_filters(torch)
     phase_golden_route(torch, card)
     phase_mc_batch(torch, card)
+    phase_pipeline(torch, card)
     sources = {"deblock": ("dav1d_tpu_torch/csrc/deblock.cu",
                            "dav1d_tpu/ops/lf_pallas.py:74"),
                "mc_put": ("dav1d_tpu_torch/csrc/mc_put.cu",

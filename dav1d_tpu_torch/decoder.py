@@ -36,6 +36,32 @@ from .bitstream.headers import WarpedMotionType
 from .utils import timing
 
 
+# Stage-B frames in flight on the device route. chip_smoke.py `pipeline`
+# on one NVIDIA H100 80GB HBM3, 700.00 W, s31's 8 frames with every unit
+# sent before the pictures are drained, median of 3 untimed walls (spread
+# max - min), two sweeps in one call: depth 1 821.6 (215.1) and 963.6
+# (285.1) ms, 2 786.3 (99.0) and 864.0 (187.7), 3 677.1 (197.4) and
+# 926.7 (275.2), 4 901.4 (232.2) and 884.9 (283.7). No depth beat 1 by
+# more than the spread, so 1. dav1d_tpu's 3 was measured on a TPU and
+# does not carry over.
+DEFAULT_STAGEB_DEPTH = 1
+
+
+def stageb_depth(max_frame_delay: int, golden: bool) -> int:
+    """The Stage-B pipeline depth of a threaded decode, by dav1d_tpu's
+    rule (its decoder.py): DEFAULT_STAGEB_DEPTH on the device route and
+    one in-order worker on the golden host route; Settings.max_frame_delay
+    > 0 caps it like the reference's n_fc derivation (lib.c:109-126); a
+    set DAV1D_TPU_STAGEB_DEPTH overrides both."""
+    import os
+    depth = 1 if golden else DEFAULT_STAGEB_DEPTH
+    if max_frame_delay and max_frame_delay > 0:
+        depth = max(1, min(depth, max_frame_delay))
+    if os.environ.get("DAV1D_TPU_STAGEB_DEPTH"):
+        depth = max(1, int(os.environ["DAV1D_TPU_STAGEB_DEPTH"]))
+    return depth
+
+
 def scale_fac(ref_sz: int, this_sz: int) -> int:
     """Reference-scaling step in 1/16384 units (copy of dav1d_tpu's
     mc_ref.scale_fac; reference decode.c reference setup)."""
@@ -85,7 +111,7 @@ class ObuStreamDecoder:
         self.event_flags = 0            # reference dav1d.h:268-295
         self.error_data = None          # failing input (lib.c:716-725)
         # frame pipeline: Stage A (submitting thread) overlaps Stage B
-        # (in-order worker) when threading is requested. n_threads=0
+        # (stageb_depth workers) when threading is requested. n_threads=0
         # means "pick for me" like the reference (lib.c:109-126:
         # default to the logical core count).
         import os as _os
@@ -112,9 +138,8 @@ class ObuStreamDecoder:
                     self.settings.sharding_mesh, self.device)
         if do_recon and self.n_threads > 1:
             from .parallel.executor import ReconPipeline
-            # one Stage-B frame in flight: the depth that suits the card
-            # is to be measured (ROADMAP item 7)
-            self.pipeline = ReconPipeline(1)
+            self.pipeline = ReconPipeline(stageb_depth(
+                self.settings.max_frame_delay, self.golden))
 
     def _split_tiles(self, fh) -> list:
         tiles = []
@@ -689,7 +714,10 @@ class ObuStreamDecoder:
     def release_device_planes(self, pic):
         """Drop the device planes of a picture that no ref slot holds
         once its host planes are current (it was output). A frame still
-        waiting for Stage B that references it uploads it again."""
+        waiting for Stage B that references it uploads it again: the
+        Stage-B readers of a reference's planes keep one snapshot of
+        them (ops/device.py planes_on_device). A frame still in Stage B
+        is skipped: its promise is pending, so peek gives None."""
         from .parallel.executor import peek
         pic = peek(pic)
         if pic is None or pic.dev is None or pic.host_stale:

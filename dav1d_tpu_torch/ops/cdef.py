@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .cdef_ref import cdef_dirs, FILL, UV_DIRS
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"cdef": 0}
@@ -348,7 +348,7 @@ def cdef_cuda(planes, maps, Hy, Wy, layout, bd, damping):
                            launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"cdef kernel launch failed: CUDA error {rc}")
-    LAUNCHES["cdef"] += 1
+    count_launch(LAUNCHES, "cdef")
     return outs
 
 

@@ -27,6 +27,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _LOCK = threading.Lock()
 _LIBS = {}
 _READY = set()      # (library handle id, CUDA device) set up (per_device)
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -146,6 +147,14 @@ def per_device(lib, setup):
                 setup(lib)
                 _READY.add(key)
     return lib
+
+
+def count_launch(counts, name, n=1):
+    """Add n to a module's LAUNCHES[name], where its wrapper launched
+    its kernel: under a lock, as the Stage-B workers launch at once and
+    `+=` on a dict entry is no atomic step."""
+    with _COUNT_LOCK:
+        counts[name] += n
 
 
 def launch_stream(device):

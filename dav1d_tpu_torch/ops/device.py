@@ -59,11 +59,20 @@ def upload_planes(host_planes, device):
 def planes_on_device(pic, device):
     """A picture's clean planes as int32 tensors on `device`: its
     device planes when it has them, else its host planes (made current
-    first) uploaded."""
-    if pic.dev is not None:
-        return pic.dev
-    fetch_pic_host(pic)
-    return upload_planes(pic.planes, device)
+    first) uploaded and kept as its device planes. One snapshot of
+    `pic.dev` is read, since the caller's thread may drop it
+    (decoder.release_device_planes), and the upload runs under the
+    picture's lock, so Stage-B workers that reference one picture at
+    once upload it once."""
+    dev = pic.dev
+    if dev is not None:
+        return dev
+    with pic.lock:
+        dev = pic.dev
+        if dev is None:
+            fetch_pic_host(pic)
+            dev = pic.dev = upload_planes(pic.planes, device)
+    return dev
 
 
 def tables_from_numpy(d: dict, device="cpu") -> dict:
@@ -194,9 +203,12 @@ def _materialize(pic, pending):
 def fetch_pic_host(pic):
     """Materialize the output copy the filter chain queued
     (Picture.pending_fetch) into the picture's host planes; a no-op
-    when the host planes are already current."""
-    pending = getattr(pic, "pending_fetch", None)
-    if pending is not None:
-        _materialize(pic, pending)
-        pic.pending_fetch = None
-    pic.host_stale = False
+    when the host planes are already current. Once per picture, under
+    its lock: the caller's thread (api.get_picture, the muxers) and
+    Stage-B workers reading it as a reference may reach it together."""
+    with pic.lock:
+        pending = pic.pending_fetch
+        if pending is not None:
+            _materialize(pic, pending)
+            pic.pending_fetch = None
+        pic.host_stale = False

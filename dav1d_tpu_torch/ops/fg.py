@@ -29,6 +29,7 @@ result is clipped to the full or restricted range.
 from __future__ import annotations
 
 import ctypes as ct
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,7 +37,7 @@ import torch
 
 from ..utils import timing
 from . import fg_ref
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .fg_ref import (FG_BLOCK_SIZE, GRAIN_HEIGHT, GRAIN_WIDTH, _rand,
                      generate_grain_uv, generate_grain_y, generate_scaling)
 
@@ -46,6 +47,7 @@ LUT_ROWS = GRAIN_HEIGHT + 1     # the chroma LUTs' rows (luma has one less)
 UNIT_W = 128                    # luma columns of a csrc/film_grain.cu unit
 
 _DEVICE_CACHE = {}
+_DEVICE_CACHE_LOCK = threading.Lock()
 
 
 def _fgd_key(fgd, bd):
@@ -266,17 +268,20 @@ def pack_tables(luts, scalings, bd):
 
 def grain_tables(fgd, ss_x, ss_y, bd, device):
     """The packed LUTs of a grain-parameter set on `device`, memoized
-    there (made on the host by _grain_data, under "fg.luts")."""
+    there (made on the host by _grain_data, under "fg.luts"). The memo
+    is shared by the Stage-B workers: a set is made once, under its
+    lock, while the others wait for it."""
     key = (_fgd_key(fgd, bd), ss_x, ss_y, str(device))
-    hit = _DEVICE_CACHE.get(key)
-    if hit is not None:
-        return hit
-    with timing.phase("fg.luts"):
-        L, S = pack_tables(*_grain_data(fgd, ss_x, ss_y, bd), bd)
-    if len(_DEVICE_CACHE) > 32:
-        _DEVICE_CACHE.clear()
-    hit = _DEVICE_CACHE[key] = (torch.from_numpy(L).to(device),
-                                torch.from_numpy(S).to(device))
+    with _DEVICE_CACHE_LOCK:
+        hit = _DEVICE_CACHE.get(key)
+        if hit is not None:
+            return hit
+        with timing.phase("fg.luts"):
+            L, S = pack_tables(*_grain_data(fgd, ss_x, ss_y, bd), bd)
+        if len(_DEVICE_CACHE) > 32:
+            _DEVICE_CACHE.clear()
+        hit = _DEVICE_CACHE[key] = (torch.from_numpy(L).to(device),
+                                    torch.from_numpy(S).to(device))
     return hit
 
 
@@ -429,7 +434,7 @@ def film_grain_cuda(planes, fr, luts, scal, off):
     if rc != 0:
         raise RuntimeError(f"film_grain kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["film_grain"] += 1
+    count_launch(LAUNCHES, "film_grain")
     return out
 
 

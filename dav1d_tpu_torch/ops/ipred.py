@@ -60,7 +60,7 @@ import torch
 from .. import tables
 from . import ipred_ref as r
 from . import itx
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 
 C = 160                 # edge buffer center (matches ipred_ref.Edge)
 EDGE_LEN = 2 * C + 1
@@ -686,7 +686,7 @@ def plan_cuda(planes, tables, pool, bd, ss_hor, ss_ver):
             f"{grid.value} blocks of {itx.BLOCK_THREADS} threads, {per} "
             f"a SM on {sms} SMs, {smem} B dynamic shared; {n_levels} "
             f"levels, {len(tables['units'])} units)")
-    LAUNCHES["ipred"] += 1
+    count_launch(LAUNCHES, "ipred")
     return planes
 
 

@@ -34,7 +34,7 @@ import torch
 
 from ..entropy import levels as lv
 from . import itx_core
-from .cuda_build import cut_blocks, launch_stream
+from .cuda_build import count_launch, cut_blocks, launch_stream
 from .itx_ref import TX1D_TYPES, TX_SHIFT
 
 N_TX = len(lv.TXFM_INFO)
@@ -238,7 +238,7 @@ def itx_add_cuda(pool, jobs, plane, bd, wht=False, blocks=None):
                         launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"itx_add kernel launch failed: CUDA error {rc}")
-    LAUNCHES["itx_add"] += 1
+    count_launch(LAUNCHES, "itx_add")
     return plane
 
 

@@ -35,7 +35,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .lf_ref import build_lf_masks
 
 PAD = 8
@@ -273,7 +273,7 @@ def deblock_frame_cuda(entries, lut_e, lut_i, bd):
         launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {rc}")
-    LAUNCHES["deblock"] += 1
+    count_launch(LAUNCHES, "deblock")
     return outs
 
 

@@ -33,7 +33,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .restore_ref import (LR_HAVE_LEFT, LR_HAVE_RIGHT, LR_HAVE_TOP,
                           LR_HAVE_BOTTOM, _sgr_params_tbl)
 
@@ -264,7 +264,7 @@ def _frame_launch(kind, planes, items, rowt, blocks, bd):
         launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def item_blocks(items):

@@ -45,7 +45,8 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .cuda_build import check_tensor, cut_blocks, launch_stream
+from .cuda_build import check_tensor, count_launch, cut_blocks, \
+    launch_stream
 from .mc_ref import _subpel_filters, intermediate_bits, prep_bias
 
 IDENTITY_TAP = np.array([0, 0, 0, 64, 0, 0, 0, 0], np.int32)
@@ -493,7 +494,7 @@ def put_planes_cuda(planes, jobs, bd, blocks=None):
         len(blocks), bd, launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"mc_put kernel launch failed: CUDA error {rc}")
-    LAUNCHES["mc_put"] += 1
+    count_launch(LAUNCHES, "mc_put")
     return [p for _, p, _, _ in planes]
 
 
@@ -543,7 +544,7 @@ def comp_cuda(refs, jobs, plane, seg, rh, rw, bd, wl16, wl32, luma,
         ss_hor, ss_ver, BS_32X32, launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"mc_comp kernel launch failed: CUDA error {rc}")
-    LAUNCHES["mc_comp"] += 1
+    count_launch(LAUNCHES, "mc_comp")
     return plane
 
 

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import mc
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .mc_ref import intermediate_bits, obmc_masks
 
 MAX_DIM = 64            # the kernel's largest ww, hh and lap_h
@@ -199,7 +199,7 @@ def obmc_cuda(planes, top, left, bd):
                         ct.byref(launched))
     if rc != 0:
         raise RuntimeError(f"mc_obmc kernel launch failed: CUDA error {rc}")
-    mc.LAUNCHES["mc_obmc"] += launched.value
+    count_launch(mc.LAUNCHES, "mc_obmc", launched.value)
     return [p for _, p, _, _ in planes]
 
 

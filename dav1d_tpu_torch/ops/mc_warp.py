@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import mc
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .mc_ref import _warp_filter, intermediate_bits
 
 N_ROWS = 193            # rows of dav1d_mc_warp_filter
@@ -121,7 +121,7 @@ def warp_cuda(planes, jobs, bd):
                         launch_stream(dev))
     if rc != 0:
         raise RuntimeError(f"mc_warp kernel launch failed: CUDA error {rc}")
-    mc.LAUNCHES["mc_warp"] += 1
+    count_launch(mc.LAUNCHES, "mc_warp")
     return [p for _, p, _, _ in planes]
 
 

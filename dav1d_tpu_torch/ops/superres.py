@@ -30,7 +30,7 @@ import ctypes as ct
 import numpy as np
 import torch
 
-from .cuda_build import launch_stream
+from .cuda_build import count_launch, launch_stream
 from .mc_ref import _resize_filter, get_upscale_x0, resize_plane, scale_fac
 
 # kernel launches per name (counted where the CUDA kernel is launched)
@@ -189,7 +189,7 @@ def resize_frame_cuda(jobs, bd):
     if rc != 0:
         raise RuntimeError(f"superres kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["superres"] += 1
+    count_launch(LAUNCHES, "superres")
     return [j[3] for j in jobs]
 
 

@@ -1,4 +1,4 @@
-"""Frame-pipeline scheduler: the TPU-native analog of the reference's
+"""Frame-pipeline scheduler: the analog of the reference's
 task scheduler + 2-pass frame threading (reference src/thread_task.c,
 decode.c frame_thread structs; SURVEY §2.5/§2.7.3-4).
 
@@ -7,16 +7,23 @@ The reference decouples entropy decode (pass 1) from reconstruction
 counters gating inter-frame motion compensation. Here the same seam is
 exploited with a much simpler invariant: Stage A (symbol decode) of
 frame N+1 runs on the submitting thread while Stage B (reconstruction
-+ in-loop filters + film grain) of frame N runs on a single in-order
-worker. Because the worker is in-order, a frame's reference pictures
-are always fully reconstructed before its own Stage B starts — the
-reference's per-sbrow `lowest_pixel` watermark (decode.c:576-682)
++ in-loop filters + film grain) of earlier frames runs on up to `depth`
+workers, which take frames in submission order. A frame's Stage B
+first waits for the REF-READY promise of each of its references, so
+the reference's per-sbrow `lowest_pixel` watermark (decode.c:576-682)
 collapses to promise resolution. Stage A only needs reference *state*
 (headers, CDFs, temporal MVs, segmaps), which the submitting thread
 has immediately.
 
-On TPU the same structure lets host symbol decode for frame N+1 overlap
-device reconstruction of frame N.
+A REF-READY promise resolves when the reference's reconstruction and
+filter chain have been *enqueued* on the device, not finished. Every
+worker launches on the current stream of the decode's device
+(ops/cuda_build.py launch_stream), and no code of the port makes
+another stream current, so all workers enqueue onto the device's
+default stream: enqueue order is execution order, and a frame's
+kernels run after those of its references. Host readers of a
+reference's pixels wait for its queued fetch (ops/device.py
+fetch_pic_host).
 """
 from __future__ import annotations
 
@@ -117,10 +124,10 @@ class ReconPipeline:
     on the REF-READY promise of its reference frames — which resolves
     when frame N's reconstruction+filter chain has been *enqueued* on
     the device (split submit), not when its output fetch / film grain
-    finished. With XLA's async dispatch that lets frame N's D2H ride
-    under frame N+1's compute. Submission applies backpressure at
-    `depth` queued frames (the reference gates on max_frame_delay the
-    same way, lib.c:109-126)."""
+    finished, so frame N's download and grain ride under frame N+1's
+    work. Submission applies backpressure at `depth` frames in flight
+    (the reference gates on max_frame_delay the same way,
+    lib.c:109-126)."""
 
     def __init__(self, depth: int = 1):
         self.depth = max(1, depth)

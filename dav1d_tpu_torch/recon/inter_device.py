@@ -58,8 +58,8 @@ import numpy as np
 
 from ..entropy import levels as lv
 from ..ops import itx_ref, mc_ref
-from ..ops.device import fetch_pic_host, fetch_rows, sync_if_timed, \
-    upload_planes, upload_rows
+from ..ops.device import fetch_rows, planes_on_device, sync_if_timed, \
+    upload_rows
 from ..utils import timing
 from .inter_ref import (COMP_INTER_AVG, COMP_INTER_NONE, COMP_INTER_SEG,
                         COMP_INTER_WEDGE, COMP_INTER_WEIGHTED_AVG,
@@ -576,10 +576,7 @@ class DeviceInterReconstructor(InterReconstructor):
             pic = s.pic
             if id(pic) not in ids:
                 ids[id(pic)] = len(per_plane[0])
-                dev = pic.dev
-                if dev is None:
-                    fetch_pic_host(pic)
-                    dev = pic.dev = upload_planes(pic.planes, self.device)
+                dev = planes_on_device(pic, self.device)
                 for pi in range(n_planes):
                     per_plane[pi].append(dev[pi])
             lut[i] = ids[id(pic)]

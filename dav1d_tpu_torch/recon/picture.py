@@ -20,6 +20,7 @@ Buffers may be dirty; the decoder writes every pixel it reads back.
 from __future__ import annotations
 
 import contextvars
+import threading
 
 import numpy as np
 
@@ -45,7 +46,7 @@ class Picture:
                  "itut_t35", "seq_hdr", "frame_hdr", "props",
                  "allocator", "allocator_data", "dev", "host_stale",
                  "pending_fetch", "dev_grid", "dev_c", "dev_mcpad",
-                 "dev_rep")
+                 "dev_rep", "lock")
 
     _NAMES = {0: "I400", 1: "I420", 2: "I422", 3: "I444"}
 
@@ -86,6 +87,10 @@ class Picture:
         # the first host consumer — the Stage-B worker never blocks on
         # the output transfer
         self.pending_fetch = None
+        # serialises the output fetch and the reference upload of this
+        # picture, which several Stage-B workers and the caller's thread
+        # may reach at once (ops/device.py)
+        self.lock = threading.RLock()
         planes = None
         if self.allocator is not None:
             planes = self.allocator.alloc_picture_data(self)
@@ -149,7 +154,6 @@ class PicturePool:
     Thread-safe; an optional max_size bounds retained buffer sets."""
 
     def __init__(self, max_size: int = 16):
-        import threading
         self._free = {}          # (shape-tuple, dtype) -> [plane lists]
         self._lock = threading.Lock()
         self.max_size = max_size

@@ -203,15 +203,16 @@ def ref_planes_on(pic, device, main):
     has none), copied once to any other device and kept there
     (pic.dev_rep)."""
     from ..ops.device import planes_on_device
-    if pic.dev is None:
-        pic.dev = planes_on_device(pic, main)
+    dev = planes_on_device(pic, main)
     if device == main:
-        return pic.dev
-    rep = pic.dev_rep if pic.dev_rep is not None else {}
-    if device not in rep:
-        rep[device] = [p.to(device) for p in pic.dev]
-        pic.dev_rep = rep
-    return rep[device]
+        return dev
+    with pic.lock:
+        rep = pic.dev_rep if pic.dev_rep is not None else {}
+        planes = rep.get(device)
+        if planes is None:
+            planes = rep[device] = [p.to(device) for p in dev]
+            pic.dev_rep = rep
+    return planes
 
 
 class ShardedInterReconstructor(DeviceInterReconstructor):

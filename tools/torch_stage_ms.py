@@ -3,7 +3,9 @@ synchronize) of timed decodes of a stream through the public API of the
 checkout at argv[1] (default: this one) on one GPU, by that checkout's
 chip_smoke._decode: per stage, every one of 5 decodes after a warm-up
 and their median; the stream md5 of each. Prints one JSON line with the
-card's name and power limit.
+card's name and power limit. A stage's ms are summed over threads; in
+_decode's drain-per-unit loop one frame is in flight, so the Stage-B
+stages of two frames never overlap.
 
     python tools/torch_stage_ms.py [checkout] [stream]
 
