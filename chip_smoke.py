@@ -198,13 +198,13 @@ exits nonzero and prints no "ok" line:
                 max_frame_delay = d) in bench.py's loop (every unit
                 sent, then the pictures drained), and at the default
                 depth in the CLI's loop (drained after each unit); one
-                warm-up each, then 3 untimed walls each in turns, every
-                decode on MD5S_S31; per case the walls' median and
-                spread, the main thread's ms blocked in submit_split,
-                the workers' ms blocked on reference promises and the
-                caller's ms blocked on output promises (the pipeline
-                wrapped from here), the launches of its first timed
-                decode; the winning depth; then whole s33 (4 pictures)
+                warm-up each, then 3 walls each in turns, every decode
+                on MD5S_S31; per case the walls' median and spread, the
+                blocked ms of utils.timing's spans pipeline.submit_wait
+                (the main thread in submit_split), pipeline.ref_wait
+                (workers on reference promises) and api.wait (the
+                caller on output promises), the launches of its first
+                counted decode; the winning depth; then whole s33 (4 pictures)
                 at the default depth on MD5S_S33_WHOLE
 26. kernels   - the per-kernel summary line (launches from inter_main,
                 super-res's from sr-1080p, film grain's from fg-1080p;
@@ -1621,7 +1621,7 @@ def phase_kernel_real(torch, card, stream=STREAM_S7, md5s_want=MD5S_S7,
 
 
 def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
-            mesh=None, max_frame_delay=0, feed_ahead=False):
+            mesh=None, max_frame_delay=0, feed_ahead=False, depths=None):
     """Decode `path` (its first n_tu temporal units; keyframes only
     with frame_type=3; n_threads and max_frame_delay as Settings takes
     them; column-sharded over `mesh` when given) on cuda through the
@@ -1630,7 +1630,9 @@ def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
     (bench.py's loop: only then can api.get_picture parse ahead while
     earlier frames are in Stage B); returns (pictures, stream md5, wall
     ms, stage ms, per-picture md5s). Stage ms are sums over threads:
-    the Stage-B workers' stages overlap at a Stage-B depth above 1."""
+    the Stage-B workers' stages overlap at a Stage-B depth above 1.
+    `depths`, a list, is given the Stage-B depth of the decoder's
+    pipeline (None without one)."""
     import torch
     from dav1d_tpu_torch.api import Decoder, Settings
     from dav1d_tpu_torch.bitstream.ivf import IvfReader
@@ -1664,6 +1666,9 @@ def _decode(path, timed, frame_type=None, n_tu=None, n_threads=0,
         if not feed_ahead:
             drain()
     drain()
+    if depths is not None:
+        pipe = dec._dec.pipeline
+        depths.append(pipe.depth if pipe is not None else None)
     dec.close()
     wall = (time.perf_counter() - t0) * 1e3
     stages = {k: v * 1e3 for k, v in timing._T.items()}
@@ -2979,66 +2984,7 @@ def phase_mc_batch(torch, card):
 
 
 PIPELINE_DEPTHS = (1, 2, 3, 4)  # the Stage-B depths of s31's sweep
-PIPELINE_ROUNDS = 3             # untimed walls a depth, the depths in turns
-
-
-class _PipelineWaits:
-    """The frame pipeline's blocked times, taken by wrapping it from
-    here: the main thread's ms inside ReconPipeline.submit_split (held
-    there while `depth` frames are in flight), the Stage-B workers' ms
-    in executor.resolve (blocked on their references' promises) and the
-    caller's thread's ms there (api.get_picture on the oldest output,
-    show_existing_frame on its slot), summed over a decode; and the
-    depth of each pipeline that took a frame."""
-
-    def __init__(self):
-        import threading
-        self._lock = threading.Lock()
-        self._sums = None
-        self.take()
-
-    def take(self):
-        """The sums since the last take, and a fresh start."""
-        with self._lock:
-            out, self._sums = self._sums, {
-                "submit_ms": 0.0, "ref_wait_ms": 0.0, "main_wait_ms": 0.0,
-                "depths": set()}
-        return out
-
-    def _add(self, key, t0):
-        with self._lock:
-            self._sums[key] += (time.perf_counter() - t0) * 1e3
-
-    def __enter__(self):
-        import threading
-        from dav1d_tpu_torch.parallel import executor
-        self._orig = (executor.ReconPipeline.submit_split, executor.resolve)
-        submit_split, resolve = self._orig
-
-        def submit(pipe, job):
-            with self._lock:
-                self._sums["depths"].add(pipe.depth)
-            t0 = time.perf_counter()
-            try:
-                return submit_split(pipe, job)
-            finally:
-                self._add("submit_ms", t0)
-
-        def wait(pic):
-            t0 = time.perf_counter()
-            try:
-                return resolve(pic)
-            finally:
-                worker = threading.current_thread().name.startswith(
-                    "stageb")
-                self._add("ref_wait_ms" if worker else "main_wait_ms", t0)
-        executor.ReconPipeline.submit_split = submit
-        executor.resolve = wait
-        return self
-
-    def __exit__(self, *exc):
-        from dav1d_tpu_torch.parallel import executor
-        executor.ReconPipeline.submit_split, executor.resolve = self._orig
+PIPELINE_ROUNDS = 3             # walls a depth, the depths in turns
 
 
 def _median(xs):
@@ -3053,15 +2999,20 @@ def phase_pipeline(torch, card):
     feed_ahead), and at the default depth in the CLI's loop (each unit's
     pictures drained before the next is sent: api.get_picture then
     never parses ahead, so no two frames are ever in flight); one
-    warm-up each, then PIPELINE_ROUNDS untimed walls each, the cases in
-    turns (in order, reversed, in order), every decode on MD5S_S31 and
-    MD5_S31 and on a pipeline of the depth asked for; the launch counts
-    of each case's first timed decode (every main-path kernel > 0); per
-    case the median, min, max and spread (max - min) of the walls and
-    the medians of _PipelineWaits' blocked ms. The winner: the depth of
-    the lowest median wall that beats depth 1's median by more than the
-    larger of the two spreads, else 1 (decoder.DEFAULT_STAGEB_DEPTH is
-    set from it). Then whole s33 (4 pictures) at the default depth in
+    warm-up each, then PIPELINE_ROUNDS walls each, the cases in turns
+    (in order, reversed, in order), every decode with utils.timing on
+    (its spans do not wait for the device), on MD5S_S31 and MD5_S31 and
+    on a pipeline of the depth asked for (the decoder's pipeline.depth);
+    the launch counts of each case's first counted decode (every
+    main-path kernel > 0); per case the median, min, max and spread
+    (max - min) of the walls and the medians of the blocked ms that the
+    recorder's spans hold: `pipeline.submit_wait` (the caller's thread
+    in ReconPipeline.submit_split while `depth` frames are in flight),
+    `pipeline.ref_wait` (Stage-B workers blocked on their references'
+    promises), `api.wait` (get_picture blocked on the oldest output).
+    The winner: the depth of the lowest median wall that beats depth
+    1's median by more than the larger of the two spreads, else 1
+    (decoder.DEFAULT_STAGEB_DEPTH is set from it). Then whole s33 (4 pictures) at the default depth in
     bench.py's loop on MD5S_S33_WHOLE and MD5_S33_WHOLE: its wall,
     blocked ms and launches."""
     from dav1d_tpu_torch.decoder import DEFAULT_STAGEB_DEPTH, stageb_depth
@@ -3069,23 +3020,27 @@ def phase_pipeline(torch, card):
     # (name, depth asked for (0: the default, max_frame_delay 0), loop)
     cases = [(str(d), d, True) for d in PIPELINE_DEPTHS] + \
         [("cli_loop", 0, False)]
-    per = {name: {"wall_ms": [], "submit_ms": [], "ref_wait_ms": [],
-                  "main_wait_ms": []} for name, _, _ in cases}
+    waits = {"submit_wait_ms": "pipeline.submit_wait",
+             "ref_wait_ms": "pipeline.ref_wait", "api_wait_ms": "api.wait"}
+    per = {name: {"wall_ms": [], **{k: [] for k in waits}}
+           for name, _, _ in cases}
     launches = {}
 
     def decode(path, d, feed_ahead, md5s_want, md5_want):
         env = {"DAV1D_TPU_STAGEB_DEPTH": str(d)} if d else {}
+        depths = []
         with _env(env):
-            _, digest, wall, _, md5s = _decode(
-                path, timed=False, max_frame_delay=d, feed_ahead=feed_ahead)
-        w = waits.take()
+            _, digest, wall, stages, md5s = _decode(
+                path, timed=True, max_frame_delay=d, feed_ahead=feed_ahead,
+                depths=depths)
         depth = d or default
         if md5s != md5s_want or digest != md5_want:
             raise AssertionError(f"pipeline {path} depth {depth}: md5s "
                                  f"{md5s} {digest}")
-        if w.pop("depths") != {depth}:
+        if depths != [depth]:
             raise AssertionError(f"pipeline {path}: not at depth {depth}")
-        return wall, w
+        return wall, {k: stages.get(label, 0.0)
+                      for k, label in waits.items()}
 
     def counted(fn):
         _counts_reset()
@@ -3100,22 +3055,20 @@ def phase_pipeline(torch, card):
     def s31(d, feed_ahead):
         return decode(STREAM_1080P, d, feed_ahead, MD5S_S31, MD5_S31)
 
-    with _PipelineWaits() as waits:
-        for _, d, feed_ahead in cases:
-            s31(d, feed_ahead)
-        for r in range(PIPELINE_ROUNDS):
-            for name, d, feed_ahead in cases[::1 if r % 2 == 0 else -1]:
-                if r == 0:
-                    (wall, w), launches[name] = counted(
-                        lambda: s31(d, feed_ahead))
-                else:
-                    wall, w = s31(d, feed_ahead)
-                per[name]["wall_ms"].append(wall)
-                for k, v in w.items():
-                    per[name][k].append(v)
-        (s33_wall, s33_w), s33_launches = counted(
-            lambda: decode(STREAM_4K10, 0, True, MD5S_S33_WHOLE,
-                           MD5_S33_WHOLE))
+    for _, d, feed_ahead in cases:
+        s31(d, feed_ahead)
+    for r in range(PIPELINE_ROUNDS):
+        for name, d, feed_ahead in cases[::1 if r % 2 == 0 else -1]:
+            if r == 0:
+                (wall, w), launches[name] = counted(
+                    lambda: s31(d, feed_ahead))
+            else:
+                wall, w = s31(d, feed_ahead)
+            per[name]["wall_ms"].append(wall)
+            for k, v in w.items():
+                per[name][k].append(v)
+    (s33_wall, s33_w), s33_launches = counted(
+        lambda: decode(STREAM_4K10, 0, True, MD5S_S33_WHOLE, MD5_S33_WHOLE))
     out = {}
     for name, r in per.items():
         walls = r["wall_ms"]

@@ -26,6 +26,8 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 
+from .utils import timing
+
 INLOOPFILTER_NONE = 0
 INLOOPFILTER_DEBLOCK = 1
 INLOOPFILTER_CDEF = 2
@@ -91,7 +93,8 @@ class Decoder:
     def __init__(self, settings: Settings | None = None):
         from .decoder import ObuStreamDecoder
         self.settings = settings or Settings()
-        self._dec = ObuStreamDecoder(settings=self.settings)
+        with timing.phase("api.open"):
+            self._dec = ObuStreamDecoder(settings=self.settings)
         self._pending: deque = deque()
         self._out: deque = deque()
         # decode-stat counters (SURVEY §5 observability)
@@ -146,7 +149,8 @@ class Decoder:
                 return None
             entry, props = self._out.popleft()
             try:
-                pic = resolve(entry)
+                with timing.phase("api.wait"):
+                    pic = resolve(entry)
             except Exception as e:
                 # a pipelined Stage-B failure surfaces here; frames
                 # referencing the poisoned picture cascade the same way
@@ -166,7 +170,6 @@ class Decoder:
                 # with the decode's device current; nothing to do for
                 # a picture of the golden host route
                 from .ops.device import fetch_pic_host
-                from .utils import timing
                 with timing.phase("fetch"), self._dec.device_scope():
                     fetch_pic_host(pic)
                 self._dec.release_device_planes(pic)
@@ -193,7 +196,8 @@ class Decoder:
 
     # -- dav1d_close ----------------------------------------------------
     def close(self) -> None:
-        self.flush()
+        with timing.phase("api.close"):
+            self.flush()
 
     def __enter__(self):
         return self

@@ -593,11 +593,13 @@ class ObuStreamDecoder:
                     self._tile_pool = ThreadPoolExecutor(
                         max_workers=min(self.n_threads, 16),
                         thread_name_prefix="tile")
-                for _ in self._tile_pool.map(lambda r: r.run(), runs):
-                    pass
-                for tile_idx, r in enumerate(runs):
-                    r.materialize()
-                    finish_tile(tile_idx, tps[tile_idx])
+                with timing.phase("stage_a.tiles_wait"):
+                    for _ in self._tile_pool.map(lambda r: r.run(), runs):
+                        pass
+                with timing.phase("stage_a.materialize"):
+                    for tile_idx, r in enumerate(runs):
+                        r.materialize()
+                        finish_tile(tile_idx, tps[tile_idx])
             else:
                 for tile_idx in range(n_tiles_f):
                     tr, tc = divmod(tile_idx, n_cols)
@@ -732,7 +734,8 @@ class ObuStreamDecoder:
         if refp is not None:
             for slot in refp:
                 if slot is not None and hasattr(slot.pic, "result"):
-                    slot.pic = resolve(slot.pic)
+                    with timing.phase("pipeline.ref_wait"):
+                        slot.pic = resolve(slot.pic)
         shards = self.shard_devices
         if key_or_intra and not fh.allow_intrabc:
             from .recon.intra import reconstruct_intra_frame

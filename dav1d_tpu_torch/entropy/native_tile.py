@@ -18,6 +18,7 @@ import numpy as np
 from .. import tables
 from ..bitstream.headers import (FilterMode, WarpedMotionParams,
                                  WarpedMotionType)
+from ..utils import timing
 from . import levels as lv
 from . import native
 from .intra_edge import INTRA_EDGE_TREE
@@ -304,7 +305,8 @@ class NativeTileRun:
 
     def run(self):
         """FFI into native/tileparse.cpp — thread-safe, GIL-released."""
-        self.err = _lib.tile_parse(ct.addressof(self.t))
+        with timing.phase("stage_a.tile_parse"):
+            self.err = _lib.tile_parse(ct.addressof(self.t))
 
     def materialize(self):
         """Write back msac state, check errors, fill the FramePlan.
@@ -319,7 +321,8 @@ def parse_tile_native(tp) -> bool:
     if r is None:
         return False
     r.run()
-    r.materialize()
+    with timing.phase("stage_a.materialize"):
+        r.materialize()
     return True
 
 
@@ -733,6 +736,8 @@ def _append_tile_objects(plan, tile_rec):
     blocks = plan.blocks
     for r in tile_rec["blocks"].tolist():
         blocks.append(_block_from_rec(f, tile_rec, r, coef_base))
+    timing.count("stage_a.objects",
+                 len(tile_rec["coefs"]) + len(tile_rec["blocks"]))
 
 
 def materialize_pending(plan):
@@ -765,6 +770,7 @@ def materialize_block(plan, tile_rec, local_idx):
     b.coef_start = 0
     b.coef_end = len(cbs)
     b._cbs = cbs
+    timing.count("stage_a.objects", 1 + len(cbs))
     return b
 
     run.keep = None

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..utils import timing
 
 
 def device_enabled() -> bool:
@@ -136,13 +135,6 @@ def device_tables(device) -> dict:
     """The LUTs of tables_from_numpy for this package's own tables,
     built once per device."""
     return _tables_on(str(torch.device(device)))
-
-
-def sync_if_timed(device):
-    """With utils.timing enabled, wait for `device` so that the timed
-    section holds its device work."""
-    if timing.ENABLED and device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _fetch_dtype(bpc):

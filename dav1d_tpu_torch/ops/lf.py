@@ -371,7 +371,7 @@ def deblock_planes_device(planes, plan, bd):
     plane cross to the device in one copy; on CUDA one kernel launch
     filters every plane in both directions. Returns a new list."""
     from ..utils import timing
-    from .device import device_tables, sync_if_timed
+    from .device import device_tables
     device = planes[0].device
     with timing.phase("deblock.masks"):
         maps = frame_maps(plan, [tuple(p.shape) for p in planes])
@@ -380,7 +380,6 @@ def deblock_planes_device(planes, plan, bd):
         return out
     with timing.phase("deblock.maps_upload"):
         maps = upload_maps(maps, device)
-        sync_if_timed(device)
     sharpness = plan.f.frame_hdr.loopfilter.sharpness
     tb = device_tables(device)
     with timing.phase("deblock.launch"):

@@ -45,7 +45,7 @@ import torch
 
 from ..utils import timing
 from . import itx, mc, mc_obmc, mc_warp
-from .device import sync_if_timed, upload_planes
+from .device import upload_planes
 
 
 # dense per-class wedge mask LUTs: every (layout, bs, sign, idx) combo
@@ -178,7 +178,6 @@ def execute(recon, jobs):
         else:
             planes = [torch.zeros(p.shape, dtype=torch.int32, device=dev)
                       for p in pic.planes]
-        sync_if_timed(dev)
     bounds = [recon._ref_bounds(int(bool(pi))) for pi in range(n_planes)]
     run_passes(T, refs, planes, bounds, pool_d, bd, f.ss_hor, f.ss_ver)
     recon._finish_device_planes(planes)
@@ -198,12 +197,10 @@ def run_passes(T, refs, planes, bounds, pool_d, bd, ss_hor, ss_ver):
     with timing.phase("inter.puts"):
         if "put" in T:
             mc.put_planes(per_plane, T["put"], bd, blocks=T["put_blocks"])
-        sync_if_timed(dev)
 
     with timing.phase("inter.warps"):
         if "warp" in T:
             mc_warp.warp_planes(per_plane, T["warp"], bd)
-        sync_if_timed(dev)
 
     with timing.phase("inter.comps"):
         seg = None
@@ -215,13 +212,11 @@ def run_passes(T, refs, planes, bounds, pool_d, bd, ss_hor, ss_ver):
                 mc.comp(refs[pi], T["comp", pi], planes[pi], seg,
                         *bounds[pi], bd, pi == 0, ss_hor, ss_ver,
                         blocks=T["comp_blocks", pi])
-        sync_if_timed(dev)
 
     with timing.phase("inter.obmc"):
         laps = [T.get(("obmc", top)) for top in (1, 0)]
         if any(t is not None for t in laps):   # top laps before left laps
             mc_obmc.obmc_planes(per_plane, *laps, bd)
-        sync_if_timed(dev)
 
     with timing.phase("inter.residuals"):
         for pi in range(n_planes):
@@ -230,4 +225,3 @@ def run_passes(T, refs, planes, bounds, pool_d, bd, ss_hor, ss_ver):
                             blocks=T["res_blocks", pi])
             if ("wht", pi) in T:
                 itx.itx_add(pool_d, T["wht", pi], planes[pi], bd, wht=True)
-        sync_if_timed(dev)

@@ -30,6 +30,8 @@ from __future__ import annotations
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from ..utils import timing
+
 
 class FramePromise:
     """A settable future for a decoded frame with resolve hooks
@@ -158,7 +160,8 @@ class ReconPipeline:
         out_promise resolves with finish_fn()'s value."""
         ref_promise = FramePromise()
         out_promise = FramePromise()
-        self._slots.acquire()
+        with timing.phase("pipeline.submit_wait"):
+            self._slots.acquire()
 
         def run():
             try:

@@ -12,12 +12,12 @@ super-res frame) for later frames' references, and pixels download
 once at the end, queued on the current stream and materialized by
 ops.device.fetch_pic_host.
 
-With utils.timing enabled, each stage synchronizes the device before
-its timer stops, so the timed sections hold their device work.
+A stage's utils.timing phase holds its host work and its launches'
+enqueue, not its device time.
 """
 from __future__ import annotations
 
-from ..ops.device import queue_plane_fetch, sync_if_timed, upload_planes
+from ..ops.device import queue_plane_fetch, upload_planes
 from ..utils import timing
 
 
@@ -55,13 +55,11 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
     else:
         with timing.phase("filters.upload"):
             planes = upload_planes(pic.planes, device)
-            sync_if_timed(device)
 
     if do_deblock:
         from ..ops.lf import deblock_planes_device
         with timing.phase("filters.deblock"):
             planes = deblock_planes_device(planes, plan, pic.bpc)
-            sync_if_timed(device)
 
     pre_cdef = planes if do_lr else None   # post-deblock lpf snapshot
 
@@ -69,7 +67,6 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
         from ..ops.cdef import cdef_planes_device
         with timing.phase("filters.cdef"):
             planes = cdef_planes_device(planes, plan, pic.bpc)
-            sync_if_timed(device)
 
     out_pic = pic
     if do_sr:
@@ -77,7 +74,6 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
         with timing.phase("filters.superres"):
             out_pic, planes, pre_cdef = superres_planes_device(
                 planes, pre_cdef, plan, pic)
-            sync_if_timed(device)
         pic.dev = None          # the coded-width picture is dropped
         pic.dev_c = None
 
@@ -85,7 +81,6 @@ def run_filter_chain_device(pic, plan, inloop_filters, device):
         from ..ops.lr import lr_planes_device
         with timing.phase("filters.lr"):
             planes = lr_planes_device(planes, pre_cdef, plan, pic.bpc)
-            sync_if_timed(device)
 
     _keep_and_fetch(out_pic, planes)
     return out_pic

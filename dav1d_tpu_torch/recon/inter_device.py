@@ -58,8 +58,7 @@ import numpy as np
 
 from ..entropy import levels as lv
 from ..ops import itx_ref, mc_ref
-from ..ops.device import fetch_rows, planes_on_device, sync_if_timed, \
-    upload_rows
+from ..ops.device import fetch_rows, planes_on_device, upload_rows
 from ..utils import timing
 from .inter_ref import (COMP_INTER_AVG, COMP_INTER_NONE, COMP_INTER_SEG,
                         COMP_INTER_WEDGE, COMP_INTER_WEIGHTED_AVG,
@@ -341,13 +340,11 @@ class DeviceInterReconstructor(InterReconstructor):
         if self._dev_lo is not None:
             with timing.phase("inter.lo_device"):
                 ipred_device.execute(self)
-                sync_if_timed(self.device)
             return self.pic
         with timing.phase("inter.leftovers"):
             self._replay_leftovers()
         with timing.phase("inter.region_upload"):
             upload_rows(self.pic.dev, self.pic.planes, self._region_spans)
-            sync_if_timed(self.device)
         return self.pic
 
     def _replay_leftovers(self):
@@ -508,7 +505,6 @@ class DeviceInterReconstructor(InterReconstructor):
             with timing.phase("inter.region_upload"):
                 upload_rows(self.pic.dev, self.pic.planes,
                             self._region_spans)
-                sync_if_timed(self.device)
         return self.pic
 
     def _execute(self, jobs):

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda_build import device_guard
-from ..ops.device import fetch_rows, sync_if_timed, upload_planes
+from ..ops.device import fetch_rows, upload_planes
 from ..parallel.sharded import (HALO, distinct, halo_exchange,
                                 norm_device, stitch, window)
 from ..utils import timing
@@ -97,11 +97,6 @@ def gather(shards, W, device):
         if b > a:
             out[:, a:b] = t[:, :b - a]
     return out
-
-
-def _sync(devices):
-    for d in distinct(devices):
-        sync_if_timed(d)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +310,6 @@ def execute_sharded(recon, jobs):
                                     f.ss_hor, f.ss_ver)
                 for pi in range(n_planes):
                     planes[pi][s] = ext[pi][:, aprons[pi]:]
-        _sync(devices)
         if len(recon.leftovers) or recon.res_fixups:
             main = norm_device(recon.device)
             with device_guard(main):
@@ -512,7 +506,6 @@ def run_filter_chain_sharded(pic, plan, inloop_filters, device, devices):
     fh = f.frame_hdr
     T = len(devices)
     main = norm_device(device)
-    all_devs = distinct(devices + [main])
     sw_l, sw_c = _shard_widths(plan, T)
     do_deblock, do_cdef, do_sr, do_lr = enabled_stages(plan, inloop_filters)
     grid = pic.dev is not None and pic.dev_grid
@@ -528,19 +521,16 @@ def run_filter_chain_sharded(pic, plan, inloop_filters, device, devices):
             src = pic.dev if pic.dev is not None else pic.planes
             planes = [to_sharded(p, T, sw_l if pi == 0 else sw_c, devices)
                       for pi, p in enumerate(src)]
-            _sync(all_devs)
 
     if do_deblock:
         with timing.phase("filters.deblock"):
             planes = deblock_planes_sharded(planes, plan, pic.bpc, devices)
-            _sync(all_devs)
 
     pre_cdef = planes if do_lr else None   # post-deblock lpf snapshot
 
     if do_cdef:
         with timing.phase("filters.cdef"):
             planes = cdef_planes_sharded(planes, plan, pic.bpc, devices)
-            _sync(all_devs)
 
     out_pic = pic
     if do_sr:
@@ -560,7 +550,6 @@ def run_filter_chain_sharded(pic, plan, inloop_filters, device, devices):
             if do_lr:
                 pre_cdef = [to_sharded(p, T, osw_l if pi == 0 else osw_c,
                                        devices) for pi, p in enumerate(pre)]
-            _sync(all_devs)
         pic.dev = None          # the coded-width picture is dropped
         pic.dev_c = None
         pic.dev_rep = None
@@ -570,7 +559,6 @@ def run_filter_chain_sharded(pic, plan, inloop_filters, device, devices):
         with timing.phase("filters.lr"):
             planes = lr_planes_sharded(planes, pre_cdef, plan, pic.bpc,
                                        devices)
-            _sync(all_devs)
 
     return _finish(planes, out_pic, main, devices)
 
@@ -585,7 +573,6 @@ def _finish(planes, pic, main, devices):
                 for pl, hp in zip(planes, pic.planes)]
         rep = {d: [p.to(d) for p in full] for d in distinct(devices)
                if d != main}
-        sync_if_timed(main)
     pic.dev_grid = False
     pic.dev_rep = rep or None
     _keep_and_fetch(pic, full)

@@ -462,11 +462,12 @@ def test_stage_timers_exact_across_threads(monkeypatch):
     monkeypatch.setattr(timing, "ENABLED", True)
     monkeypatch.setattr(timing, "_T", timing.defaultdict(float))
     monkeypatch.setattr(timing, "_N", timing.defaultdict(int))
+    monkeypatch.setattr(timing, "_C", timing.defaultdict(int))
 
     def both():
-        timing.add("x", 1.0)
+        timing.count("x", 2)
         with timing.phase("y"):
             pass
     n = _hammer(both, n=1000)
-    assert timing._N["x"] == timing._N["y"] == n
-    assert timing._T["x"] == float(n)
+    assert timing._N["y"] == n
+    assert timing._C["x"] == 2 * n
