@@ -545,16 +545,15 @@ class ObuStreamDecoder:
             in_cdf = self.refs[pri].cdf
 
         plan = FramePlan(f)
-        if not key_or_intra and self.do_recon and coder_factory is None \
-                and not self.golden:
-            # lazy-block fast path: native Stage A -> native inter-job
-            # emitter -> device Stage B, with Python Block objects
-            # built only on demand (leftover replay); the golden inter
-            # walk needs every Block
-            from .ops import lf_native
-            from .recon import inter_jobs_native
-            plan.want_lazy = (inter_jobs_native.available() and
-                              lf_native.available())
+        if self.do_recon and coder_factory is None and not self.golden \
+                and not fh.allow_intrabc:
+            # lazy-block fast path: native Stage A -> the native intra
+            # engine (key and intra frames) or inter-job emitter ->
+            # device Stage B, with Python Block objects built only on
+            # demand (leftover replay; every golden fallback materializes
+            # first); the golden route's walks and the intrabc walk need
+            # every Block
+            plan.want_lazy = True
         out_cdf = None
         n_cols = fh.tiling.cols
         n_tiles_f = fh.tiling.rows * n_cols
@@ -610,6 +609,8 @@ class ObuStreamDecoder:
                         tp.msac = coder_factory(tile_idx, cdf)
                     tp.parse_tile()
                     finish_tile(tile_idx, tp)
+            if plan.lazy_blocks:
+                timing.count("stage_a.lazy_frames")
 
         # temporal mv save for future frames
         rp = None

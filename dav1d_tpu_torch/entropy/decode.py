@@ -232,10 +232,11 @@ class FramePlan:
     # native Stage-A record views per tile (blocks/coefs/pools), kept so
     # native Stage-B consumers (itx, intra recon) skip the Python objects
     native_tiles: list = field(default_factory=list)
-    # lazy-block mode: the hot decode path (native Stage A -> native
-    # job emitter -> device Stage B) never builds Python Block/
-    # CoefBlock objects; consumers that need them call
-    # native_tile.materialize_pending(plan) first
+    # lazy-block mode: the hot decode path of key, intra and inter
+    # frames (native Stage A -> the native intra engine or job emitter
+    # -> device Stage B) never builds Python Block/CoefBlock objects;
+    # consumers that need them call native_tile.materialize_pending(plan)
+    # first
     want_lazy: bool = False
     lazy_blocks: bool = False
     n_blocks_lazy: int = 0

@@ -662,6 +662,7 @@ def _materialize(run):
         plan.lazy_blocks = True
         plan.n_blocks_lazy += int(t.n_blocks)
         plan.n_coefs_lazy += int(t.n_coefs)
+        timing.count("stage_a.objects", 0)
     else:
         _append_tile_objects(plan, tile_rec)
 
@@ -740,6 +741,19 @@ def _append_tile_objects(plan, tile_rec):
                  len(tile_rec["coefs"]) + len(tile_rec["blocks"]))
 
 
+def native_complete(plan) -> bool:
+    """Whether the native tile records hold the whole frame, so a native
+    Stage-B consumer may read them in place of the Python objects: a
+    lazy plan, or one whose Block and CoefBlock lists hold no more than
+    the records (a Python tile parse adds objects of its own)."""
+    tiles = plan.native_tiles
+    if not tiles:
+        return False
+    return plan.lazy_blocks or (
+        sum(len(t["blocks"]) for t in tiles) == len(plan.blocks) and
+        sum(len(t["coefs"]) for t in tiles) == len(plan.coefs))
+
+
 def materialize_pending(plan):
     """Late materialization of a lazily-parsed plan: builds every
     Block/CoefBlock that the lazy fast path skipped, in decode order.
@@ -772,5 +786,3 @@ def materialize_block(plan, tile_rec, local_idx):
     b._cbs = cbs
     timing.count("stage_a.objects", 1 + len(cbs))
     return b
-
-    run.keep = None

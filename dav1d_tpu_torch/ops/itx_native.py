@@ -14,7 +14,7 @@ import numpy as np
 
 from .. import tables
 from ..entropy import levels as lv
-from ..entropy import native
+from ..entropy import native, native_tile
 from .itx_ref import TX_SHIFT, TX1D_TYPES
 
 u8p = ct.POINTER(ct.c_uint8)
@@ -102,10 +102,7 @@ def precompute_native(plan, bitdepth: int) -> bool:
     in the tile records — CoefBlock.res materializes lazily from them
     (entropy/decode.py). Returns False when the plan has no (complete)
     native Stage-A output — caller falls back."""
-    if _lib is None or not plan.native_tiles:
-        return False
-    total = sum(len(t["coefs"]) for t in plan.native_tiles)
-    if total != len(plan.coefs):
+    if _lib is None or not native_tile.native_complete(plan):
         return False
     st, _, wh = _ctx()
     for t in plan.native_tiles:

@@ -11,7 +11,7 @@ import os
 import numpy as np
 
 from ..entropy import levels as lv
-from ..entropy import native
+from ..entropy import native, native_tile
 from .lf_ref import LfMasks
 
 u8p = ct.POINTER(ct.c_uint8)
@@ -73,11 +73,7 @@ def _ti():
 def build_lf_masks_native(plan):
     """Native mask build; returns an LfMasks or None (caller falls
     back to the golden model)."""
-    if not available() or not plan.native_tiles:
-        return None
-    if not getattr(plan, "lazy_blocks", False) and \
-            sum(len(t["blocks"]) for t in plan.native_tiles) != \
-            len(plan.blocks):
+    if not available() or not native_tile.native_complete(plan):
         return None
     f = plan.f
     m = LfMasks(f)

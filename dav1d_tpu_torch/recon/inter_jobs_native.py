@@ -16,7 +16,7 @@ import os
 import numpy as np
 
 from ..entropy import levels as lv
-from ..entropy import native
+from ..entropy import native, native_tile
 from ..ops import mc_ref
 
 u8p = ct.POINTER(ct.c_uint8)
@@ -99,14 +99,12 @@ def emit(plan, f, jnt_weights):
     {puts, warps, obmc, comp, res, leftovers} or None when the native
     path can't serve this frame (caller falls back to the Python
     collector walk)."""
-    if not available() or not plan.native_tiles or f.rf is None:
-        return None
-    tiles = plan.native_tiles
     # the emitter walks ONLY native-parsed tiles; a mixed native/Python
     # Stage A must use the Python collector walk
-    if not getattr(plan, "lazy_blocks", False) and \
-            sum(len(t["blocks"]) for t in tiles) != len(plan.blocks):
+    if not available() or not native_tile.native_complete(plan) or \
+            f.rf is None:
         return None
+    tiles = plan.native_tiles
     for t in tiles:
         if not (t["blocks"].flags["C_CONTIGUOUS"] and
                 t["coefs"].flags["C_CONTIGUOUS"]):

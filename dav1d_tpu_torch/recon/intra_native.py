@@ -16,7 +16,7 @@ import numpy as np
 
 from .. import tables
 from ..entropy import levels as lv
-from ..entropy import native
+from ..entropy import native, native_tile
 from ..ops import itx_native
 
 u8p = ct.POINTER(ct.c_uint8)
@@ -139,14 +139,12 @@ def _call(plan, pic, tile, sel):
 
 
 def reconstruct_intra_frame_native(plan):
-    """Full keyframe walk, one native call per tile. Returns the
-    reconstructed Picture, or None when the native path can't serve
-    this frame (no native Stage-A records, forced off, exotic plane
-    views) — caller falls back to the golden model."""
-    if not available() or not plan.native_tiles:
-        return None
-    if sum(len(t["blocks"]) for t in plan.native_tiles) != \
-            len(plan.blocks):
+    """Full keyframe walk, one native call per tile, off the tile
+    records alone (a lazy plan has no Python Block objects). Returns
+    the reconstructed Picture, or None when the native path can't
+    serve this frame (no or partial native Stage-A records, forced
+    off, exotic plane views) — caller falls back to the golden model."""
+    if not available() or not native_tile.native_complete(plan):
         return None
     from .picture import Picture
     f = plan.f

@@ -9,8 +9,9 @@ records on the decode path, on the CPU.
   portbench's PhaseLog wrapped around it;
 - Stage A on a 2x2-tile stream at n_threads 4: each Stage A span
   fires, the `stage_a.objects` counter equals the plans' Block and
-  CoefBlock objects, the API and pipeline spans fire, and the pictures
-  are the same with the recorder on and off;
+  CoefBlock objects, the API and pipeline spans fire, every frame of a
+  decode on the device route is counted in `stage_a.lazy_frames`, and
+  the pictures are the same with the recorder on and off;
 - the `stage_a.objects` count of each keyframe of the benchmark's
   1080p pool (portbench's av1-1080p8 streams), recorded here;
 - the readers of the per-layer metrics that read these spans and
@@ -35,21 +36,9 @@ from portbench.harness import Context
 from portbench.pool import load_stream
 from tools.streamgen.gen import generate_stream
 
+from torch_port_cases import rec  # noqa: F401 (fixture)
+
 TIMEOUT = 30            # seconds any wait of a test may take
-
-
-@pytest.fixture
-def rec(monkeypatch):
-    """The recorder on, with empty tables, period and thread state."""
-    monkeypatch.setattr(timing, "ENABLED", True)
-    for name, kind in (("_T", float), ("_N", int), ("_C", int)):
-        monkeypatch.setattr(timing, name, defaultdict(kind))
-    monkeypatch.setattr(timing, "_LAST", {"phases": {}, "calls": {},
-                                          "counters": {}})
-    monkeypatch.setattr(timing, "_period", 0)
-    monkeypatch.setattr(timing, "_local", threading.local())
-    timing._hook_gc()             # as the first enabled phase() does
-    return timing
 
 
 @pytest.fixture
@@ -305,7 +294,10 @@ def test_pictures_equal_with_the_recorder_on_and_off(rec, monkeypatch,
     for k in STAGE_A_SPANS + ("api.open", "api.close", "api.wait",
                               "pipeline.submit_wait", "pipeline.ref_wait"):
         assert timing._N[k] >= 1, k
-    assert timing._C["stage_a.objects"] > 0
+    # every frame on the device route is lazy: the counter fires, and
+    # reads 0 where no fallback built an object
+    assert "stage_a.objects" in timing._C
+    assert timing._C["stage_a.lazy_frames"] == 3
     monkeypatch.setattr(timing, "ENABLED", False)
     n = dict(timing._N)
     assert _md5s(tiled) == on and len(on) == 3

@@ -2,12 +2,16 @@
 streams with every in-loop filter on (4:2:0 at 8, 10 and 12 bit, 4:2:2,
 4:4:4 and monochrome), parsed by both packages; the streams of the host
 golden walks (GOLDEN_WALKS); the super-res and film grain streams
-(SUPERRES_STREAMS, GRAIN_STREAMS, BIG_POST_FILTERS); and the kernels'
+(SUPERRES_STREAMS, GRAIN_STREAMS, BIG_POST_FILTERS); the kernels'
 decompositions (deblock and CDEF tiles, the OBMC and warp assignments)
-in plain torch."""
+in plain torch; and the `rec` fixture, the port's recorder turned on.
+A test module that wants `rec` imports it by name."""
 import os
+import threading
+from collections import defaultdict
 
 import numpy as np
+import pytest
 
 from tools.streamgen.gen import generate_intra_stream, generate_stream
 
@@ -26,6 +30,22 @@ STREAMS = {
     "8bit-mono": dict(w=96, h=64, n_frames=2, seed=36, monochrome=1),
 }
 
+
+
+@pytest.fixture
+def rec(monkeypatch):
+    """The port's recorder (dav1d_tpu_torch.utils.timing) on, with empty
+    tables, period and thread state."""
+    from dav1d_tpu_torch.utils import timing
+    monkeypatch.setattr(timing, "ENABLED", True)
+    for name, kind in (("_T", float), ("_N", int), ("_C", int)):
+        monkeypatch.setattr(timing, name, defaultdict(kind))
+    monkeypatch.setattr(timing, "_LAST", {"phases": {}, "calls": {},
+                                          "counters": {}})
+    monkeypatch.setattr(timing, "_period", 0)
+    monkeypatch.setattr(timing, "_local", threading.local())
+    timing._hook_gc()             # as the first enabled phase() does
+    return timing
 
 
 def _pyr_refidx(fi):
