@@ -743,16 +743,17 @@ class ObuStreamDecoder:
             with timing.phase("intra.frame_recon"):
                 pic = reconstruct_intra_frame(plan)
         elif not key_or_intra and not self.golden:
-            if shards is not None:
-                from .recon.sharded_stageb import \
-                    reconstruct_inter_frame_sharded
-                pic = reconstruct_inter_frame_sharded(plan, refp,
-                                                      self.device, shards)
-            else:
-                from .recon.inter_device import \
-                    reconstruct_inter_frame_device
-                pic = reconstruct_inter_frame_device(plan, refp,
-                                                     self.device)
+            with timing.phase("inter.frame_recon"):
+                if shards is not None:
+                    from .recon.sharded_stageb import \
+                        reconstruct_inter_frame_sharded
+                    pic = reconstruct_inter_frame_sharded(
+                        plan, refp, self.device, shards)
+                else:
+                    from .recon.inter_device import \
+                        reconstruct_inter_frame_device
+                    pic = reconstruct_inter_frame_device(plan, refp,
+                                                         self.device)
         else:
             # intrabc frames copy from the picture being decoded: an
             # inherently sequential walk (reference recon_tmpl.c:1583),

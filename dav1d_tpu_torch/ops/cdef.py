@@ -31,6 +31,7 @@ import torch
 
 from .cdef_ref import cdef_dirs, FILL, UV_DIRS
 from .cuda_build import count_launch, launch_stream
+from .device import upload
 
 # kernel launches per name (counted where the CUDA kernel is launched)
 LAUNCHES = {"cdef": 0}
@@ -414,6 +415,6 @@ def cdef_planes_device(planes, plan, bd):
     tensors; the inputs stay as they are (LR reads the pre-CDEF
     planes)."""
     f = plan.f
-    maps = torch.from_numpy(_block_maps(plan, bd)).to(planes[0].device)
+    maps = upload(_block_maps(plan, bd), planes[0].device)
     return cdef_planes(planes, maps, f.bh * 4, f.bw * 4, int(f.layout), bd,
                        f.frame_hdr.cdef.damping + (bd - 8))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from ..utils import timing
 
 
 def device_enabled() -> bool:
@@ -42,6 +43,17 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def upload(a, device) -> torch.Tensor:
+    """One host-to-device copy of the numpy array `a`: the decode
+    path's uploads all come through here, and each adds its bytes to
+    the recorder's counter `upload.bytes` (on the CPU device too, where
+    nothing crosses: the count is what a card would take). The
+    per-device constant tables (`device_tables`, the kernel libraries'
+    `per_device` set-up) are made once and are not counted."""
+    timing.count("upload.bytes", a.nbytes)
+    return torch.from_numpy(a).to(device)
+
+
 def upload_planes(host_planes, device):
     """Host planes (uint8/uint16 numpy) -> int32 tensors on `device`.
     The native dtype crosses the bus and widens on the device."""
@@ -51,7 +63,7 @@ def upload_planes(host_planes, device):
         if a.dtype == np.uint16:
             # torch's uint16 supports few ops; 12-bit values fit int16
             a = a.view(np.int16)
-        out.append(torch.from_numpy(a).to(device).to(torch.int32))
+        out.append(upload(a, device).to(torch.int32))
     return out
 
 

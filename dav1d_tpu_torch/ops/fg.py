@@ -38,6 +38,7 @@ import torch
 from ..utils import timing
 from . import fg_ref
 from .cuda_build import count_launch, launch_stream
+from .device import upload
 from .fg_ref import (FG_BLOCK_SIZE, GRAIN_HEIGHT, GRAIN_WIDTH, _rand,
                      generate_grain_uv, generate_grain_y, generate_scaling)
 
@@ -280,8 +281,7 @@ def grain_tables(fgd, ss_x, ss_y, bd, device):
             L, S = pack_tables(*_grain_data(fgd, ss_x, ss_y, bd), bd)
         if len(_DEVICE_CACHE) > 32:
             _DEVICE_CACHE.clear()
-        hit = _DEVICE_CACHE[key] = (torch.from_numpy(L).to(device),
-                                    torch.from_numpy(S).to(device))
+        hit = _DEVICE_CACHE[key] = (upload(L, device), upload(S, device))
     return hit
 
 
@@ -478,7 +478,7 @@ def apply_film_grain_device(pic, fh, seq, device):
     with timing.phase("fg.apply"):
         planes = planes_on_device(pic, device)
         grained = film_grain(planes, fr, luts, scal,
-                             torch.from_numpy(off).to(device))
+                             upload(off, device))
         out = Picture(pic.w, pic.h, pic.layout, pic.bpc)
         out.pending_fetch = queue_plane_fetch(grained, pic.bpc)
         out.host_stale = True

@@ -35,6 +35,7 @@ import torch
 from ..entropy import levels as lv
 from . import itx_core
 from .cuda_build import count_launch, cut_blocks, launch_stream
+from .device import upload
 from .itx_ref import TX1D_TYPES, TX_SHIFT
 
 N_TX = len(lv.TXFM_INFO)
@@ -228,8 +229,8 @@ def itx_add_cuda(pool, jobs, plane, bd, wht=False, blocks=None):
     if not wht:
         if blocks is None:
             rows, blk = res_blocks(jobs.cpu().numpy())
-            jobs = torch.from_numpy(rows).to(dev)
-            blocks = torch.from_numpy(blk).to(dev)
+            jobs = upload(rows, dev)
+            blocks = upload(blk, dev)
         check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 3))
         blk_ptr, n_blk = blocks.data_ptr(), len(blocks)
     rc = _lib().itx_add(pool.data_ptr(), jobs.data_ptr(), len(jobs),

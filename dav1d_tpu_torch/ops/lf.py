@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .cuda_build import count_launch, launch_stream
+from .device import upload
 from .lf_ref import build_lf_masks
 
 PAD = 8
@@ -352,7 +353,7 @@ def upload_maps(maps, device):
     in a single host-to-device copy."""
     parts = [a.view(np.uint8).reshape(-1) for _, _, vm, hm in maps
              for a in (*vm, *hm)]
-    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    buf = upload(np.concatenate(parts), device)
     out, pos = [], 0
     for pi, luma, vm, hm in maps:
         dev_maps = []

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .cuda_build import count_launch, launch_stream
+from .device import upload
 from .restore_ref import (LR_HAVE_LEFT, LR_HAVE_RIGHT, LR_HAVE_TOP,
                           LR_HAVE_BOTTOM, _sgr_params_tbl)
 
@@ -564,8 +565,7 @@ def plane_sources(cur, pre, w, wmax):
 def upload_tables(tbl, device):
     """item_tables' arrays as int32 tensors on `device`: views of one
     buffer that crosses in a single host-to-device copy."""
-    buf = torch.from_numpy(np.concatenate(
-        [a.reshape(-1) for a in tbl])).to(device)
+    buf = upload(np.concatenate([a.reshape(-1) for a in tbl]), device)
     views, pos = [], 0
     for a in tbl:
         views.append(buf[pos:pos + a.size].view(a.shape))

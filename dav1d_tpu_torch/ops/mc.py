@@ -47,6 +47,7 @@ import torch
 
 from .cuda_build import check_tensor, count_launch, cut_blocks, \
     launch_stream
+from .device import upload
 from .mc_ref import _subpel_filters, intermediate_bits, prep_bias
 
 IDENTITY_TAP = np.array([0, 0, 0, 64, 0, 0, 0, 0], np.int32)
@@ -465,8 +466,8 @@ def _blocks_for(jobs, blocks, binner, dev):
     or the jobs sorted and binned here (a copy through the host)."""
     if blocks is None:
         rows, blk = binner(jobs.cpu().numpy())
-        jobs = torch.from_numpy(rows).to(dev)
-        blocks = torch.from_numpy(blk).to(dev)
+        jobs = upload(rows, dev)
+        blocks = upload(blk, dev)
     check_tensor(blocks, "blocks", torch.int32, dev, (len(blocks), 5))
     return jobs, blocks
 

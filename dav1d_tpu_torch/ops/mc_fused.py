@@ -45,7 +45,7 @@ import torch
 
 from ..utils import timing
 from . import itx, mc, mc_obmc, mc_warp
-from .device import upload_planes
+from .device import upload, upload_planes
 
 
 # dense per-class wedge mask LUTs: every (layout, bs, sign, idx) combo
@@ -144,7 +144,7 @@ def _upload(tables, pool, device):
     """One host->device copy of every job table and the pool; returns
     ({key: (n, K) view}, pool view)."""
     parts = [t.reshape(-1) for t in tables.values()] + [pool]
-    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    buf = upload(np.concatenate(parts), device)
     views, pos = {}, 0
     for k, t in tables.items():
         views[k] = buf[pos:pos + t.size].view(t.shape)

@@ -634,7 +634,9 @@ def reconstruct_inter_frame_device(plan, refp, device):
 def reconstruct_with(r):
     """Stage B of r's frame (r: a DeviceInterReconstructor): the native
     emitter's tables through r.run_native, or the collector walk
-    (r.run) for a frame the emitter does not serve."""
+    (r.run) for a frame the emitter does not serve. The frame's
+    leftover blocks, on the device or the host route, add to the
+    recorder's counter `inter.leftover_blocks`."""
     from . import inter_jobs_native
     plan = r.plan
     jobs = None
@@ -642,7 +644,9 @@ def reconstruct_with(r):
         with timing.phase("inter.emit_jobs"):
             jobs = inter_jobs_native.emit(plan, plan.f, r.jnt_weights)
     if jobs is not None:
-        return r.run_native(jobs)
+        pic = r.run_native(jobs)
+        timing.count("inter.leftover_blocks", len(r.leftovers))
+        return pic
     # the golden Python collector walk (also the
     # DAV1D_TPU_INTERJOBS=python oracle of the emitter); it needs the
     # Python Block objects
@@ -658,4 +662,6 @@ def reconstruct_with(r):
     if not r._fused_res:
         with timing.phase("inter.itx_residuals"):
             itx_ref.precompute_residuals_plan(plan, r.bitdepth)
-    return r.run()
+    pic = r.run()
+    timing.count("inter.leftover_blocks", len(r.leftovers))
+    return pic

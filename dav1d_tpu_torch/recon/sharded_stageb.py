@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda_build import device_guard
-from ..ops.device import fetch_rows, upload_planes
+from ..ops.device import fetch_rows, upload, upload_planes
 from ..parallel.sharded import (HALO, distinct, halo_exchange,
                                 norm_device, stitch, window)
 from ..utils import timing
@@ -293,7 +293,7 @@ def execute_sharded(recon, jobs):
             with device_guard(dev):
                 if dev not in on_dev:
                     refs, lut = recon._ref_planes_on(dev)
-                    on_dev[dev] = (refs, lut, torch.from_numpy(pool).to(dev))
+                    on_dev[dev] = (refs, lut, upload(pool, dev))
                 refs, lut, pool_d = on_dev[dev]
                 tables = mc_fused._plane_tables(parts[s], lut, bases,
                                                 n_planes)
@@ -423,8 +423,8 @@ def cdef_shards(planes, maps, Hy, Wy, layout, bd, damping, devices):
             wins = [window(planes[k], s, left >> (ss_hor if k else 0),
                            HALO >> (ss_hor if k else 0))
                     for k in range(len(planes))]
-            m = torch.from_numpy(np.ascontiguousarray(
-                maps[:, :, g0 // 8:(g0 + crop_w) // 8])).to(dev)
+            m = upload(np.ascontiguousarray(
+                maps[:, :, g0 // 8:(g0 + crop_w) // 8]), dev)
             res = cdef.cdef_planes(wins, m, Hy, crop_w, layout, bd, damping)
         for k, r in enumerate(res):
             sh = ss_hor if k else 0
