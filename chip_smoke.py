@@ -2547,10 +2547,10 @@ def _route_decode(path, timed, n_tu=None):
     orig = (inter_device.reconstruct_inter_frame_device, cls.run)
     frames = []
 
-    def frame(plan, refp, device):
+    def frame(plan, refp, device, pool=None):
         before = dict(timing._T)
         frames.append({"route": "emitter"})
-        pic = orig[0](plan, refp, device)
+        pic = orig[0](plan, refp, device, pool)
         frames[-1]["stage_ms"] = {
             k: (v - before.get(k, 0.0)) * 1e3 for k, v in timing._T.items()
             if k.startswith("inter.") and v != before.get(k, 0.0)}

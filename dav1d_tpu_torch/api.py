@@ -192,6 +192,7 @@ class Decoder:
         from .decoder import ObuStreamDecoder
         self._pending.clear()
         self._out.clear()
+        self._dec.close()
         self._dec = ObuStreamDecoder(settings=self.settings)
 
     # -- dav1d_close ----------------------------------------------------

@@ -123,6 +123,10 @@ class ObuStreamDecoder:
             self.n_threads = 1
         self.pipeline = None
         self._tile_pool = None        # lazy Stage-A tile thread pool
+        # lazy Stage-B pool of the native intra engine's tile calls (a
+        # keyframe, an inter frame's leftover runs); its own, so a frame's
+        # tiles never queue behind the next frames' Stage-A parse
+        self._recon_pool = None
         self.device = None
         self.shard_devices = None       # the mesh's shards, when sharded
         # the golden host route: read here, not at each frame as
@@ -140,6 +144,14 @@ class ObuStreamDecoder:
             from .parallel.executor import ReconPipeline
             self.pipeline = ReconPipeline(stageb_depth(
                 self.settings.max_frame_delay, self.golden))
+
+    def close(self) -> None:
+        """Shut the lazy Stage-A tile and Stage-B recon pools: their
+        threads end once their queued calls have run (the pipeline's
+        frames still in flight are dropped with this decoder)."""
+        for pool in (self._tile_pool, self._recon_pool):
+            if pool is not None:
+                pool.shutdown(wait=False)
 
     def _split_tiles(self, fh) -> list:
         tiles = []
@@ -622,6 +634,12 @@ class ObuStreamDecoder:
         pic = out_view = out_pic = None
         if self.do_recon and coder_factory is None:
             if self.pipeline is not None:
+                if self._recon_pool is None:
+                    # the Stage-B thread runs one tile call itself
+                    from concurrent.futures import ThreadPoolExecutor
+                    self._recon_pool = ThreadPoolExecutor(
+                        max_workers=min(self.n_threads, 16) - 1,
+                        thread_name_prefix="recon")
                 # split submit: the ref promise resolves when the
                 # reconstruction+filter chain is enqueued, so the next
                 # frame's Stage B overlaps this frame's output fetch /
@@ -741,19 +759,19 @@ class ObuStreamDecoder:
         if key_or_intra and not fh.allow_intrabc:
             from .recon.intra import reconstruct_intra_frame
             with timing.phase("intra.frame_recon"):
-                pic = reconstruct_intra_frame(plan)
+                pic = reconstruct_intra_frame(plan, self._recon_pool)
         elif not key_or_intra and not self.golden:
             with timing.phase("inter.frame_recon"):
                 if shards is not None:
                     from .recon.sharded_stageb import \
                         reconstruct_inter_frame_sharded
                     pic = reconstruct_inter_frame_sharded(
-                        plan, refp, self.device, shards)
+                        plan, refp, self.device, shards, self._recon_pool)
                 else:
                     from .recon.inter_device import \
                         reconstruct_inter_frame_device
-                    pic = reconstruct_inter_frame_device(plan, refp,
-                                                         self.device)
+                    pic = reconstruct_inter_frame_device(
+                        plan, refp, self.device, self._recon_pool)
         else:
             # intrabc frames copy from the picture being decoded: an
             # inherently sequential walk (reference recon_tmpl.c:1583),

@@ -83,9 +83,10 @@ class DeviceInterReconstructor(InterReconstructor):
     #                 mk0..mk3, dy0, dx0, amx0, amy0, ft0, ref0,
     #                 dy1, dx1, amx1, amy1, ft1, ref1
     #  res   (n, 7):  plane, tx, txtp, py, px, cf_local_off, tile_idx
-    def __init__(self, plan, refp, device):
+    def __init__(self, plan, refp, device, pool=None):
         super().__init__(plan, refp)
         self.device = device
+        self.tile_pool = pool    # the leftover runs' tile calls, at once
         # the collector walk's job lists (run)
         self.collecting = False
         self.puts = []
@@ -376,7 +377,7 @@ class DeviceInterReconstructor(InterReconstructor):
                 return
             idxs = [g for g, _ in run_idxs]
             if not intra_native.recon_blocks_native(self.plan, self.pic,
-                                                    idxs):
+                                                    idxs, self.tile_pool):
                 for g, tr in run_idxs:
                     replay(g, tr)
             run_idxs.clear()
@@ -489,7 +490,7 @@ class DeviceInterReconstructor(InterReconstructor):
                     return
                 idxs = [i for i, _, _ in run]
                 if not intra_native.recon_blocks_native(
-                        self.plan, self.pic, idxs):
+                        self.plan, self.pic, idxs, self.tile_pool):
                     for _i, b, bounds in run:
                         self._recon_block(b, *bounds)
                 run.clear()
@@ -623,12 +624,14 @@ class DeviceInterReconstructor(InterReconstructor):
         self.pic.host_stale = True
 
 
-def reconstruct_inter_frame_device(plan, refp, device):
+def reconstruct_inter_frame_device(plan, refp, device, pool=None):
     """Stage B of one inter frame on `device`: the native emitter's
     tables, or the Python collector walk for a frame it does not serve;
-    returns the Picture with its planes on the device (`pic.dev`), or
-    on the host when no block ran on the device."""
-    return reconstruct_with(DeviceInterReconstructor(plan, refp, device))
+    the host replay's tile calls run on `pool` when given. Returns the
+    Picture with its planes on the device (`pic.dev`), or on the host
+    when no block ran on the device."""
+    return reconstruct_with(DeviceInterReconstructor(plan, refp, device,
+                                                     pool))
 
 
 def reconstruct_with(r):

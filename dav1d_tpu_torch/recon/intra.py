@@ -11,11 +11,12 @@ from . import intra_native
 from .intra_ref import IntraReconstructor
 
 
-def reconstruct_intra_frame(plan):
-    """The reconstructed host Picture of an intra frame's plan. The
-    golden walk reads the Python Block and CoefBlock objects, which a
+def reconstruct_intra_frame(plan, pool=None):
+    """The reconstructed host Picture of an intra frame's plan; the
+    native engine's tile calls run on `pool` when given. The golden
+    walk reads the Python Block and CoefBlock objects, which a
     lazy plan builds here first."""
-    pic = intra_native.reconstruct_intra_frame_native(plan)
+    pic = intra_native.reconstruct_intra_frame_native(plan, pool)
     if pic is not None:
         return pic
     native_tile.materialize_pending(plan)

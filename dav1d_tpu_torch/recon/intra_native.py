@@ -1,8 +1,10 @@
 """ctypes binding for the native intra reconstruction engine
 (native/intrarec.cpp): the keyframe recon_b_intra walk and the
 intra-leftover replay inside inter frames run as one C++ call per tile
-(or per leftover run) straight off the raw Stage-A records — no Python
-per-block walk, no per-pixel ufunc dispatch.
+(of a leftover run, per tile that has some) straight off the raw Stage-A
+records — no Python per-block walk, no per-pixel ufunc dispatch. A
+frame's tile calls run at once on the Stage-B pool the decoder hands in
+(ctypes releases the GIL), or one after another without one.
 
 The vectorized-numpy golden model (recon/intra_ref.py + ops/ipred_ref.py)
 remains the parity oracle; DAV1D_TPU_INTRA=numpy forces it.
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import ctypes as ct
 import os
+from concurrent.futures import wait
 
 import numpy as np
 
@@ -18,6 +21,7 @@ from .. import tables
 from ..entropy import levels as lv
 from ..entropy import native, native_tile
 from ..ops import itx_native
+from ..utils import timing
 
 u8p = ct.POINTER(ct.c_uint8)
 u16p = ct.POINTER(ct.c_uint16)
@@ -138,12 +142,37 @@ def _call(plan, pic, tile, sel):
     return ret == 0
 
 
-def reconstruct_intra_frame_native(plan):
-    """Full keyframe walk, one native call per tile, off the tile
-    records alone (a lazy plan has no Python Block objects). Returns
-    the reconstructed Picture, or None when the native path can't
-    serve this frame (no or partial native Stage-A records, forced
-    off, exotic plane views) — caller falls back to the golden model."""
+def _run_tiles(plan, pic, jobs, pool):
+    """The engine's calls `jobs`, (tile, sel) pairs, into pic: at once
+    when a `pool` is given and more than one tile has work, the first
+    on this thread and the rest on the pool (so a decoder of `n_threads`
+    runs at most that many calls, its pool holding one thread fewer);
+    else one after another on this thread. The tiles read none of each
+    other's pixels (intra edges stop at the tile bounds) and write
+    disjoint rectangles, so their order does not matter. Every call has
+    ended when this returns; True when each succeeded. The calls run at
+    once add to the recorder's counter `intra.pool_tiles`."""
+    if pool is None or len(jobs) < 2:
+        return all(_call(plan, pic, tile, sel) for tile, sel in jobs)
+    _tb()                   # the shared read-only tables, built once
+    itx_native._ctx()       # before the threads start
+    futures = [pool.submit(_call, plan, pic, tile, sel)
+               for tile, sel in jobs[1:]]
+    timing.count("intra.pool_tiles", len(jobs))
+    try:
+        ok = _call(plan, pic, *jobs[0])
+    finally:
+        wait(futures)
+    return all([ok] + [f.result() for f in futures])
+
+
+def reconstruct_intra_frame_native(plan, pool=None):
+    """Full keyframe walk, one native call per tile (on `pool` when
+    given, see _run_tiles), off the tile records alone (a lazy plan has
+    no Python Block objects). Returns the reconstructed Picture, or None
+    when the native path can't serve this frame (no or partial native
+    Stage-A records, forced off, exotic plane views, a failed tile
+    call) — caller falls back to the golden model."""
     if not available() or not native_tile.native_complete(plan):
         return None
     from .picture import Picture
@@ -151,41 +180,35 @@ def reconstruct_intra_frame_native(plan):
     bd = 8 + 2 * f.seq_hdr.hbd if f.seq_hdr.hbd < 2 else 12
     pic = Picture(f.frame_hdr.width[0], f.frame_hdr.height,
                   int(f.layout), bd)
-    for tile in plan.native_tiles:
-        if not _call(plan, pic, tile, None):
-            return None     # picture discarded; golden redoes the frame
+    if not _run_tiles(plan, pic, [(t, None) for t in plan.native_tiles],
+                      pool):
+        return None     # picture discarded; golden redoes the frame
     return pic
 
 
-def recon_blocks_native(plan, pic, idxs) -> bool:
+def recon_blocks_native(plan, pic, idxs, pool=None) -> bool:
     """Reconstruct the given plan-block indices (intra blocks inside an
-    inter frame, in decode order) natively. Returns False when the
-    native path can't serve them (caller replays via the golden path).
-    All-or-nothing: on False nothing has been written."""
+    inter frame, in decode order) natively, one call per tile that has
+    some (on `pool` when given, see _run_tiles). Returns False when the
+    native path can't serve them (caller replays via the golden path);
+    a False from the checks before the calls has written nothing."""
     if not available() or not plan.native_tiles:
         return False
-    # group indices by tile (native_tiles are in decode order)
-    per_tile = []
-    ti = 0
     tiles = plan.native_tiles
-    cur = []
-    for i in idxs:
-        while ti < len(tiles) and \
-                i >= tiles[ti]["block_base"] + len(tiles[ti]["blocks"]):
-            if cur:
-                per_tile.append((tiles[ti], cur))
-                cur = []
-            ti += 1
-        if ti >= len(tiles) or i < tiles[ti]["block_base"]:
-            return False
-        cur.append(i - tiles[ti]["block_base"])
-    if cur:
-        per_tile.append((tiles[ti], cur))
+    idxs = np.asarray(idxs, np.int64)
+    if not len(idxs):
+        return True
+    # the tile of each index (native_tiles are in decode order)
+    base = np.array([t["block_base"] for t in tiles], np.int64)
+    end = base + np.array([len(t["blocks"]) for t in tiles], np.int64)
+    ti = np.searchsorted(base, idxs, side="right") - 1
+    if ti[0] < 0 or (np.diff(ti) < 0).any() or (idxs >= end[ti]).any():
+        return False
+    starts = np.flatnonzero(np.diff(ti)) + 1
+    jobs = [(tiles[ti[s]], part - base[ti[s]])
+            for s, part in zip(np.r_[0, starts], np.split(idxs, starts))]
     # dry-run the ctx checks first so failure can't be partial
-    for tile, _sel in per_tile:
+    for tile, _sel in jobs:
         if _ctx_for(plan, pic, tile) is None:
             return False
-    for tile, sel_list in per_tile:
-        if not _call(plan, pic, tile, sel_list):
-            return False
-    return True
+    return _run_tiles(plan, pic, jobs, pool)

@@ -216,8 +216,8 @@ class ShardedInterReconstructor(DeviceInterReconstructor):
     Leftover blocks and res_fixups replay on the host after the shards'
     planes are fetched (the device leftover route is not taken)."""
 
-    def __init__(self, plan, refp, device, devices):
-        super().__init__(plan, refp, device)
+    def __init__(self, plan, refp, device, devices, pool=None):
+        super().__init__(plan, refp, device, pool)
         self.shard_devices = devices
 
     def run_native(self, jobs):
@@ -329,13 +329,14 @@ def execute_sharded(recon, jobs):
             pic.host_stale = True
 
 
-def reconstruct_inter_frame_sharded(plan, refp, device, devices):
+def reconstruct_inter_frame_sharded(plan, refp, device, devices,
+                                    pool=None):
     """Stage B of one inter frame column-sharded over `devices` (the
-    mesh's shards); the picture's planes stay on the shards
-    (pic.dev_grid), or on the host when it had host work or no block
-    ran on the device."""
+    mesh's shards), the leftover replay's tile calls on `pool` when
+    given; the picture's planes stay on the shards (pic.dev_grid), or on
+    the host when it had host work or no block ran on the device."""
     return reconstruct_with(ShardedInterReconstructor(plan, refp, device,
-                                                      devices))
+                                                      devices, pool))
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,10 @@ from dav1d_tpu_torch.recon import inter_device, sharded_stageb
 from dav1d_tpu_torch.utils import timing
 from dav1d_tpu_torch.utils.muxers import Md5Muxer
 
-from torch_port_cases import GOLDEN_DIR, golden_md5s, rec  # noqa: F401
+from torch_port_cases import (GOLDEN_DIR, HDR_TRANSCODE,  # noqa: F401
+                              hdr_golden, rec)
 
-NAME = "hdr-transcode-192x128"
+NAME = HDR_TRANSCODE
 CONFIG = dict(n_frames=4, seed=4, qidx=60, tile_log2_cols=1,
               tile_log2_rows=1, hbd=1, warped_motion=1,
               switchable_motion_mode=1, jnt_comp=1, masked_compound=1,
@@ -63,15 +64,6 @@ def write_stream():
 def data():
     with open(os.path.join(GOLDEN_DIR, f"{NAME}.ivf"), "rb") as fh:
         return fh.read()
-
-
-@pytest.fixture(scope="module")
-def golden(data):
-    """dav1d_tpu's golden numpy path's md5s of the stream."""
-    with pytest.MonkeyPatch.context() as mp:
-        out = golden_md5s(data, mp)
-    assert len(out) == 4
-    return out
 
 
 def test_stream_committed(data):
@@ -106,8 +98,8 @@ def frames(monkeypatch):
     return seen
 
 
-def test_normal_route_gives_the_golden_md5s(data, golden, frames):
-    assert _md5s(data, device="cpu") == golden
+def test_normal_route_gives_the_golden_md5s(data, hdr_golden, frames):
+    assert _md5s(data, device="cpu") == hdr_golden
     assert len(frames) == INTER_FRAMES
     for f in frames:
         assert all(f[k] > 0 for k in (*JOB_KINDS, "leftovers")), f
@@ -129,10 +121,10 @@ def test_stream_is_10_bit_with_2x2_tiles_and_every_filter(data):
         assert all(t != 0 for t in fh.restoration.type)
 
 
-def test_golden_host_route_gives_the_golden_md5s(data, golden,
+def test_golden_host_route_gives_the_golden_md5s(data, hdr_golden,
                                                   monkeypatch):
     monkeypatch.setenv("DAV1D_TPU_BACKEND", "numpy")
-    assert _md5s(data) == golden
+    assert _md5s(data) == hdr_golden
 
 
 def _site_bytes(monkeypatch):
@@ -188,10 +180,10 @@ def _site_bytes(monkeypatch):
 
 @pytest.mark.parametrize("route", ["host", "device"])
 def test_spans_and_counters_on_the_leftover_routes(rec, monkeypatch, data,
-                                                   golden, frames, route):
+                                                   hdr_golden, frames, route):
     monkeypatch.setenv("DAV1D_TPU_LO", route)
     sites = _site_bytes(monkeypatch)
-    assert _md5s(data, device="cpu") == golden
+    assert _md5s(data, device="cpu") == hdr_golden
     assert timing._N["inter.frame_recon"] == INTER_FRAMES
     assert timing._T["inter.frame_recon"] > 0
     assert timing._N["intra.frame_recon"] == 1
@@ -208,9 +200,9 @@ def test_spans_and_counters_on_the_leftover_routes(rec, monkeypatch, data,
     assert timing._C["upload.bytes"] == sum(sites.values())
 
 
-def test_spans_and_counters_of_a_sharded_decode(rec, data, golden, frames):
+def test_spans_and_counters_of_a_sharded_decode(rec, data, hdr_golden, frames):
     mesh = Mesh(np.array(["cpu", "cpu"], dtype=object), ("tile",))
-    assert _md5s(data, device="cpu", sharding_mesh=mesh) == golden
+    assert _md5s(data, device="cpu", sharding_mesh=mesh) == hdr_golden
     assert timing._N["inter.frame_recon"] == INTER_FRAMES
     assert timing._N["inter.sharded_exec"] == INTER_FRAMES
     lo = sum(f["leftovers"] for f in frames)
@@ -219,12 +211,12 @@ def test_spans_and_counters_of_a_sharded_decode(rec, data, golden, frames):
 
 
 def test_md5s_equal_with_the_recorder_on_and_off(rec, monkeypatch, data,
-                                                  golden):
+                                                  hdr_golden):
     on = _md5s(data, device="cpu")
     assert timing._C["upload.bytes"] > 0
     monkeypatch.setattr(timing, "ENABLED", False)
     counters = dict(timing._C)
-    assert _md5s(data, device="cpu") == on == golden
+    assert _md5s(data, device="cpu") == on == hdr_golden
     assert dict(timing._C) == counters
 
 

@@ -4,8 +4,11 @@ streams with every in-loop filter on (4:2:0 at 8, 10 and 12 bit, 4:2:2,
 golden walks (GOLDEN_WALKS); the super-res and film grain streams
 (SUPERRES_STREAMS, GRAIN_STREAMS, BIG_POST_FILTERS); the kernels'
 decompositions (deblock and CDEF tiles, the OBMC and warp assignments)
-in plain torch; and the `rec` fixture, the port's recorder turned on.
-A test module that wants `rec` imports it by name."""
+in plain torch; the `rec` fixture, the port's recorder turned on; and
+the `hdr_golden` fixture, dav1d_tpu's md5s of the committed
+stream HDR_TRANSCODE, decoded once a process. A test module that wants
+a fixture imports it by name."""
+import functools
 import os
 import threading
 from collections import defaultdict
@@ -300,6 +303,27 @@ def golden_md5s(data, monkeypatch, **settings):
                 m.write_picture(pic)
                 out.append(m.digest())
     monkeypatch.delenv("DAV1D_TPU_BACKEND")
+    return out
+
+
+HDR_TRANSCODE = "hdr-transcode-192x128"
+
+
+@functools.lru_cache(maxsize=None)
+def _hdr_golden():
+    with open(os.path.join(GOLDEN_DIR, f"{HDR_TRANSCODE}.ivf"), "rb") as fh:
+        data = fh.read()
+    with pytest.MonkeyPatch.context() as mp:
+        return tuple(golden_md5s(data, mp))
+
+
+@pytest.fixture
+def hdr_golden():
+    """dav1d_tpu's golden numpy path's md5s of HDR_TRANSCODE, the
+    committed 10-bit 2x2-tile stream of a keyframe and 3 inter frames,
+    decoded once a process."""
+    out = list(_hdr_golden())
+    assert len(out) == 4
     return out
 
 
